@@ -1,0 +1,448 @@
+"""Chip smoke test of the PyTorch / CUDA port: ``python3 chip_smoke.py``.
+
+Builds the port's CUDA kernels from the sources in this checkout, holds
+each against its plain PyTorch version on the card, and drives the
+port's main path — paged continuous-batching serving of qwen2-1.5b at
+full width (28 layers, d 1536, 12 heads, 2 kv-heads, d_ff 8960, vocab
+151936; random weights from a seed) — through `ContinuousBatcher`, the
+entry point the launcher drives. Phases, one line each:
+
+  1. card      nvidia-smi name and power limit, torch and CUDA versions;
+               TF32 off for matmuls and cuDNN
+  2. build     nvcc for sm_90a, one process per kernel, all at once
+  3. kernels   K1 (paged decode) and K2 (paged prefill) at the main
+               path's head shapes (H 12, KV 2, hd 128, bs 16, 8 slots,
+               ragged lengths 0..2048, windows {capacity, 256}, a
+               COW-fragmented table) for bf16, f32 and int8 pools: max
+               abs error vs the plain version <= 1e-4 on valid rows, the
+               bucketed launch bit-identical to the single launch; then
+               times at main-path shapes (CUDA events, median)
+  4. serve     full width, bf16: 8 slots, 16 requests, each a shared
+               256-token system prompt plus a 64..768-token suffix, 64
+               new tokens, prefix index on; the K1/K2 launch counts of
+               this run must be > 0
+  5. serve     the same trace with int8 KV pools
+  6. parity    full width in f32 with 4 layers: greedy tokens with the
+               CUDA kernels equal those with the plain versions on the
+               card, and chunked prefill (64) equals single-shot
+  7. a JSON line {"kernels": [...]} with each kernel's launches, error,
+     times and bound, then the last line
+     {"ok": true, "device": {"platform": "gpu", ...}}
+
+Any failed check ends the script with a non-zero exit and no "ok" line.
+It exits non-zero at once when no CUDA device is present, or when the
+port's sources are not beside it.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+SEED = 0
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def say(phase: str, **fields) -> None:
+    body = " ".join(f"{k}={v}" for k, v in fields.items())
+    print(f"[{phase}] {body}", flush=True)
+
+
+def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
+    """Median device time of one call of `fn`, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+H, KV, HD, BS = 12, 2, 128, 16
+
+
+def make_pools(gen, n_blocks, kind, dev):
+    shape = (n_blocks, BS, KV, HD)
+    k = torch.randn(shape, generator=gen, device=dev)
+    v = torch.randn(shape, generator=gen, device=dev)
+    if kind == "int8":
+        from repro_torch.kernels.paged_common import quantize_pages
+        (kq, ks), (vq, vs) = quantize_pages(k), quantize_pages(v)
+        return kq, vq, ks, vs, torch.bfloat16
+    dt = torch.bfloat16 if kind == "bf16" else torch.float32
+    return k.to(dt), v.to(dt), None, None, dt
+
+
+def fragmented_table(rng, b, mb, n_blocks, dev):
+    """A COW-world table: pages drawn with replacement from a pool half
+    the table's size, so slots share pages and repeat them."""
+    t = rng.integers(1, n_blocks, (b, mb))
+    t[1, :8] = t[0, :8]                       # a shared 8-page prefix
+    return torch.tensor(t, dtype=torch.int32, device=dev)
+
+
+def kernel_checks(dev):
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention, paged_decode_attention_bucketed)
+    from repro_torch.kernels.paged_prefill import (
+        paged_prefill_attention, paged_prefill_attention_bucketed)
+
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, mb, t = 8, 128, 64
+    n_blocks = b * mb // 2 + 1
+    capacity = mb * BS
+    table = fragmented_table(rng, b, mb, n_blocks, dev)
+    lengths = torch.tensor([0, 1, 17, 300, 777, 1024, 1500, 2048],
+                           dtype=torch.int32, device=dev)
+    total = torch.tensor([1, 17, 64, 300, 777, 1024, 1500, 2048],
+                         dtype=torch.int32, device=dev)
+    n_new = torch.tensor([1, 17, 40, 64, 13, 64, 50, 64], dtype=torch.int32,
+                         device=dev)
+    start = torch.clamp(total - n_new, min=0)
+    dvalid = lengths > 0
+    pvalid = (start[:, None] + torch.arange(t, device=dev)[None, :]
+              < total[:, None])
+    errs = {"paged_decode": 0.0, "paged_prefill": 0.0}
+    for kind in ("bf16", "f32", "int8"):
+        kp, vp, ks, vs, qdt = make_pools(gen, n_blocks, kind, dev)
+        q = torch.randn((b, H, HD), generator=gen, device=dev).to(qdt)
+        qp = torch.randn((b, t, H, HD), generator=gen, device=dev).to(qdt)
+        sc = dict(k_scales=ks, v_scales=vs)
+        dplan, dperm = ops.make_bucket_plan(lengths.cpu().numpy(), BS, mb)
+        pplan, pperm = ops.make_bucket_plan(total.cpu().numpy(), BS, mb)
+        check(dplan is not None and pplan is not None, "no bucket plan")
+        dperm = torch.tensor(dperm, dtype=torch.int64, device=dev)
+        pperm = torch.tensor(pperm, dtype=torch.int64, device=dev)
+        for window in (capacity, 256):
+            out = paged_decode_attention(q, kp, vp, table, lengths, window,
+                                         **sc)
+            buck = paged_decode_attention_bucketed(
+                q, kp, vp, table, lengths, window, dplan, dperm, **sc)
+            plain = ref.paged_attention_ref(q, kp, vp, table, lengths,
+                                            window, **sc)
+            torch.cuda.synchronize()
+            err = float((out - plain).abs()[dvalid].max())
+            check(torch.isfinite(out).all(), f"decode {kind}: non-finite")
+            check(err <= 1e-4, f"decode {kind} w={window}: err {err}")
+            check(torch.equal(buck[dvalid], out[dvalid]),
+                  f"decode {kind} w={window}: bucketed != single")
+            errs["paged_decode"] = max(errs["paged_decode"], err)
+
+            out = paged_prefill_attention(qp, kp, vp, table, start, total,
+                                          window, **sc)
+            buck = paged_prefill_attention_bucketed(
+                qp, kp, vp, table, start, total, window, pplan, pperm, **sc)
+            plain = ref.paged_prefill_ref(qp, kp, vp, table, start, total,
+                                          window, **sc)
+            torch.cuda.synchronize()
+            err = float((out - plain).abs()[pvalid].max())
+            check(torch.isfinite(out).all(), f"prefill {kind}: non-finite")
+            check(err <= 1e-4, f"prefill {kind} w={window}: err {err}")
+            check(torch.equal(buck[pvalid], out[pvalid]),
+                  f"prefill {kind} w={window}: bucketed != single")
+            errs["paged_prefill"] = max(errs["paged_prefill"], err)
+        say("kernels", pools=kind, decode_err=errs["paged_decode"],
+            prefill_err=errs["paged_prefill"], bucketed="bit-identical")
+    return errs
+
+
+def sdpa_inputs(kp, vp, table, n_cols):
+    """K/V gathered dense and expanded to all query heads, [B, H, S, hd]
+    (outside the timed region: only the library call is timed)."""
+    pages = table[:, :n_cols].long()
+    b = pages.shape[0]
+    k = kp[pages].reshape(b, n_cols * BS, KV, HD).transpose(1, 2)
+    v = vp[pages].reshape(b, n_cols * BS, KV, HD).transpose(1, 2)
+    g = H // KV
+    return (k.repeat_interleave(g, dim=1).contiguous(),
+            v.repeat_interleave(g, dim=1).contiguous())
+
+
+def kernel_timings(dev):
+    """Times at the main path's shapes: K1 over the 8 decode slots of
+    the serving trace, K2 over one slot's 768-token suffix after the
+    256-token shared prefix. bf16 q and pools, table width 68 (1088
+    tokens of capacity)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.paged_prefill import paged_prefill_attention
+    F = torch.nn.functional
+
+    rng = np.random.default_rng(SEED + 1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    mb = 68
+    capacity = mb * BS
+    b = 8
+    n_blocks = 1 + b * mb
+    kp, vp, _, _, dt = make_pools(gen, n_blocks, "bf16", dev)
+    table = torch.tensor(
+        rng.permutation(np.arange(1, n_blocks))[: b * mb].reshape(b, mb),
+        dtype=torch.int32, device=dev)
+    item = kp.element_size()
+    out = {}
+
+    lens_host = [340, 420, 560, 700, 810, 930, 1010, 1088]
+    lengths = torch.tensor(lens_host, dtype=torch.int32, device=dev)
+    q = torch.randn((b, H, HD), generator=gen, device=dev).to(dt)
+    ms = cuda_ms(lambda: paged_decode_attention(q, kp, vp, table, lengths,
+                                                capacity))
+    plain_ms = cuda_ms(lambda: ref.paged_attention_ref(
+        q, kp, vp, table, lengths, capacity))
+    k_all, v_all = sdpa_inputs(kp, vp, table, mb)
+    mask = (torch.arange(capacity, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], k_all, v_all, attn_mask=mask))
+    kv_pos = sum(lens_host)
+    nbytes = (2 * kv_pos * KV * HD * item + q.numel() * item
+              + b * H * HD * 4 + table.numel() * 4 + b * 4)
+    ops = 4 * HD * H * kv_pos
+    out["paged_decode"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               **bound(nbytes, ops, dt),
+                               shape=f"q[{b},{H},{HD}] lens {lens_host}")
+
+    st_, tot = 256, 1024
+    t = tot - st_
+    q1 = torch.randn((1, t, H, HD), generator=gen, device=dev).to(dt)
+    start = torch.tensor([st_], dtype=torch.int32, device=dev)
+    total = torch.tensor([tot], dtype=torch.int32, device=dev)
+    bt1 = table[:1].contiguous()
+    ms = cuda_ms(lambda: paged_prefill_attention(q1, kp, vp, bt1, start,
+                                                 total, capacity))
+    plain_ms = cuda_ms(lambda: ref.paged_prefill_ref(
+        q1, kp, vp, bt1, start, total, capacity))
+    k1, v1 = sdpa_inputs(kp, vp, bt1, tot // BS)
+    qpos = st_ + torch.arange(t, device=dev)
+    pmask = (torch.arange(tot, device=dev)[None, :]
+             <= qpos[:, None])[None, None]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q1.transpose(1, 2), k1, v1, attn_mask=pmask))
+    pairs = sum(st_ + i + 1 for i in range(t))
+    nbytes = (2 * tot * KV * HD * item + q1.numel() * item
+              + q1.numel() * 4 + bt1.numel() * 4 + 8)
+    ops = 4 * HD * H * pairs
+    out["paged_prefill"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                **bound(nbytes, ops, dt),
+                                shape=f"q[1,{t},{H},{HD}] start {st_} "
+                                      f"total {tot}")
+    for name, r in out.items():
+        say("timing", kernel=name, shape=repr(r["shape"]), ms=r["ms"],
+            plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+    return out
+
+
+def bound(nbytes: int, ops: int, dtype) -> dict:
+    """Least time for the work: bytes each input read / output written
+    once over HBM, or its operations over the tensor-core peak of the
+    input type — whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops)
+
+
+# ---------------------------------------------------------------------------
+# phases 4-6: the main path
+# ---------------------------------------------------------------------------
+
+def serving_trace(vocab, n_requests, shared_len, suffix_lo, suffix_hi, seed):
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, shared_len, dtype=np.int32)
+    return [
+        np.concatenate([shared, rng.integers(
+            0, vocab, int(rng.integers(suffix_lo, suffix_hi + 1)),
+            dtype=np.int32)])
+        for _ in range(n_requests)
+    ]
+
+
+def drain(cfg, params, prompts, new_tokens, n_slots, cache_len, dev, **kw):
+    from repro_torch.kernels import paged_attention, paged_prefill
+    from repro_torch.serve import ContinuousBatcher, Request
+
+    cb = ContinuousBatcher(cfg, params, n_slots=n_slots, cache_len=cache_len,
+                           paged=True, block_size=BS, device=dev, **kw)
+    for uid, p in enumerate(prompts):
+        cb.submit(Request(uid=uid, prompt=p, max_new_tokens=new_tokens))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    paged_attention.LAUNCHES = 0
+    paged_prefill.LAUNCHES = 0
+    t0 = time.perf_counter()
+    results = cb.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_decode": paged_attention.LAUNCHES,
+                "paged_prefill": paged_prefill.LAUNCHES}
+    cb.pcache.check_invariants(
+        None if cb.prefix is None else cb.prefix.page_refs())
+    n_tok = sum(len(v) for v in results.values())
+    stats = dict(
+        requests=len(results), tokens=n_tok, wall_s=wall,
+        tokens_per_s=n_tok / wall, ticks=cb.ticks,
+        prefill_tokens=cb.prefill_tokens,
+        pages_allocated=cb.pcache.pages_allocated,
+        prefix_hits=None if cb.prefix is None else cb.prefix.hits,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        k1_launches=launches["paged_decode"],
+        k2_launches=launches["paged_prefill"],
+    )
+    return results, stats, launches
+
+
+def serve_full_width(cfg, params, dev, kv_dtype):
+    prompts = serving_trace(cfg.vocab_size, 16, 256, 64, 768, SEED)
+    new_tokens = 64
+    results, stats, launches = drain(
+        cfg, params, prompts, new_tokens, 8, 256 + 768 + new_tokens, dev,
+        prefix=True, bucket_strategy="pow2", kernel_impl="auto",
+        kv_dtype=kv_dtype)
+    check(stats["requests"] == 16, f"{kv_dtype}: not every request finished")
+    check(all(len(v) == new_tokens for v in results.values()),
+          f"{kv_dtype}: a request stopped short")
+    check(all(0 <= x < cfg.vocab_size for v in results.values() for x in v),
+          f"{kv_dtype}: token outside the vocab")
+    check(launches["paged_decode"] > 0 and launches["paged_prefill"] > 0,
+          f"{kv_dtype}: main path did not launch both kernels: {launches}")
+    check(stats["prefix_hits"] > 0, f"{kv_dtype}: no prefix hit")
+    say("serve", model=cfg.name, kv_dtype=kv_dtype, **stats)
+    return launches
+
+
+def token_parity(dev):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), dtype="float32",
+                              n_layers=4)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED + 2),
+                     dev)
+    prompts = serving_trace(cfg.vocab_size, 6, 128, 16, 256, SEED + 2)
+    new_tokens, cache_len = 16, 128 + 256 + 16
+    runs = {}
+    for name, kw in (("kernel", dict(kernel_impl="auto")),
+                     ("plain", dict(kernel_impl="ref")),
+                     ("chunked", dict(kernel_impl="auto", prefill_chunk=64))):
+        runs[name] = drain(cfg, params, prompts, new_tokens, 4, cache_len,
+                           dev, prefix=True, **kw)[0]
+    check(runs["kernel"] == runs["plain"],
+          "f32 tokens differ between the CUDA kernels and the plain versions")
+    check(runs["chunked"] == runs["kernel"],
+          "chunked-prefill tokens differ from single-shot")
+    say("parity", model=f"{cfg.name}[f32,4L]", requests=len(runs["kernel"]),
+        tokens=sum(len(v) for v in runs["kernel"].values()),
+        kernel_eq_plain=True, chunked_eq_single=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_lm
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say("card", name=repr(torch.cuda.get_device_name(0)),
+        torch=torch.__version__, cuda=torch.version.cuda,
+        matmul_tf32=torch.backends.cuda.matmul.allow_tf32,
+        cudnn_tf32=torch.backends.cudnn.allow_tf32)
+
+    t0 = time.perf_counter()
+    libs = _build.build()
+    say("build", seconds=time.perf_counter() - t0,
+        libs=",".join(p.name for p in libs.values()))
+    for name in libs:
+        for line in _build.log_path(name).read_text().splitlines():
+            if "registers" in line:
+                print(f"  ptxas {name}: {line.strip()}", flush=True)
+
+    errs = kernel_checks(dev)
+    times = kernel_timings(dev)
+
+    cfg = get_config("qwen2-1.5b")
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    say("init", model=cfg.name, params=n_params,
+        seconds=time.perf_counter() - t0)
+    launches = serve_full_width(cfg, params, dev, "bf16")
+    serve_full_width(cfg, params, dev, "int8")
+    del params
+    torch.cuda.empty_cache()
+    token_parity(dev)
+
+    sources = {
+        "paged_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",
+                         "src/repro/kernels/paged_attention.py:60"),
+        "paged_prefill": ("src/repro_torch/kernels/csrc/paged_prefill.cu",
+                          "src/repro/kernels/paged_prefill.py:70"),
+    }
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        r = times[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches[name], max_abs_err=errs[name], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,16 @@
+"""PyTorch / CUDA port of the paged continuous-batching serving path.
+
+The JAX package `repro` is the reference; this package mirrors its
+layout and names (`repro_torch.serve.scheduler` is the counterpart of
+`repro.serve.scheduler`, and so on) so every module has an obvious
+twin. It imports torch, numpy and the standard library only — never
+jax and never `repro` — and keeps its own copies of the framework-free
+pieces it needs (configs).
+
+Ported so far: the paged serving path of attention decoders
+(configs -> kernels -> models -> serve -> launch), with the two paged
+attention kernels hand-written in CUDA C++ for sm_90a
+(`kernels/csrc/`). Entry points run on the card (`device="cuda"`)
+unless the caller passes `device="cpu"`, where every kernel wrapper
+takes its plain PyTorch version.
+"""

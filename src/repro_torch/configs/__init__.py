@@ -1,0 +1,31 @@
+"""Architecture registry: ``--arch <id>`` resolves here.
+
+Lists only the architectures the port runs; each module defines
+``config()`` (published numbers) and ``smoke()`` (same family, tiny
+dims, CPU-testable) — copies of the reference's config modules.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from .base import ModelConfig
+
+_MODULES: Dict[str, str] = {
+    "qwen2-1.5b": "qwen2_1_5b",
+}
+
+ARCH_IDS: List[str] = list(_MODULES)
+
+
+def get_config(arch: str, smoke: bool = False) -> ModelConfig:
+    if arch not in _MODULES:
+        raise KeyError(
+            f"unknown arch {arch!r}; the port runs: {sorted(_MODULES)}"
+        )
+    mod = importlib.import_module(f".{_MODULES[arch]}", __package__)
+    return mod.smoke() if smoke else mod.config()
+
+
+__all__ = ["ARCH_IDS", "ModelConfig", "get_config"]

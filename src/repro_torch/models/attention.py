@@ -1,0 +1,244 @@
+"""Paged GQA attention: counterpart of `repro.models.attention` (its
+lines 29-84 and 294-509).
+
+The reference's pools are immutable and each call returns new ones.
+Here the per-layer pools passed in are views of the stacked
+`[L, n_blocks, ...]` pools, and the KV append writes into them IN PLACE
+(`index_put_`); the functions still return the pools so the call shape
+matches the reference's.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..kernels.paged_attention import paged_attention
+from ..kernels.paged_common import requantize_page_update
+from ..kernels.paged_prefill import paged_prefill
+from .common import Params, apply_rope, dense_init
+from .mlp import linear
+
+
+def _select_bucket_plan(call, bucket_plans, bucket_perms, plan_class):
+    """Run `call(plan, perm)` under the layer's bucket-plan variant. The
+    reference selects with `lax.switch` on a traced group id; here the
+    group id is a host int and the select is plain indexing."""
+    if bucket_plans is None:
+        return call(None, None)
+    idx = 0 if plan_class is None or len(bucket_plans) == 1 else plan_class
+    return call(bucket_plans[idx], bucket_perms[idx])
+
+
+def init_attention(d_model: int, n_heads: int, n_kv_heads: int,
+                   head_dim: int, qkv_bias: bool, generator, device,
+                   dtype=torch.float32) -> Params:
+    p: Params = {
+        "wq": dense_init(d_model, n_heads * head_dim, generator, device,
+                         dtype),
+        "wk": dense_init(d_model, n_kv_heads * head_dim, generator, device,
+                         dtype),
+        "wv": dense_init(d_model, n_kv_heads * head_dim, generator, device,
+                         dtype),
+        "wo": dense_init(n_heads * head_dim, d_model, generator, device,
+                         dtype),
+    }
+    if qkv_bias:
+        for name, width in (("bq", n_heads), ("bk", n_kv_heads),
+                            ("bv", n_kv_heads)):
+            p[name] = torch.zeros((width * head_dim,), dtype=dtype,
+                                  device=device)
+    return p
+
+
+def _project_qkv(params, x, n_heads, n_kv, hd):
+    b, t, _ = x.shape
+    q = linear(x, params["wq"])
+    k = linear(x, params["wk"])
+    v = linear(x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"].to(q.dtype)
+        k = k + params["bk"].to(k.dtype)
+        v = v + params["bv"].to(v.dtype)
+    return (q.reshape(b, t, n_heads, hd), k.reshape(b, t, n_kv, hd),
+            v.reshape(b, t, n_kv, hd))
+
+
+def attention_decode_paged(
+    params: Params,
+    x: torch.Tensor,            # [B, 1, D] — one new token per slot
+    positions: torch.Tensor,    # [B] int32 — per-slot index of the new token
+    k_pages: torch.Tensor,      # [n_blocks, bs, KV, hd] this layer's pool
+    v_pages: torch.Tensor,
+    block_table: torch.Tensor,  # [B, max_blocks] int32
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    rope_theta: float,
+    window: Optional[int] = None,  # None = full causal
+    impl: str = "auto",
+    block_start: Optional[torch.Tensor] = None,  # [B] first live block
+    bucket_plans=None,
+    bucket_perms=None,
+    plan_class=None,
+    k_scales: Optional[torch.Tensor] = None,  # [n_blocks, KV] f32 (int8)
+    v_scales: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """One-token decode against a block-paged cache: each slot's new KV
+    row goes to page `block_table[b, pos // bs]`, offset `pos % bs`
+    (idle slots all target scratch page 0, the only page that may
+    receive duplicate writes), then K1 runs over each slot's ragged
+    length.
+
+    int8 pools: the one touched page per slot is dequantized, the new
+    row scattered in, and the page requantized under its new absmax;
+    codes and scales are written back in place and the return grows to
+    `(out, k_pages, v_pages, k_scales, v_scales)`."""
+    b = x.shape[0]
+    bs = k_pages.shape[1]
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim)
+    q = apply_rope(q, positions[:, None], rope_theta)
+    k = apply_rope(k, positions[:, None], rope_theta)
+    pos = positions.long()
+    rows = torch.arange(b, device=x.device)
+    page = block_table[rows, pos // bs].long()                 # [B]
+    offset = pos % bs
+    if k_scales is None:
+        k_pages[page, offset] = k[:, 0].to(k_pages.dtype)
+        v_pages[page, offset] = v[:, 0].to(v_pages.dtype)
+    else:
+        def scatter_row(new):                      # new: [B, KV, hd]
+            def upd(pages_f):                      # [B, bs, KV, hd] f32
+                pages_f[rows, offset] = new.float()
+                return pages_f
+            return upd
+
+        k_codes, k_sc = requantize_page_update(
+            k_pages[page], k_scales[page], scatter_row(k[:, 0])
+        )
+        v_codes, v_sc = requantize_page_update(
+            v_pages[page], v_scales[page], scatter_row(v[:, 0])
+        )
+        k_pages[page] = k_codes
+        v_pages[page] = v_codes
+        k_scales[page] = k_sc
+        v_scales[page] = v_sc
+    capacity = block_table.shape[1] * bs
+    win = capacity if window is None else int(window)
+    lengths = (positions + 1).to(torch.int32)
+    q1 = q[:, 0].contiguous()
+
+    def call(plan, perm):
+        return paged_attention(
+            q1, k_pages, v_pages, block_table, lengths, win,
+            impl=impl, plan=plan, perm=perm, block_start=block_start,
+            k_scales=k_scales, v_scales=v_scales,
+        )                                                    # [B, H, hd] f32
+
+    out = _select_bucket_plan(call, bucket_plans, bucket_perms, plan_class)
+    out = out.reshape(b, 1, n_heads * head_dim).to(x.dtype)
+    out = linear(out, params["wo"])
+    if k_scales is None:
+        return out, k_pages, v_pages
+    return out, k_pages, v_pages, k_scales, v_scales
+
+
+def attention_prefill_paged(
+    params: Params,
+    x: torch.Tensor,            # [B, T, D] — uncached suffix tokens (T padded)
+    start: torch.Tensor,        # [B] int32 — cached-prefix length per slot
+    total: torch.Tensor,        # [B] int32 — full valid length per slot
+    k_pages: torch.Tensor,      # [n_blocks, bs, KV, hd] this layer's pool
+    v_pages: torch.Tensor,
+    block_table: torch.Tensor,  # [B, max_blocks] int32
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    rope_theta: float,
+    window: Optional[int] = None,
+    impl: str = "auto",
+    block_start: Optional[torch.Tensor] = None,
+    bucket_plans=None,
+    bucket_perms=None,
+    plan_class=None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Suffix prefill against a block-paged cache: suffix token t sits at
+    `start + t` (RoPE there), its KV goes to page
+    `block_table[b, (start+t) // bs]`, and K2 runs over the cached prefix
+    and the fresh suffix. Pad rows whose position falls past the table
+    go to scratch page 0 — never clamped onto the slot's last page.
+    Chunked prefill is this call repeated with an advancing `start`.
+
+    int8 pools: the slot's table row is dequantized, the suffix scattered
+    in (pad rows to a dummy row, so a ragged last page is scaled by valid
+    tokens only), and requantized; touched columns write back in place,
+    untouched ones — shared prefix pages included — write to scratch page
+    0, so a shared page is never written."""
+    b, t, _ = x.shape
+    bs = k_pages.shape[1]
+    mb = block_table.shape[1]
+    dev = x.device
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim)
+    positions = start.long()[:, None] + torch.arange(t, device=dev)[None, :]
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    block_idx = positions // bs                              # [B, T]
+    offset = positions % bs
+    if k_scales is None:
+        page = torch.gather(block_table.long(), 1,
+                            block_idx.clamp(max=mb - 1))
+        page = torch.where(block_idx < mb, page, 0)
+        k_pages[page, offset] = k.to(k_pages.dtype)
+        v_pages[page, offset] = v.to(v_pages.dtype)
+    else:
+        valid = (positions < total.long()[:, None]) & (block_idx < mb)
+        row = torch.where(valid, block_idx, mb)              # pads → dummy
+        col = torch.arange(mb, device=dev)[None, :]
+        touched = (col >= (start.long() // bs)[:, None]) & (
+            col * bs < total.long()[:, None]
+        )
+        bt = block_table.long()
+        write_pages = torch.where(touched, bt, 0)
+        rows = torch.arange(b, device=dev)[:, None]
+
+        def scatter_suffix(new):                   # new: [B, T, KV, hd]
+            def upd(pages_f):                      # [B, mb, bs, KV, hd] f32
+                padded = torch.cat(
+                    [pages_f, torch.zeros_like(pages_f[:, :1])], dim=1
+                )
+                padded[rows, row, offset] = new.float()
+                return padded[:, :mb]
+            return upd
+
+        k_codes, k_sc = requantize_page_update(
+            k_pages[bt], k_scales[bt], scatter_suffix(k)
+        )
+        v_codes, v_sc = requantize_page_update(
+            v_pages[bt], v_scales[bt], scatter_suffix(v)
+        )
+        k_pages[write_pages] = k_codes
+        v_pages[write_pages] = v_codes
+        k_scales[write_pages] = k_sc
+        v_scales[write_pages] = v_sc
+    capacity = mb * bs
+    win = capacity if window is None else int(window)
+    qc = q.contiguous()
+
+    def call(plan, perm):
+        return paged_prefill(
+            qc, k_pages, v_pages, block_table, start, total, win,
+            impl=impl, plan=plan, perm=perm, block_start=block_start,
+            k_scales=k_scales, v_scales=v_scales,
+        )                                                    # [B, T, H, hd]
+
+    out = _select_bucket_plan(call, bucket_plans, bucket_perms, plan_class)
+    out = out.reshape(b, t, n_heads * head_dim).to(x.dtype)
+    out = linear(out, params["wo"])
+    if k_scales is None:
+        return out, k_pages, v_pages
+    return out, k_pages, v_pages, k_scales, v_scales

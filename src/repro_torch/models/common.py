@@ -1,0 +1,101 @@
+"""Shared model building blocks: dtype policy, device, init, norms, RoPE.
+
+Counterpart of `repro.models.common`. Parameters are plain nested dicts
+of tensors, with the reference's names (projection kernels ``w*``,
+biases ``b*``, norm gains ``g``) and layouts (``[fan_in, fan_out]``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+Params = Dict[str, Any]
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. Entry points default to
+    `"cuda"`; with no card present that raises instead of moving to the
+    CPU behind the caller's back — the CPU runs only when asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but no CUDA device is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# init (same shapes and scales as the reference; other random numbers)
+# ---------------------------------------------------------------------------
+
+def dense_init(fan_in: int, fan_out: int, generator: torch.Generator,
+               device, dtype=torch.float32) -> torch.Tensor:
+    """Truncated-normal fan-in init: stddev 1/sqrt(fan_in), cut at ±3σ."""
+    w = torch.empty((fan_in, fan_out), dtype=torch.float32, device=device)
+    std = 1.0 / math.sqrt(fan_in)
+    torch.nn.init.trunc_normal_(w, 0.0, std, -3.0 * std, 3.0 * std,
+                                generator=generator)
+    return w.to(dtype)
+
+
+def embed_init(vocab: int, dim: int, generator: torch.Generator, device,
+               dtype=torch.float32) -> torch.Tensor:
+    w = torch.empty((vocab, dim), dtype=torch.float32, device=device)
+    w.normal_(0.0, 0.02, generator=generator)
+    return w.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_params(dim: int, device) -> Params:
+    return {"g": torch.ones((dim,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5):
+    """RMS norm computed in f32 (the gain stays f32), cast back to x's
+    dtype."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * params["g"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (
+        theta ** (torch.arange(0, half, dtype=torch.float32, device=device)
+                  / half)
+    )
+
+
+def apply_rope(
+    x: torch.Tensor,            # [..., T, H, hd]
+    positions: torch.Tensor,    # [..., T] int
+    theta: float,
+) -> torch.Tensor:
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)               # [hd/2]
+    angles = positions[..., None].float() * freqs               # [..., T, hd/2]
+    cos = torch.cos(angles)[..., None, :]                       # [..., T, 1, hd/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+ACTS = {"silu": torch.nn.functional.silu}

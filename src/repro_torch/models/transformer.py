@@ -1,0 +1,293 @@
+"""Decoder-only LM, paged serving entry points: counterpart of the
+attention-stack parts of `repro.models.transformer`.
+
+Parameters keep the reference's tree: layer parameters stacked as
+`[L, ...]` under "layers". The reference scans the stack with
+`lax.scan`; here a Python loop walks the layers, and each layer's
+parameters and pools are views `stack[l]`, so the in-place KV writes of
+the attention layer land in the stacked pools.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..kernels.ops import is_bucket_plan
+from .attention import (
+    attention_decode_paged,
+    attention_prefill_paged,
+    init_attention,
+)
+from .common import (
+    Params,
+    compute_dtype,
+    embed_init,
+    resolve_device,
+    rmsnorm,
+    rmsnorm_params,
+)
+from .mlp import init_swiglu, swiglu
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.block_kind != "attn" or cfg.n_experts or cfg.mlp_kind != "swiglu":
+        raise NotImplementedError(
+            f"{cfg.name}: only attention + SwiGLU stacks are ported yet"
+        )
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_layer(cfg: ModelConfig, generator, device, dtype) -> Params:
+    return {
+        "ln1": rmsnorm_params(cfg.d_model, device),
+        "attn": init_attention(
+            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.qkv_bias,
+            generator, device, dtype,
+        ),
+        "ln2": rmsnorm_params(cfg.d_model, device),
+        "mlp": init_swiglu(cfg.d_model, cfg.d_ff, generator, device, dtype),
+    }
+
+
+def _stack(trees: List[Params]) -> Params:
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def init_lm(cfg: ModelConfig, generator: torch.Generator,
+            device="cuda") -> Params:
+    """Random parameters with the reference's shapes and init scales
+    (truncated-normal fan-in projections, N(0, 0.02) embeddings, zero
+    biases, unit norm gains), drawn from `generator` — which must live
+    on `device`. Weights are stored in the compute dtype, norm gains in
+    f32 (the same once-cast `bridge.params_from_jax` applies)."""
+    cfg.validate()
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    dt = compute_dtype(cfg.dtype)
+    layers = [init_layer(cfg, generator, dev, dt) for _ in range(cfg.n_layers)]
+    params: Params = {
+        "embed": embed_init(cfg.vocab_size, cfg.d_model, generator, dev, dt),
+        "layers": _stack(layers),
+        "final_norm": rmsnorm_params(cfg.d_model, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = embed_init(cfg.d_model, cfg.vocab_size,
+                                       generator, dev, dt)
+    return params
+
+
+def layer_params(stacked: Params, l: int) -> Params:
+    """Layer `l`'s parameter tree: views into the stacked tensors."""
+    if isinstance(stacked, dict):
+        return {k: layer_params(v, l) for k, v in stacked.items()}
+    return stacked[l]
+
+
+# ---------------------------------------------------------------------------
+# embedding / head
+# ---------------------------------------------------------------------------
+
+def _embed(params, tokens, cfg):
+    return params["embed"][tokens.long()].to(compute_dtype(cfg.dtype))
+
+
+def _head(params, x, cfg):
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    w = params["lm_head"] if "lm_head" in params else params["embed"].T
+    return x @ w.to(x.dtype)
+
+
+def _window_array(cfg: ModelConfig, seq_len: int) -> List[int]:
+    return list(cfg.window_schedule(seq_len))
+
+
+# ---------------------------------------------------------------------------
+# layer groups and paged pools
+# ---------------------------------------------------------------------------
+
+def layer_attn_groups(cfg: ModelConfig, capacity: int) -> list:
+    """Partition the layer stack by attention pattern:
+    `[(window, layers), ...]` with `window=None` for global layers
+    (global groups first, then windowed ones by ascending window). The
+    paged cache and the paged entry points both derive the partition
+    from this one function."""
+    groups: Dict[Optional[int], list] = {}
+    for l, w in enumerate(cfg.window_schedule(capacity)):
+        key = None if w >= capacity else int(w)
+        groups.setdefault(key, []).append(l)
+    keys = sorted(groups, key=lambda k: (k is not None, k or 0))
+    return [(k, tuple(groups[k])) for k in keys]
+
+
+def layer_group_index(cfg: ModelConfig, capacity: int) -> np.ndarray:
+    """[L] int32: each layer's index into `layer_attn_groups`."""
+    cls = np.zeros((cfg.n_layers,), np.int32)
+    for gid, (_, layers) in enumerate(layer_attn_groups(cfg, capacity)):
+        cls[list(layers)] = gid
+    return cls
+
+
+def init_paged_pool(
+    cfg: ModelConfig, n_blocks: int, block_size: int, kv_dtype: str = "bf16",
+    device="cuda",
+) -> Tuple[torch.Tensor, ...]:
+    """Stacked per-layer KV page pools [L, n_blocks, bs, KV, hd].
+    `kv_dtype="bf16"` keeps the model's compute dtype and returns
+    `(k_pages, v_pages)`; `"int8"` returns int8 codes plus f32 scale
+    stacks [L, n_blocks, KV] initialised to 1.0:
+    `(k_pages, v_pages, k_scales, v_scales)`."""
+    if cfg.block_kind != "attn":
+        raise ValueError(
+            f"paged KV cache requires attention layers, got {cfg.block_kind}"
+        )
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.hd)
+    if kv_dtype == "bf16":
+        dt = compute_dtype(cfg.dtype)
+        return (torch.zeros(shape, dtype=dt, device=dev),
+                torch.zeros(shape, dtype=dt, device=dev))
+    if kv_dtype != "int8":
+        raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
+    sshape = (cfg.n_layers, n_blocks, cfg.n_kv_heads)
+    return (
+        torch.zeros(shape, dtype=torch.int8, device=dev),
+        torch.zeros(shape, dtype=torch.int8, device=dev),
+        torch.ones(sshape, dtype=torch.float32, device=dev),
+        torch.ones(sshape, dtype=torch.float32, device=dev),
+    )
+
+
+def _per_layer_paged_views(cfg, block_table, block_start, bucket_plan,
+                           bucket_perm, capacity):
+    """Normalize the layer-major arguments: tables [B, mb] broadcast to
+    every layer (or [L, B, mb] per layer), starts [B] / [L, B] / None,
+    and `bucket_plan` a single plan or a per-group tuple. Returns
+    (bt [L,B,mb], starts [L,B], plans tuple|None, perms tuple|None,
+    cls [L] host ints)."""
+    l = cfg.n_layers
+    if block_table.dim() == 2:
+        block_table = block_table[None].expand((l,) + tuple(block_table.shape))
+    b = block_table.shape[1]
+    if block_start is None:
+        block_start = torch.zeros((l, b), dtype=torch.int32,
+                                  device=block_table.device)
+    elif block_start.dim() == 1:
+        block_start = block_start[None].expand(l, b)
+    if bucket_plan is None:
+        plans, perms = None, None
+    elif is_bucket_plan(bucket_plan):
+        plans, perms = (bucket_plan,), (bucket_perm,)
+    else:
+        plans, perms = tuple(bucket_plan), tuple(bucket_perm)
+    if plans is not None and len(plans) > 1:
+        cls = layer_group_index(cfg, capacity).tolist()
+    else:
+        cls = [0] * l
+    return block_table, block_start, plans, perms, cls
+
+
+def _attn_kwargs(cfg: ModelConfig):
+    return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.hd, rope_theta=cfg.rope_theta)
+
+
+def _run_layers(params, x, cfg, attn_fn, attn_args, k_pages, v_pages,
+                block_table, block_start, bucket_plan, bucket_perm,
+                k_scales, v_scales, impl):
+    """The layer loop shared by decode and prefill (the reference's two
+    `lax.scan` bodies): attention through `attn_fn` with each layer's
+    pools, table, window and plan variant, then the SwiGLU block."""
+    capacity = block_table.shape[-1] * k_pages.shape[2]
+    windows = _window_array(cfg, capacity)
+    bt, st, plans, perms, cls = _per_layer_paged_views(
+        cfg, block_table, block_start, bucket_plan, bucket_perm, capacity
+    )
+    quantized = k_scales is not None
+    for l in range(cfg.n_layers):
+        lp = layer_params(params["layers"], l)
+        h = attn_fn(
+            lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), *attn_args,
+            k_pages[l], v_pages[l], bt[l].contiguous(),
+            window=windows[l], impl=impl, block_start=st[l].contiguous(),
+            bucket_plans=plans, bucket_perms=perms, plan_class=cls[l],
+            k_scales=k_scales[l] if quantized else None,
+            v_scales=v_scales[l] if quantized else None,
+            **_attn_kwargs(cfg),
+        )[0]
+        x = x + h
+        x = x + swiglu(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps),
+                       cfg.act)
+    return x
+
+
+def decode_step_paged(
+    params: Params,
+    token: torch.Tensor,        # [B, 1] int — one token per slot
+    k_pages: torch.Tensor,      # [L, n_blocks, bs, KV, hd]
+    v_pages: torch.Tensor,
+    block_table: torch.Tensor,  # [L, B, max_blocks] or [B, max_blocks] int32
+    positions: torch.Tensor,    # [B] int32 — per-slot index of the new token
+    cfg: ModelConfig,
+    impl: str = "auto",
+    bucket_plan=None,
+    bucket_perm=None,
+    block_start=None,           # [L, B] / [B] / None first live block
+    k_scales=None,              # [L, n_blocks, KV] f32 (int8 pools only)
+    v_scales=None,
+) -> Tuple[torch.Tensor, ...]:
+    """One decode step against the paged cache, per-slot positions.
+    Pools (and scales) are updated in place and returned:
+    `(logits [B, 1, V], k_pages, v_pages[, k_scales, v_scales])`."""
+    _check_supported(cfg)
+    x = _embed(params, token, cfg)
+    x = _run_layers(params, x, cfg, attention_decode_paged, (positions,),
+                    k_pages, v_pages, block_table, block_start, bucket_plan,
+                    bucket_perm, k_scales, v_scales, impl)
+    logits = _head(params, x, cfg)
+    if k_scales is not None:
+        return logits, k_pages, v_pages, k_scales, v_scales
+    return logits, k_pages, v_pages
+
+
+def prefill_paged(
+    params: Params,
+    tokens: torch.Tensor,       # [B, T] int — uncached suffix (T padded)
+    k_pages: torch.Tensor,      # [L, n_blocks, bs, KV, hd]
+    v_pages: torch.Tensor,
+    block_table: torch.Tensor,  # [L, B, max_blocks] or [B, max_blocks] int32
+    start: torch.Tensor,        # [B] int32 — cached-prefix length per slot
+    total: torch.Tensor,        # [B] int32 — full valid length per slot
+    cfg: ModelConfig,
+    last_pos: Optional[int] = None,
+    impl: str = "auto",
+    bucket_plan=None,
+    bucket_perm=None,
+    block_start=None,
+    k_scales=None,
+    v_scales=None,
+) -> Tuple[torch.Tensor, ...]:
+    """Prefill the uncached suffix straight into the paged pools (in
+    place); each layer's attention covers the cached prefix pages through
+    K2's offset causal mask. `last_pos` (suffix-relative) selects which
+    position's logits to return instead of T-1. Returns
+    `(logits [B, 1, V], k_pages, v_pages[, k_scales, v_scales])`."""
+    _check_supported(cfg)
+    x = _embed(params, tokens, cfg)
+    x = _run_layers(params, x, cfg, attention_prefill_paged, (start, total),
+                    k_pages, v_pages, block_table, block_start, bucket_plan,
+                    bucket_perm, k_scales, v_scales, impl)
+    t_last = x.shape[1] - 1 if last_pos is None else int(last_pos)
+    logits = _head(params, x[:, t_last: t_last + 1], cfg)
+    if k_scales is not None:
+        return logits, k_pages, v_pages, k_scales, v_scales
+    return logits, k_pages, v_pages

@@ -1,0 +1,119 @@
+"""Step callables over the paged model entry points: counterpart of
+`repro.serve.compiled` (`jit_paged_prefill` / `jit_paged_decode`).
+
+`ServeEngine` and `ContinuousBatcher` drive the same two steps (suffix
+prefill into the page pools, one-token paged decode); building them here
+keeps the `models.prefill_paged` / `models.decode_step_paged` call
+signatures in one place. PyTorch runs eagerly, so there is nothing to
+compile: each step is a plain callable. What the reference's jit cache
+bounded — one compiled program per distinct (step kind, bucket plans,
+argument shape/dtype signature) — is kept as an observable: every new
+signature a step sees is logged once, and `trace_count()` counts those
+entries exactly as the reference counts XLA traces, so the port shows
+the same bounded set of launch shapes.
+
+`impl` selects the paged-attention path (`kernels.ops.resolve_impl`).
+`kv_dtype="int8"` builds the quantized-pool variant, whose scale stacks
+ride as two extra positional arguments after the pools.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..models import decode_step_paged, prefill_paged
+
+#: (step kind, plans) appended once per new step signature
+_TRACE_LOG: List[Tuple[str, object]] = []
+
+
+def trace_count(kind: str = None) -> int:
+    """Distinct step signatures seen this process, optionally per kind."""
+    if kind is None:
+        return len(_TRACE_LOG)
+    return sum(1 for k, _ in _TRACE_LOG if k == kind)
+
+
+def _leaf_sig(leaf):
+    if isinstance(leaf, torch.Tensor):
+        return (tuple(leaf.shape), str(leaf.dtype))
+    if isinstance(leaf, (tuple, list)):
+        return tuple(_leaf_sig(x) for x in leaf)
+    if isinstance(leaf, dict):
+        return tuple((k, _leaf_sig(v)) for k, v in sorted(leaf.items()))
+    if isinstance(leaf, int):
+        return ("int",)             # a dynamic scalar (e.g. last_pos)
+    return ("py", type(leaf).__name__)
+
+
+class PagedStep:
+    """One serve step: calls `fn` and logs each new (plans, signature)
+    once — the analog of one trace of the reference's jitted step."""
+
+    def __init__(self, kind: str, fn):
+        self.kind = kind
+        self._fn = fn
+        self._seen = set()
+
+    def __call__(self, *args, perms=None, plans=None):
+        key = (plans, _leaf_sig((args, perms)))
+        if key not in self._seen:
+            self._seen.add(key)
+            _TRACE_LOG.append((self.kind, plans))
+        return self._fn(*args, perms=perms, plans=plans)
+
+    def cache_size(self) -> int:
+        return len(self._seen)
+
+
+def paged_prefill_step(cfg: ModelConfig, impl: str = "auto",
+                       kv_dtype: str = "bf16") -> PagedStep:
+    """(params, toks, k_pages, v_pages, block_tables, block_starts, start,
+    total, last_pos, perms=..., plans=...) -> (logits, k_pages, v_pages),
+    pools updated in place. `kv_dtype="int8"`: (params, toks, k_pages,
+    v_pages, k_scales, v_scales, bt, st, start, total, last_pos, ...) ->
+    (logits, k_pages, v_pages, k_scales, v_scales)."""
+
+    if kv_dtype == "int8":
+        def qfn(p, toks, kp, vp, ks, vs, bt, st, strt, tot, lp,
+                perms=None, plans=None):
+            return prefill_paged(
+                p, toks, kp, vp, bt, strt, tot, cfg, last_pos=lp,
+                impl=impl, bucket_plan=plans, bucket_perm=perms,
+                block_start=st, k_scales=ks, v_scales=vs,
+            )
+        return PagedStep("prefill", qfn)
+
+    def fn(p, toks, kp, vp, bt, st, strt, tot, lp, perms=None, plans=None):
+        return prefill_paged(
+            p, toks, kp, vp, bt, strt, tot, cfg, last_pos=lp, impl=impl,
+            bucket_plan=plans, bucket_perm=perms, block_start=st,
+        )
+    return PagedStep("prefill", fn)
+
+
+def paged_decode_step(cfg: ModelConfig, impl: str = "auto",
+                      kv_dtype: str = "bf16") -> PagedStep:
+    """(params, token, k_pages, v_pages, block_tables, block_starts,
+    positions, perms=..., plans=...) -> (logits, k_pages, v_pages), pools
+    updated in place; the int8 variant takes and returns the scale
+    stacks after the pools."""
+
+    if kv_dtype == "int8":
+        def qfn(p, t, kp, vp, ks, vs, bt, st, pos, perms=None, plans=None):
+            return decode_step_paged(
+                p, t, kp, vp, bt, pos, cfg, impl=impl,
+                bucket_plan=plans, bucket_perm=perms, block_start=st,
+                k_scales=ks, v_scales=vs,
+            )
+        return PagedStep("decode", qfn)
+
+    def fn(p, t, kp, vp, bt, st, pos, perms=None, plans=None):
+        return decode_step_paged(
+            p, t, kp, vp, bt, pos, cfg, impl=impl,
+            bucket_plan=plans, bucket_perm=perms, block_start=st,
+        )
+    return PagedStep("decode", fn)

@@ -1,0 +1,179 @@
+"""Serving engine, paged mode: counterpart of `ServeConfig` and
+`ServeEngine._generate_paged` of `repro.serve.engine`.
+
+`generate` runs a [B, T] prompt batch end to end: a whole-batch prefill
+straight into the page pools (chunked when `prefill_chunk > 0`), then
+one-token decode steps. `eos_token >= 0` stops a row at that token (kept
+in the output); stopped rows are padded with it, release their pages at
+once, and generation returns when every row has stopped — so the
+returned width is the number of decode iterations run.
+
+The dense cache and `quantize()` (PIM bit-plane weights) are not ported
+yet and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..kernels.ops import bucket_args_grouped, resolve_bucket_strategy
+from ..models.common import resolve_device
+from .compiled import paged_decode_step, paged_prefill_step
+from .paged_cache import PagedKVCache
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_cache_len: int = 512
+    max_new_tokens: int = 32
+    temperature: float = 0.0  # 0 = greedy
+    eos_token: int = -1       # -1 = never stop early
+    paged: bool = False       # block-paged KV cache (the only mode ported)
+    block_size: int = 16      # KV page size in tokens
+    kernel_impl: str = "auto"  # paged-attention path (ops.resolve_impl)
+    #: "pow2" bounds every paged launch at its bucket's page occupancy;
+    #: "none" keeps the single full-depth launch
+    bucket_strategy: str = "pow2"
+    #: KV page-pool storage: "bf16" keeps the compute dtype; "int8"
+    #: stores per-page-scaled quantized pages
+    kv_dtype: str = "bf16"
+    #: > 0 prefills in block-multiple chunks of at most this many tokens
+    prefill_chunk: int = 0
+    group_pool_slack: Optional[int] = None
+    group_blocks: Any = None
+    #: where the pools live and the kernels run
+    device: str = "cuda"
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig,
+                 telemetry=None):
+        if telemetry is not None:
+            raise NotImplementedError(
+                "serving telemetry is not ported yet; pass telemetry=None"
+            )
+        if serve_cfg.kv_dtype != "bf16" and not serve_cfg.paged:
+            raise ValueError("kv_dtype='int8' requires paged=True")
+        resolve_bucket_strategy(serve_cfg.bucket_strategy)
+        self.cfg = cfg
+        self.sc = serve_cfg
+        self.params = params
+        self.device = resolve_device(serve_cfg.device)
+        self._decode_paged = paged_decode_step(
+            cfg, impl=serve_cfg.kernel_impl, kv_dtype=serve_cfg.kv_dtype
+        )
+        self._prefill_paged = paged_prefill_step(
+            cfg, impl=serve_cfg.kernel_impl, kv_dtype=serve_cfg.kv_dtype
+        )
+
+    def quantize(self, qcfg=None) -> float:
+        raise NotImplementedError(
+            "PIM bit-plane quantized weights (--quantize) are not ported yet"
+        )
+
+    def generate(self, prompts, rng: Optional[torch.Generator] = None):
+        """Greedy (or temperature, with `rng`) generation for a [B, T]
+        prompt batch; returns [B, n] int32 tokens on the engine's device,
+        n <= max_new_tokens."""
+        if not self.sc.paged:
+            raise NotImplementedError(
+                "the dense cache is not ported yet; use paged=True"
+            )
+        return self._generate_paged(prompts, rng)
+
+    def _eos_hits(self, tok: torch.Tensor) -> np.ndarray:
+        if self.sc.eos_token < 0:
+            return np.zeros((tok.shape[0],), bool)
+        return tok[:, 0].cpu().numpy() == self.sc.eos_token
+
+    def _pad_done(self, tok: torch.Tensor, done: np.ndarray):
+        """Rows that already stopped keep emitting EOS (output padding)."""
+        if self.sc.eos_token < 0 or not done.any():
+            return tok
+        mask = torch.tensor(done, device=tok.device)[:, None]
+        return torch.where(mask, self.sc.eos_token, tok).to(torch.int32)
+
+    def _generate_paged(self, prompts, rng):
+        prompts = torch.as_tensor(prompts, dtype=torch.int32).to(self.device)
+        b, t = prompts.shape
+        bs = self.sc.block_size
+        pc = PagedKVCache(
+            self.cfg, n_slots=b, max_len=self.sc.max_cache_len,
+            block_size=bs, kv_dtype=self.sc.kv_dtype,
+            prefill_chunk=self.sc.prefill_chunk,
+            group_pool_slack=self.sc.group_pool_slack,
+            group_blocks=self.sc.group_blocks, device=self.device,
+        )
+        # whole-batch prefill, chunked when prefill_chunk > 0: every row
+        # advances through the same [start, end) spans
+        chunk = pc.prefill_chunk or t
+        zeros = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        logits = None
+        start = 0
+        while start < t:
+            end = min(start + chunk, t)
+            n = end - start
+            pad = -(-n // bs) * bs
+            for i in range(b):
+                pc.begin_append(i, start, n)
+            toks = torch.nn.functional.pad(prompts[:, start:end],
+                                           (0, pad - n))
+            plans, perms = self._bucket_args(pc, np.full((b,), end))
+            pools = (pc.k_pages, pc.v_pages) + (
+                (pc.k_scales, pc.v_scales) if pc.quantized else ()
+            )
+            logits = self._prefill_paged(
+                self.params, toks, *pools,
+                pc.device_block_tables(), pc.device_block_starts(),
+                zeros + start, zeros + end, n - 1, perms=perms, plans=plans,
+            )[0]
+            pc.lengths[:] = end
+            start = end
+        out = []
+        done = np.zeros((b,), bool)
+        tok = self._sample(logits[:, -1], rng)
+        for it in range(self.sc.max_new_tokens):
+            tok = self._pad_done(tok, done)
+            out.append(tok)
+            for i in np.flatnonzero(self._eos_hits(tok) & ~done):
+                # a stopped row releases its pages; its table falls back to
+                # scratch, which absorbs later KV writes
+                pc.free_slot(int(i))
+                done[i] = True
+            if done.all() or it == self.sc.max_new_tokens - 1:
+                break
+            for i in range(b):
+                if not done[i]:
+                    pc.begin_append(i, int(pc.lengths[i]), 1)
+            plans, perms = self._bucket_args(pc, pc.lengths + 1)
+            pools = (pc.k_pages, pc.v_pages) + (
+                (pc.k_scales, pc.v_scales) if pc.quantized else ()
+            )
+            logits = self._decode_paged(
+                self.params, tok, *pools,
+                pc.device_block_tables(), pc.device_block_starts(),
+                pc.device_positions(), perms=perms, plans=plans,
+            )[0]
+            for i in range(b):
+                if not done[i]:
+                    pc.lengths[i] += 1
+            tok = self._sample(logits[:, -1], rng)
+        return torch.cat(out, dim=-1)
+
+    def _bucket_args(self, pc: PagedKVCache, eff_lengths):
+        return bucket_args_grouped(
+            self.sc.bucket_strategy, self.sc.kernel_impl,
+            pc.bucket_needs(eff_lengths), pc.max_blocks_per_slot,
+            device=self.device,
+        )
+
+    def _sample(self, logits: torch.Tensor, rng) -> torch.Tensor:
+        if self.sc.temperature <= 0.0 or rng is None:
+            return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        probs = torch.softmax(logits.float() / self.sc.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=rng).to(torch.int32)

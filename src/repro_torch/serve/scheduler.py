@@ -1,0 +1,468 @@
+"""Continuous-batching request scheduler, paged mode: counterpart of the
+paged path of `repro.serve.scheduler`.
+
+A fixed decode batch of `n_slots`; finished sequences release their slot
+and a queued request is prefilled into it at any tick. KV lives in the
+block-paged cache (`serve.paged_cache`) with per-slot positions, so
+prompts of any length share one decode batch, and prefill writes
+straight into the page pools.
+
+  * `prefix=True`: a radix index over full KV pages dedups shared prompt
+    prefixes — a hit maps the leading pages refcounted into the slot's
+    table and prefill runs on the uncached suffix only (K2 with
+    `start > 0`).
+  * Admission reserves each request's worst-case page draws in every
+    layer group, FIFO among admissible requests; index pages are evicted
+    only when nothing is admissible without.
+  * `prefill_chunk > 0`: a long uncached suffix prefills in
+    block-multiple chunks, one per tick, interleaved with decode; tokens
+    equal the single-shot ones.
+  * `eos_token >= 0` stops a slot when it emits that token (kept in the
+    output); its pages recycle the same tick.
+  * Every paged launch goes through the length-bucketed dispatch unless
+    `bucket_strategy="none"`, when a kernel path runs (the plain version
+    ignores plans, so none are built for it).
+
+The dense cache, telemetry (`telemetry=`) and PIM-quantized weights are
+not ported yet. Each tick brings its argmax to the host once.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Deque, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..kernels.ops import bucket_args_grouped, resolve_bucket_strategy
+from ..models.common import resolve_device
+from .compiled import paged_decode_step, paged_prefill_step
+from .paged_cache import PagedKVCache
+from .prefix_cache import PrefixIndex
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: object               # [T] int token ids (numpy or CPU tensor)
+    max_new_tokens: int = 16
+    generated: List[int] = dataclasses.field(default_factory=list)
+    #: memoized prefix-index block keys — a queued request is re-probed
+    #: every admission tick, but its prompt never changes
+    block_keys: Optional[List[Tuple[int, ...]]] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+
+    @property
+    def done(self) -> bool:
+        return len(self.generated) >= self.max_new_tokens
+
+
+def _host_tokens(prompt) -> np.ndarray:
+    if isinstance(prompt, torch.Tensor):
+        prompt = prompt.detach().cpu().numpy()
+    return np.asarray(prompt, dtype=np.int32).reshape(-1)
+
+
+class ContinuousBatcher:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params,
+        n_slots: int,
+        cache_len: int,
+        *,
+        paged: bool = False,
+        block_size: int = 16,
+        n_blocks: int = 0,
+        prefix: bool = False,
+        eos_token: int = -1,
+        kernel_impl: str = "auto",
+        bucket_strategy: str = "pow2",
+        prefix_max_retained_fraction: float = 1.0,
+        window_retirement: bool = True,
+        kv_dtype: str = "bf16",
+        prefill_chunk: int = 0,
+        group_pool_slack: Optional[int] = None,
+        group_blocks=None,
+        telemetry=None,
+        device="cuda",
+    ):
+        if not paged:
+            raise NotImplementedError(
+                "the dense (paged=False) cache is not ported yet; pass "
+                "paged=True"
+            )
+        if telemetry is not None:
+            raise NotImplementedError(
+                "serving telemetry is not ported yet; pass telemetry=None"
+            )
+        self.cfg = cfg
+        self.params = params
+        self.n_slots = n_slots
+        self.cache_len = cache_len
+        self.device = resolve_device(device)
+        self.bucket_strategy = resolve_bucket_strategy(bucket_strategy)
+        self._kernel_impl = kernel_impl
+        #: -1 = never stop early; >= 0 = a slot that emits this token
+        #: finishes immediately and frees its pages the same tick
+        self.eos_token = eos_token
+        self.queue: Deque[Request] = collections.deque()
+        self.slots: List[Optional[Request]] = [None] * n_slots
+        self.tokens = torch.zeros((n_slots, 1), dtype=torch.int32,
+                                  device=self.device)
+        self.finished: Dict[int, List[int]] = {}
+        self.ticks = 0
+        #: prompt tokens run through prefill compute (padded suffix
+        #: lengths — prefix hits shrink this)
+        self.prefill_tokens = 0
+        self.kv_dtype = kv_dtype
+        self.prefix = (
+            PrefixIndex(
+                block_size,
+                max_retained_fraction=prefix_max_retained_fraction,
+            )
+            if prefix else None
+        )
+        self.pcache = PagedKVCache(
+            cfg, n_slots, max_len=cache_len, block_size=block_size,
+            n_blocks=n_blocks, window_retirement=window_retirement,
+            kv_dtype=kv_dtype, prefill_chunk=prefill_chunk,
+            group_pool_slack=group_pool_slack, group_blocks=group_blocks,
+            device=self.device,
+        )
+        self._decode_paged = paged_decode_step(
+            cfg, impl=kernel_impl, kv_dtype=kv_dtype
+        )
+        self._prefill_paged = paged_prefill_step(
+            cfg, impl=kernel_impl, kv_dtype=kv_dtype
+        )
+        #: block-rounded chunk width of chunked prefill (0 = single-shot)
+        self.prefill_chunk = self.pcache.prefill_chunk
+        #: slot -> next un-prefilled prompt position of an in-flight
+        #: chunked prefill; such a slot is parked out of the decode batch
+        self._chunk_pos: Dict[int, int] = {}
+
+    def submit(self, req: Request):
+        """Queue `req`; its prompt is kept as host int32 token ids."""
+        req.prompt = _host_tokens(req.prompt)
+        self.queue.append(req)
+
+    # -- prefill -----------------------------------------------------------
+
+    def _fill_slots(self):
+        for i in range(self.n_slots):
+            # a request can complete AT prefill: its pages free at once
+            # and the same slot is retried within this tick
+            while self.slots[i] is None and self.queue:
+                admitted = self._admit_paged(i)
+                if admitted is None:
+                    return
+                req, attach_plan, n_cached = admitted
+                self._prefill_into_paged(i, req, attach_plan, n_cached)
+
+    # -- paged admission (reservation + prefix lookup) -----------------------
+
+    def _try_reserve(self, slot: int, req: Request):
+        """Reserve worst-case pages (prompt + decode growth + COW) in every
+        layer group after a prefix lookup. Returns `(attach_plan,
+        n_cached)` on success, else the per-group draw-deficit dict."""
+        pc = self.pcache
+        t = int(req.prompt.shape[0])
+        total = t + max(req.max_new_tokens - 1, 0)
+        attach_plan = None
+        n_cached, cow = 0, False
+        if self.prefix is not None:
+            if req.block_keys is None:
+                req.block_keys = self.prefix.block_keys(req.prompt)
+            chain = self.prefix.lookup_chain(
+                req.prompt, keys=req.block_keys
+            )
+            n_cached, cow = self.prefix.split_prompt(req.prompt, chain)
+            if n_cached:
+                nbh = -(-n_cached // pc.block_size)
+                attach_plan = pc.plan_attach(
+                    [n.pages for n in chain[:nbh]], n_cached
+                )
+                if attach_plan is None:
+                    n_cached, cow = 0, False
+        if attach_plan is not None and n_cached:
+            shared, n_cow = pc.attach_plan_counts(attach_plan, cow)
+        else:
+            attach_plan, shared, n_cow = None, 0, 0
+        if pc.reserve_slot(slot, total, n_shared=shared, n_cow=n_cow):
+            return attach_plan, n_cached
+        return pc.reserve_deficits(total, shared, n_cow)
+
+    def _admit_paged(self, slot: int):
+        """First admissible queued request (FIFO among admissible); index
+        pages are evicted only when nothing is admissible without."""
+        pc = self.pcache
+        deficits = []
+        for qi in range(len(self.queue)):
+            got = self._try_reserve(slot, self.queue[qi])
+            if not isinstance(got, dict):
+                req = self.queue[qi]
+                del self.queue[qi]
+                return (req,) + got
+            deficits.append(got)
+        if self.prefix is None:
+            return None
+        for qi, deficit in enumerate(deficits):
+            if self.prefix.evict(pc, deficit):
+                got = self._try_reserve(slot, self.queue[qi])
+                if not isinstance(got, dict):
+                    req = self.queue[qi]
+                    del self.queue[qi]
+                    return (req,) + got
+        return None
+
+    def _prefill_into_paged(
+        self, i: int, req: Request, attach_plan, n_cached: int
+    ):
+        """Attach the prefix-hit pages, prefill the uncached suffix (its
+        first chunk only when it exceeds `prefill_chunk`), then publish
+        the completed blocks back to the index."""
+        pc = self.pcache
+        t = int(req.prompt.shape[0])
+        if attach_plan is not None:
+            pc.attach_chain(i, attach_plan)
+        if self.prefix is not None:
+            self.prefix.lookups += 1
+            self.prefix.hits += bool(n_cached)
+            self.prefix.cached_tokens_served += n_cached
+        if self.prefill_chunk and t - n_cached > self.prefill_chunk:
+            end = n_cached + self.prefill_chunk
+            self._launch_prefill_chunk(i, req, n_cached, end)
+            self._chunk_pos[i] = end
+            self.slots[i] = req       # queue-busy, parked out of decode
+            return
+        logits = self._launch_prefill_chunk(i, req, n_cached, t)
+        self._finish_prefill(i, req, logits)
+
+    def _launch_prefill_chunk(self, i: int, req: Request,
+                              start: int, end: int):
+        """One prefill launch over prompt positions [start, end) of slot
+        `i`, padded to a block multiple; the tables are sliced to the
+        slot's row and `last_pos` picks the true suffix end."""
+        pc = self.pcache
+        bs = pc.block_size
+        n = end - start
+        pad = -(-n // bs) * bs
+        # host-side page prep BEFORE the device table snapshot
+        pc.begin_append(i, start, n)
+        toks = np.zeros((1, pad), np.int32)
+        toks[0, :n] = req.prompt[start:end]
+        toks = torch.tensor(toks, device=self.device)
+        plans, perms = self._bucket_args([end], slots=[i])
+        bt, st = pc.device_block_tables(), pc.device_block_starts()
+        if bt.dim() == 2:                # single group: [B, mb] / [B]
+            bt, st = bt[i: i + 1], st[i: i + 1]
+        else:                            # layer-major: [L, B, mb] / [L, B]
+            bt, st = bt[:, i: i + 1], st[:, i: i + 1]
+        start_t = torch.tensor([start], dtype=torch.int32, device=self.device)
+        end_t = torch.tensor([end], dtype=torch.int32, device=self.device)
+        if pc.quantized:
+            logits = self._prefill_paged(
+                self.params, toks, pc.k_pages, pc.v_pages,
+                pc.k_scales, pc.v_scales, bt, st, start_t, end_t, n - 1,
+                perms=perms, plans=plans,
+            )[0]
+        else:
+            logits = self._prefill_paged(
+                self.params, toks, pc.k_pages, pc.v_pages, bt, st,
+                start_t, end_t, n - 1, perms=perms, plans=plans,
+            )[0]
+        pc.lengths[i] = end
+        self.prefill_tokens += pad
+        return logits
+
+    def _finish_prefill(self, i: int, req: Request, logits):
+        if self.prefix is not None:
+            self.prefix.publish(req.prompt, self.pcache, i,
+                                keys=req.block_keys)
+        self._start_slot(i, req, logits)
+
+    def _advance_chunked(self) -> int:
+        """Advance every in-flight chunked prefill by ONE chunk; a slot
+        whose final chunk lands gets its first token this tick. Returns
+        slots advanced."""
+        advanced = 0
+        for i in sorted(self._chunk_pos):
+            req = self.slots[i]
+            pos = self._chunk_pos[i]
+            t = int(req.prompt.shape[0])
+            end = min(pos + self.prefill_chunk, t)
+            logits = self._launch_prefill_chunk(i, req, pos, end)
+            advanced += 1
+            if end >= t:
+                del self._chunk_pos[i]
+                self.slots[i] = None  # _finish_prefill re-seats or ends
+                self._finish_prefill(i, req, logits)
+            else:
+                self._chunk_pos[i] = end
+        return advanced
+
+    def _hit_eos(self, tok: int) -> bool:
+        return self.eos_token >= 0 and tok == self.eos_token
+
+    def _start_slot(self, i: int, req: Request, logits):
+        nxt = int(torch.argmax(logits[0, -1]).item())
+        req.generated.append(nxt)
+        if req.done or self._hit_eos(nxt):
+            # the prefill token completes the request: pages free now
+            self.finished[req.uid] = req.generated
+            self.pcache.free_slot(i)
+            return
+        self.tokens[i, 0] = nxt
+        self.slots[i] = req
+
+    # -- decode ------------------------------------------------------------
+
+    def step(self) -> int:
+        """One tick: advance chunked prefills one chunk each, fill free
+        slots, decode once. Returns slots advanced (decode + chunks)."""
+        n_finished = len(self.finished)
+        chunked = self._advance_chunked() if self._chunk_pos else 0
+        self._fill_slots()
+        active = [
+            i for i, s in enumerate(self.slots)
+            if s is not None and i not in self._chunk_pos
+        ]
+        if not active:
+            if chunked or len(self.finished) > n_finished:
+                self.ticks += 1
+            return chunked
+        nxt = self._step_paged(active)
+        host = nxt.tolist()               # the tick's one host sync
+        for i in active:
+            req = self.slots[i]
+            tok = int(host[i])
+            req.generated.append(tok)
+            if req.done or self._hit_eos(tok):
+                # pages recycle this very tick, before the next admission
+                self.finished[req.uid] = req.generated
+                self.pcache.free_slot(i)
+                self.slots[i] = None
+        self.tokens = nxt[:, None]
+        self.ticks += 1
+        return len(active) + chunked
+
+    def _bucket_args(self, eff_lengths, slots=None):
+        """Per-group slot→bucket packing for one launch."""
+        return bucket_args_grouped(
+            self.bucket_strategy, self._kernel_impl,
+            self.pcache.bucket_needs(eff_lengths, slots),
+            self.pcache.max_blocks_per_slot, device=self.device,
+        )
+
+    def _step_paged(self, active: List[int]) -> torch.Tensor:
+        pc = self.pcache
+        for i in active:
+            # the incoming token's page must exist and be exclusively
+            # owned (COW) before the device write
+            pc.begin_append(i, int(pc.lengths[i]), 1)
+        # parked (mid-chunked-prefill) slots ride the decode like idle
+        # slots: a scratch table row takes their unconditional KV write
+        eff = pc.lengths + 1
+        parked = sorted(self._chunk_pos)
+        if parked:
+            eff = np.array(eff)
+            eff[parked] = 1
+        plans, perms = self._bucket_args(eff)
+        bt = pc.device_block_tables(scratch_slots=parked)
+        st = pc.device_block_starts(scratch_slots=parked)
+        pos = pc.device_positions(scratch_slots=parked)
+        if pc.quantized:
+            logits = self._decode_paged(
+                self.params, self.tokens, pc.k_pages, pc.v_pages,
+                pc.k_scales, pc.v_scales, bt, st, pos,
+                perms=perms, plans=plans,
+            )[0]
+        else:
+            logits = self._decode_paged(
+                self.params, self.tokens, pc.k_pages, pc.v_pages,
+                bt, st, pos, perms=perms, plans=plans,
+            )[0]
+        for i in active:
+            pc.lengths[i] += 1
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+    def _pool_diagnostic(self) -> str:
+        """Per-layer-group pool state and the head-of-queue request's
+        per-group draw deficit, for the deadlock error."""
+        pc = self.pcache
+        per_group = ", ".join(
+            f"g{p.gid}[{'global' if p.window is None else f'w={p.window}'}"
+            f"×{len(p.layers)}L]: {p.n_free}/{p.n_blocks - 1} free, "
+            f"{p.available_blocks()} unreserved, "
+            f"{sum(r - p._drawn[s] for s, r in p._reserved.items())}"
+            f" draws promised"
+            for p in pc.pools
+        )
+        head = ""
+        if self.queue:
+            req = self.queue[0]
+            t = int(req.prompt.shape[0])
+            total = t + max(req.max_new_tokens - 1, 0)
+            deficits = pc.reserve_deficits(total)
+            short = ", ".join(
+                f"g{g}:-{d}" for g, d in sorted(deficits.items())
+            ) or "none"
+            head = (
+                f"; head-of-queue uid={req.uid} needs {total} tokens"
+                f" ({t} prompt), per-group draw deficit: {short}"
+            )
+        return (
+            f"; pools: {per_group}{head}; "
+            f"occupancy={pc.slot_occupancy():.2f}"
+        )
+
+    def run_until_drained(
+        self, max_ticks: int = 10_000, strict: bool = True, on_tick=None
+    ) -> Dict[int, List[int]]:
+        """Drain the queue. Exhausting `max_ticks` with work pending
+        raises (strict) or warns. A tick that advances nothing, admits
+        nothing and frees no page while requests are queued is a
+        deadlock — no future tick can free pages — and raises at once
+        with the per-group pool diagnostic."""
+        ticks = 0
+        while (self.queue or any(s is not None for s in self.slots)) \
+                and ticks < max_ticks:
+            queued_before = len(self.queue)
+            free_before = self.pcache.free_state()
+            advanced = self.step()
+            ticks += 1
+            if on_tick is not None:
+                on_tick(self)
+            if (
+                advanced == 0
+                and self.queue
+                and len(self.queue) == queued_before
+                and self.pcache.free_state() == free_before
+            ):
+                raise RuntimeError(
+                    f"run_until_drained: deadlock at tick {ticks} — no "
+                    f"slot is active and none of the {len(self.queue)} "
+                    f"queued requests is admissible, so no future tick "
+                    f"can free pages or make progress "
+                    f"({len(self.finished)} finished)"
+                    f"{self._pool_diagnostic()}"
+                )
+        pending = len(self.queue) + sum(s is not None for s in self.slots)
+        if pending:
+            msg = (
+                f"run_until_drained: exhausted max_ticks={max_ticks} with "
+                f"{len(self.queue)} queued and "
+                f"{sum(s is not None for s in self.slots)} active requests "
+                f"({len(self.finished)} finished)"
+            )
+            if strict:
+                raise RuntimeError(msg)
+            import warnings
+
+            warnings.warn(msg, RuntimeWarning, stacklevel=2)
+        return self.finished

@@ -1,0 +1,132 @@
+"""The port's CUDA kernels on the card, under pytest.
+
+Every test here needs a CUDA device: the kernels have no CPU mode, so
+without a card each test skips (decided inside the fixture, never at
+import). The module imports no JAX, so it also runs on a machine that
+has only the port's dependencies:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+Tolerance: 1e-4 between a kernel and its plain version on valid rows
+(both fold in f32; they differ in summation order and in where hd^-0.5
+is applied); the bucketed launch and the single launch are compared bit
+for bit.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import ops, paged_attention, paged_prefill, ref
+from repro_torch.kernels.paged_common import quantize_pages
+from repro_torch.models import init_lm
+from repro_torch.serve import ContinuousBatcher, Request
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _pools(gen, nb, bs, kv, hd, kind, dev):
+    k = torch.randn((nb, bs, kv, hd), generator=gen, device=dev)
+    v = torch.randn((nb, bs, kv, hd), generator=gen, device=dev)
+    if kind == "int8":
+        (kq, ks), (vq, vs) = quantize_pages(k), quantize_pages(v)
+        return kq, vq, ks, vs
+    dt = torch.bfloat16 if kind == "bf16" else torch.float32
+    return k.to(dt), v.to(dt), None, None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_cuda_kernels_match_plain_versions(cuda_device, kind):
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, T, H, KV, hd, bs, nb, mb = 4, 24, 12, 2, 128, 16, 40, 8
+    tk, tv, tks, tvs = _pools(gen, nb, bs, KV, hd, kind, dev)
+    sc = dict(k_scales=tks, v_scales=tvs)
+    rng = np.random.default_rng(0)
+    bt = torch.tensor(rng.permutation(np.arange(1, nb))[: B * mb].reshape(
+        B, mb), dtype=torch.int32, device=dev)
+    lengths = torch.tensor([0, 1, 77, 128], dtype=torch.int32, device=dev)
+    q = torch.randn((B, H, hd), generator=gen, device=dev)
+    plan, perm = ops.make_bucket_plan(lengths.cpu().numpy(), bs, mb)
+    perm = torch.tensor(perm, dtype=torch.int64, device=dev)
+    valid = lengths > 0
+    for window in (mb * bs, 5):
+        out = paged_attention.paged_decode_attention(
+            q, tk, tv, bt, lengths, window, **sc)
+        plain = ref.paged_attention_ref(q, tk, tv, bt, lengths, window, **sc)
+        buck = paged_attention.paged_decode_attention_bucketed(
+            q, tk, tv, bt, lengths, window, plan, perm, **sc)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out[valid], plain[valid], rtol=1e-4,
+                                   atol=1e-4)
+        assert torch.equal(buck[valid], out[valid])
+    qp = torch.randn((B, T, H, hd), generator=gen, device=dev)
+    start = torch.tensor([0, 16, 40, 100], dtype=torch.int32, device=dev)
+    total = torch.tensor([20, 30, 64, 124], dtype=torch.int32, device=dev)
+    pvalid = (start[:, None] + torch.arange(T, device=dev)[None, :]
+              < total[:, None])
+    for window in (mb * bs, 9):
+        out = paged_prefill.paged_prefill_attention(
+            qp, tk, tv, bt, start, total, window, **sc)
+        plain = ref.paged_prefill_ref(qp, tk, tv, bt, start, total, window,
+                                      **sc)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out[pvalid], plain[pvalid], rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    dev = cuda_device
+    q = torch.zeros((1, 2, 8), device=dev)
+    pools = torch.zeros((3, 4, 1, 8), device=dev)
+    bt = torch.ones((1, 2), dtype=torch.int32, device=dev)
+    ln = torch.ones((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        paged_attention.paged_decode_attention(q, pools, pools, bt.long(),
+                                               ln, 8)
+    with pytest.raises(ValueError, match="hd=512"):
+        big = torch.zeros((3, 4, 1, 512), device=dev)
+        paged_attention.paged_decode_attention(
+            torch.zeros((1, 2, 512), device=dev), big, big, bt, ln, 8)
+    with pytest.raises(ValueError, match="lies on"):
+        paged_attention.paged_decode_attention(q, pools.cpu(), pools, bt,
+                                               ln, 8)
+
+
+@pytest.mark.gpu
+def test_serving_on_the_card_launches_kernels_and_matches_plain(cuda_device):
+    """A small f32 drain through the CUDA kernels equals the same drain
+    through the plain versions on the card, and counts its launches."""
+    dev = cuda_device
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
+                              dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n), dtype=np.int32)
+               for n in rng.integers(4, 30, 6)]
+    out = {}
+    for impl in ("cuda", "ref"):
+        paged_attention.LAUNCHES = paged_prefill.LAUNCHES = 0
+        cb = ContinuousBatcher(cfg, params, n_slots=3, cache_len=48,
+                               paged=True, block_size=4, kernel_impl=impl,
+                               device=dev)
+        for uid, p in enumerate(prompts):
+            cb.submit(Request(uid=uid, prompt=p, max_new_tokens=6))
+        out[impl] = cb.run_until_drained()
+        launched = paged_attention.LAUNCHES, paged_prefill.LAUNCHES
+        if impl == "cuda":
+            assert launched[0] > 0 and launched[1] > 0
+        else:
+            assert launched == (0, 0)
+    assert out["cuda"] == out["ref"]
