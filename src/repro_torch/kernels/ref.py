@@ -13,7 +13,8 @@ gather to the table columns a depth-bounded kernel walk visits —
 the plain version also stands in for one bucketed launch. Positions
 come from the table column, never from the walk step. Columns outside
 the walk hold only masked positions for the slots a plan puts there,
-so restricting the gather changes no valid row.
+so restricting the gather changes a valid row only by f32 rounding (the
+shorter sums add the same exact zeros in another order).
 """
 
 from __future__ import annotations
