@@ -2,30 +2,48 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, and drives the
-port's main path — paged continuous-batching serving of qwen2-1.5b at
+port's main paths — paged continuous-batching serving of qwen2-1.5b at
 full width (28 layers, d 1536, 12 heads, 2 kv-heads, d_ff 8960, vocab
-151936; random weights from a seed) — through `ContinuousBatcher`, the
-entry point the launcher drives. Phases, one line each:
+151936; random weights from a seed), with dense and with PIM bit-plane
+weights — through `ServeEngine.quantize` and `ContinuousBatcher`, the
+entry points the launcher drives. Phases, one line each:
 
   1. card      nvidia-smi name and power limit, torch and CUDA versions;
                TF32 off for matmuls and cuDNN
-  2. build     nvcc for sm_90a, one process per kernel, all at once
+  2. build     nvcc for sm_90a, one process per kernel (K1-K5), all at
+               once
   3. kernels   K1 (paged decode) and K2 (paged prefill) at the main
                path's head shapes (H 12, KV 2, hd 128, bs 16, 8 slots,
                ragged lengths 0..2048, windows {capacity, 256}, a
                COW-fragmented table) for bf16, f32 and int8 pools: max
                abs error vs the plain version <= 1e-4 on valid rows, the
-               bucketed launch bit-identical to the single launch; then
-               times at main-path shapes (CUDA events, median)
-  4. serve     full width, bf16: 8 slots, 16 requests, each a shared
+               bucketed launch bit-identical to the single launch
+  4. bitplane  K3 (GEMV), K4 (GEMM) and K5 (pack) against their plain
+               versions for (n_bits, g) in {(8,1), (4,2), (8,4), (3,1)}
+               and x in {bf16, f32}, on the main path's projections
+               [1536->256], [1536->1536], [1536->8960], [8960->1536]
+               (K8 = 192 and 1120) and a ragged [200->101]; B in
+               {1, 8, 512} must launch K3 and {513, 1024} K4. K5 planes
+               byte-identical to ref.pack_ref, K3/K4 raw within
+               1e-5 * max|raw| (exact products, another summation order),
+               `bitplane_matmul` within the reference's own tolerance of
+               its oracle (2e-3 f32, 2e-2 bf16, of max|y|)
+  5. timing    each kernel at main-path shapes (CUDA events, median)
+               beside its plain version, its bound and a library call
+  6. serve     full width, bf16: 8 slots, 16 requests, each a shared
                256-token system prompt plus a 64..768-token suffix, 64
                new tokens, prefix index on; the K1/K2 launch counts of
                this run must be > 0
-  5. serve     the same trace with int8 KV pools
-  6. parity    full width in f32 with 4 layers: greedy tokens with the
+  7. serve     the same trace with int8 KV pools
+  8. serve     the --quantize path: `ServeEngine.quantize` to 8-bit,
+               g = 1 PIM bit-plane weights (K5 packs every projection
+               slice on the card), then the bf16-KV trace of phase 6;
+               K1-K5 must each have launched in that path
+  9. parity    full width in f32 with 4 layers: greedy tokens with the
                CUDA kernels equal those with the plain versions on the
                card, and chunked prefill (64) equals single-shot
-  7. a JSON line {"kernels": [...]} with each kernel's launches, error,
+ 10. parity    phase 9 with 8-bit g = 1 bit-plane weights
+ 11. a JSON line {"kernels": [...]} with each kernel's launches, error,
      times and bound, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}
 
@@ -81,6 +99,24 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_modules():
+    """name -> the wrapper module holding the kernel's LAUNCHES count."""
+    from repro_torch.kernels import (bitplane_gemm, bitplane_gemv, pack,
+                                     paged_attention, paged_prefill)
+    return {"paged_decode": paged_attention, "paged_prefill": paged_prefill,
+            "bitplane_gemv": bitplane_gemv, "bitplane_gemm": bitplane_gemm,
+            "bitplane_pack": pack}
+
+
+def reset_launches() -> None:
+    for mod in kernel_modules().values():
+        mod.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    return {name: mod.LAUNCHES for name, mod in kernel_modules().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +311,136 @@ def bound(nbytes: int, ops: int, dtype) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 4-6: the main path
+# phase 7: bit-plane kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+BITPLANE_FORMATS = ((8, 1), (4, 2), (8, 4), (3, 1))
+#: qwen2-1.5b's projections (wk/wv, wq/wo, w_gate/w_up, w_down) and one
+#: matrix ragged for every tile of the kernels
+BITPLANE_MATRICES = ((1536, 256), (1536, 1536), (1536, 8960), (8960, 1536),
+                     (200, 101))
+GEMV_ROWS, GEMM_ROWS = (1, 8, 512), (513, 1024)
+
+
+def bitplane_checks(dev):
+    """K5 byte-identical to the plain pack; K3/K4 raw within 1e-5 of
+    max|raw| of the plain contraction; `bitplane_matmul` (kernel, offset,
+    scale) within the reference's tolerance of its oracle. The counts
+    must show B <= 512 on K3 and B > 512 on K4."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    abs_err = {"bitplane_gemv": 0.0, "bitplane_gemm": 0.0,
+               "bitplane_pack": 0.0}
+    for n_bits, group in BITPLANE_FORMATS:
+        rel_err = dict.fromkeys(("bitplane_gemv", "bitplane_gemm",
+                                 "matmul_bf16", "matmul_f32"), 0.0)
+        for k, m in BITPLANE_MATRICES:
+            tag = f"({n_bits},{group}) [{k}->{m}]"
+            w = torch.randn((k, m), generator=gen, device=dev)
+            w_q, scale = ref.quantize_ref(w, n_bits)
+            plain_planes = ref.pack_ref(w_q, n_bits, group)
+            reset_launches()
+            planes, got_scale = ops.quantize_and_pack(w, n_bits, group, "cuda")
+            torch.cuda.synchronize()
+            check(read_launches()["bitplane_pack"] == 1, f"{tag}: no K5")
+            check(torch.equal(planes, plain_planes)
+                  and torch.equal(got_scale, scale),
+                  f"{tag}: K5 planes differ from ref.pack_ref")
+            u = ref.offset_form_ref(planes, group).float()
+            for dt in (torch.bfloat16, torch.float32):
+                for b in GEMV_ROWS + GEMM_ROWS:
+                    name = "bitplane_gemv" if b in GEMV_ROWS else \
+                        "bitplane_gemm"
+                    x = torch.randn((b, k), generator=gen, device=dev).to(dt)
+                    x_r = ref.prepare_x_ref(x, group).contiguous()
+                    reset_launches()
+                    raw = ops.bitplane_kernel(b)(x_r, planes, n_bits=n_bits,
+                                                 group=group)
+                    y = ops.bitplane_matmul(x, planes, scale, n_bits=n_bits,
+                                            group=group, impl="cuda")
+                    launched = read_launches()
+                    plain = x.float() @ u
+                    y_ref = ref.bitplane_matmul_ref(x, planes, scale, n_bits,
+                                                    group).float()
+                    torch.cuda.synchronize()
+                    check(launched[name] == 2 and sum(launched.values()) == 2,
+                          f"{tag} B={b}: expected 2 launches of {name}, got "
+                          f"{launched}")
+                    check(bool(torch.isfinite(raw).all())
+                          and bool(torch.isfinite(y).all()),
+                          f"{tag} B={b}: non-finite output")
+                    err = float((raw - plain).abs().max())
+                    rel = err / (float(plain.abs().max()) + 1e-30)
+                    check(rel <= 1e-5, f"{tag} {dt} B={b}: raw rel err {rel}")
+                    yerr = float((y.float() - y_ref).abs().max()) / (
+                        float(y_ref.abs().max()) + 1e-6)
+                    tol = 2e-2 if dt == torch.bfloat16 else 2e-3
+                    check(yerr < tol, f"{tag} {dt} B={b}: matmul rel err "
+                                      f"{yerr} >= {tol}")
+                    abs_err[name] = max(abs_err[name], err)
+                    rel_err[name] = max(rel_err[name], rel)
+                    key = "matmul_bf16" if dt == torch.bfloat16 else \
+                        "matmul_f32"
+                    rel_err[key] = max(rel_err[key], yerr)
+        say("bitplane", format=f"({n_bits},{group})",
+            matrices=len(BITPLANE_MATRICES), pack="byte-identical",
+            gemv_rel_err=rel_err["bitplane_gemv"],
+            gemm_rel_err=rel_err["bitplane_gemm"],
+            matmul_rel_err_bf16=rel_err["matmul_bf16"],
+            matmul_rel_err_f32=rel_err["matmul_f32"])
+    return abs_err
+
+
+def bitplane_timings(dev):
+    """Times at the main path's shapes, 8-bit g = 1 bf16: K3 at B = 8
+    (a decode tick's 8 slots), K4 at B = 768 (one slot's suffix), each on
+    [1536->8960] (w_gate/w_up, the row the JSON line carries) and
+    [8960->1536] (w_down); K5 packing one [1536, 8960] slice. The
+    library yardstick is one `x @ W` with W dequantized dense in x's
+    dtype beforehand (the port never calls it); K5 has none."""
+    from repro_torch.kernels import (bitplane_gemm, bitplane_gemv, ops, pack,
+                                     ref)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    dt = torch.bfloat16
+    out = {}
+    for name, fn, b in (("bitplane_gemv", bitplane_gemv.bitplane_gemv, 8),
+                        ("bitplane_gemm", bitplane_gemm.bitplane_gemm, 768)):
+        for k, m in ((1536, 8960), (8960, 1536)):
+            w = torch.randn((k, m), generator=gen, device=dev)
+            planes, scale = ops.quantize_and_pack(w, 8, 1, "cuda")
+            x = torch.randn((b, k), generator=gen, device=dev).to(dt)
+            x_r = ref.prepare_x_ref(x, 1).contiguous()
+            w_dense = ref.dequantize_ref(planes, scale, 8, 1).to(dt)
+            r = dict(
+                ms=cuda_ms(lambda: fn(x_r, planes, n_bits=8, group=1)),
+                plain_ms=cuda_ms(lambda: ref.bitplane_raw_ref(x_r, planes, 1)),
+                library_ms=cuda_ms(lambda: x @ w_dense),
+                **bound(planes.numel() + x_r.numel() * x_r.element_size()
+                        + b * m * 4, 2 * b * k * m, dt),
+                shape=f"x[{b},{k}] planes[8,{k // 8},{m}] bf16")
+            say("timing", kernel=name, shape=repr(r["shape"]), ms=r["ms"],
+                plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+            out.setdefault(name, r)
+    k, m = 1536, 8960
+    w_q = torch.randint(-128, 128, (k, m), generator=gen, device=dev)
+    u_r = (w_q + 128).to(torch.uint8).reshape(k // 8, 8, m).permute(
+        1, 0, 2).contiguous()
+    r = dict(ms=cuda_ms(lambda: pack.pack_bitplanes(u_r, 8, 1)),
+             plain_ms=cuda_ms(lambda: ref.pack_bitplanes_ref(u_r, 8, 1)),
+             library_ms=None, **bound(2 * u_r.numel(), 0, dt),
+             shape=f"u_r[8,{k // 8},{m}] -> planes[8,{k // 8},{m}]")
+    say("timing", kernel="bitplane_pack", shape=repr(r["shape"]), ms=r["ms"],
+        plain_ms=r["plain_ms"], library_ms="-", bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"])
+    out["bitplane_pack"] = r
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 4-6, 8-9: the main paths
 # ---------------------------------------------------------------------------
 
 def serving_trace(vocab, n_requests, shared_len, suffix_lo, suffix_hi, seed):
@@ -289,8 +454,11 @@ def serving_trace(vocab, n_requests, shared_len, suffix_lo, suffix_hi, seed):
     ]
 
 
-def drain(cfg, params, prompts, new_tokens, n_slots, cache_len, dev, **kw):
-    from repro_torch.kernels import paged_attention, paged_prefill
+def drain(cfg, params, prompts, new_tokens, n_slots, cache_len, dev,
+          reset=True, **kw):
+    """One drain through `ContinuousBatcher`; every launch count is set
+    to 0 just before it (unless `reset=False`: the caller did, before
+    earlier work of the same path) and read just after."""
     from repro_torch.serve import ContinuousBatcher, Request
 
     cb = ContinuousBatcher(cfg, params, n_slots=n_slots, cache_len=cache_len,
@@ -299,14 +467,13 @@ def drain(cfg, params, prompts, new_tokens, n_slots, cache_len, dev, **kw):
         cb.submit(Request(uid=uid, prompt=p, max_new_tokens=new_tokens))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    paged_attention.LAUNCHES = 0
-    paged_prefill.LAUNCHES = 0
+    if reset:
+        reset_launches()
     t0 = time.perf_counter()
     results = cb.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_decode": paged_attention.LAUNCHES,
-                "paged_prefill": paged_prefill.LAUNCHES}
+    launches = read_launches()
     cb.pcache.check_invariants(
         None if cb.prefix is None else cb.prefix.page_refs())
     n_tok = sum(len(v) for v in results.values())
@@ -317,32 +484,70 @@ def drain(cfg, params, prompts, new_tokens, n_slots, cache_len, dev, **kw):
         pages_allocated=cb.pcache.pages_allocated,
         prefix_hits=None if cb.prefix is None else cb.prefix.hits,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
-        k1_launches=launches["paged_decode"],
-        k2_launches=launches["paged_prefill"],
+        **{f"launches_{k}": v for k, v in launches.items() if v},
     )
     return results, stats, launches
 
 
-def serve_full_width(cfg, params, dev, kv_dtype):
+def serve_full_width(cfg, params, dev, kv_dtype, weights="bf16",
+                     required=("paged_decode", "paged_prefill"), reset=True,
+                     **extra):
     prompts = serving_trace(cfg.vocab_size, 16, 256, 64, 768, SEED)
     new_tokens = 64
+    tag = f"{kv_dtype} KV, {weights} weights"
     results, stats, launches = drain(
         cfg, params, prompts, new_tokens, 8, 256 + 768 + new_tokens, dev,
-        prefix=True, bucket_strategy="pow2", kernel_impl="auto",
+        reset=reset, prefix=True, bucket_strategy="pow2", kernel_impl="auto",
         kv_dtype=kv_dtype)
-    check(stats["requests"] == 16, f"{kv_dtype}: not every request finished")
+    check(stats["requests"] == 16, f"{tag}: not every request finished")
     check(all(len(v) == new_tokens for v in results.values()),
-          f"{kv_dtype}: a request stopped short")
+          f"{tag}: a request stopped short")
     check(all(0 <= x < cfg.vocab_size for v in results.values() for x in v),
-          f"{kv_dtype}: token outside the vocab")
-    check(launches["paged_decode"] > 0 and launches["paged_prefill"] > 0,
-          f"{kv_dtype}: main path did not launch both kernels: {launches}")
-    check(stats["prefix_hits"] > 0, f"{kv_dtype}: no prefix hit")
-    say("serve", model=cfg.name, kv_dtype=kv_dtype, **stats)
+          f"{tag}: token outside the vocab")
+    check(all(launches[k] > 0 for k in required),
+          f"{tag}: main path did not launch every kernel of {required}: "
+          f"{launches}")
+    check(stats["prefix_hits"] > 0, f"{tag}: no prefix hit")
+    say("serve", model=cfg.name, kv_dtype=kv_dtype, weights=weights,
+        **extra, **stats)
     return launches
 
 
-def token_parity(dev):
+def quantize_params(cfg, params, n_bits=8, group=1):
+    """`ServeEngine.quantize`, as `launch/serve.py --quantize` calls it:
+    every projection becomes a PimWeight packed by K5 on the card."""
+    from repro_torch.quant import PimQuantConfig, tree_packed_fraction
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, params, ServeConfig(paged=True, device="cuda"))
+    frac = eng.quantize(PimQuantConfig(n_bits=n_bits, group=group,
+                                       min_features=1))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(frac == tree_packed_fraction(eng.params),
+          f"packed fraction {frac} != tree_packed_fraction")
+    return eng.params, frac, seconds
+
+
+def serve_quantized(cfg, qparams, frac, seconds, dev):
+    """The rest of the --quantize path at full width, after
+    `quantize_params` ran with the counts set to 0 (K5 launched once per
+    projection slice): the bf16-KV drain, which must launch K1-K4. The
+    counts are read after the drain. The caller has dropped the dense
+    weights, so the drain's peak memory is the quantized model's."""
+    k5 = read_launches()["bitplane_pack"]
+    check(k5 == 7 * cfg.n_layers,
+          f"K5 launches {k5} != {7 * cfg.n_layers} (one per projection "
+          "slice)")
+    return serve_full_width(
+        cfg, qparams, dev, "bf16", weights="pim8", reset=False,
+        required=tuple(kernel_modules()), packed_fraction=frac,
+        quantize_s=seconds)
+
+
+def token_parity(dev, quantize=False):
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import init_lm
@@ -351,19 +556,31 @@ def token_parity(dev):
                               n_layers=4)
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED + 2),
                      dev)
+    if quantize:
+        params = quantize_params(cfg, params)[0]
     prompts = serving_trace(cfg.vocab_size, 6, 128, 16, 256, SEED + 2)
     new_tokens, cache_len = 16, 128 + 256 + 16
     runs = {}
     for name, kw in (("kernel", dict(kernel_impl="auto")),
                      ("plain", dict(kernel_impl="ref")),
                      ("chunked", dict(kernel_impl="auto", prefill_chunk=64))):
-        runs[name] = drain(cfg, params, prompts, new_tokens, 4, cache_len,
-                           dev, prefix=True, **kw)[0]
+        runs[name], _, launches = drain(cfg, params, prompts, new_tokens, 4,
+                                        cache_len, dev, prefix=True, **kw)
+        want = ("paged_decode", "paged_prefill") + (
+            ("bitplane_gemv",) if quantize else ())
+        if name == "plain":
+            check(not any(launches.values()),
+                  f"parity: the plain run launched kernels: {launches}")
+        else:
+            check(all(launches[k] > 0 for k in want),
+                  f"parity {name}: kernels of {want} not launched: "
+                  f"{launches}")
     check(runs["kernel"] == runs["plain"],
           "f32 tokens differ between the CUDA kernels and the plain versions")
     check(runs["chunked"] == runs["kernel"],
           "chunked-prefill tokens differ from single-shot")
-    say("parity", model=f"{cfg.name}[f32,4L]", requests=len(runs["kernel"]),
+    say("parity", model=f"{cfg.name}[f32,4L]",
+        weights="pim8" if quantize else "f32", requests=len(runs["kernel"]),
         tokens=sum(len(v) for v in runs["kernel"].values()),
         kernel_eq_plain=True, chunked_eq_single=True)
 
@@ -400,7 +617,9 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     errs = kernel_checks(dev)
+    errs.update(bitplane_checks(dev))
     times = kernel_timings(dev)
+    times.update(bitplane_timings(dev))
 
     cfg = get_config("qwen2-1.5b")
     t0 = time.perf_counter()
@@ -411,15 +630,30 @@ def main() -> int:
         seconds=time.perf_counter() - t0)
     launches = serve_full_width(cfg, params, dev, "bf16")
     serve_full_width(cfg, params, dev, "int8")
+    reset_launches()
+    qparams, frac, seconds = quantize_params(cfg, params)
     del params
     torch.cuda.empty_cache()
+    q_launches = serve_quantized(cfg, qparams, frac, seconds, dev)
+    for name in ("bitplane_gemv", "bitplane_gemm", "bitplane_pack"):
+        launches[name] = q_launches[name]
+    del qparams
+    torch.cuda.empty_cache()
     token_parity(dev)
+    token_parity(dev, quantize=True)
 
+    csrc = "src/repro_torch/kernels/csrc"
     sources = {
-        "paged_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",
+        "paged_decode": (f"{csrc}/paged_decode.cu",
                          "src/repro/kernels/paged_attention.py:60"),
-        "paged_prefill": ("src/repro_torch/kernels/csrc/paged_prefill.cu",
+        "paged_prefill": (f"{csrc}/paged_prefill.cu",
                           "src/repro/kernels/paged_prefill.py:70"),
+        "bitplane_gemv": (f"{csrc}/bitplane_gemv.cu",
+                          "src/repro/kernels/bitplane_gemv.py:34"),
+        "bitplane_gemm": (f"{csrc}/bitplane_gemm.cu",
+                          "src/repro/kernels/bitplane_gemm.py:23"),
+        "bitplane_pack": (f"{csrc}/bitplane_pack.cu",
+                          "src/repro/kernels/pack.py:22"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

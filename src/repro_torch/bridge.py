@@ -7,6 +7,16 @@ leaf); this module never sees a JAX array. Layer stacks stay stacked as
 dtype — bit-equivalent, because every use in the reference casts them
 to the activation dtype first — while rmsnorm gains (`g`) stay f32, as
 the reference applies them in f32.
+
+Quantized trees cross too: a reference `PimWeight` whose planes and
+scale the caller has turned into numpy (`jax.tree.map(np.asarray, ...)`
+keeps the object and its `n_bits`/`group`) becomes the port's
+`PimWeight`, planes kept uint8 and scales f32, bit for bit. Note what
+that does and does not make equal: the port's own `init_lm` stores
+weights in the compute dtype (bf16 at full width), the reference keeps
+f32 masters, so quantizing the port's params and quantizing the
+reference's agree only when both start from the same f32 array — which
+is what the tests do (f32 configs, params carried across here).
 """
 
 from __future__ import annotations
@@ -18,6 +28,10 @@ import torch
 
 from .configs.base import ModelConfig
 from .models.common import compute_dtype, resolve_device
+from .quant.bitplane import PimWeight
+
+#: the fields of a reference `PimWeight` (a bit-plane quantized leaf)
+_PIM_FIELDS = ("planes", "scale", "n_bits", "group")
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device,
@@ -30,6 +44,12 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device,
     def convert(node, name: str):
         if isinstance(node, Mapping):
             return {k: convert(v, k) for k, v in node.items()}
+        if all(hasattr(node, a) for a in _PIM_FIELDS):
+            planes = np.array(node.planes, dtype=np.uint8)
+            scale = np.array(node.scale, dtype=np.float32)
+            return PimWeight(torch.from_numpy(planes).to(dev),
+                             torch.from_numpy(scale).to(dev),
+                             int(node.n_bits), int(node.group))
         arr = np.asarray(node)
         t = torch.from_numpy(np.array(arr, dtype=np.float32, copy=True))
         return t.to(device=dev, dtype=torch.float32 if name == "g" else dt)

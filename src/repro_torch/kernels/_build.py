@@ -24,8 +24,16 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: every kernel the port builds; each is csrc/<name>.cu
-KERNELS = ("paged_decode", "paged_prefill")
-_HEADERS = ("paged_common.cuh",)
+KERNELS = ("paged_decode", "paged_prefill", "bitplane_gemv", "bitplane_gemm",
+           "bitplane_pack")
+#: the headers each kernel includes (part of its library's hash)
+_HEADERS = {
+    "paged_decode": ("paged_common.cuh",),
+    "paged_prefill": ("paged_common.cuh",),
+    "bitplane_gemv": ("bitplane_common.cuh",),
+    "bitplane_gemm": ("bitplane_common.cuh",),
+    "bitplane_pack": ("bitplane_common.cuh",),
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -53,7 +61,7 @@ def nvcc() -> str:
 
 
 def _sources(name: str):
-    return [CSRC / f"{name}.cu"] + [CSRC / h for h in _HEADERS]
+    return [CSRC / f"{name}.cu"] + [CSRC / h for h in _HEADERS[name]]
 
 
 def lib_path(name: str) -> Path:

@@ -1,0 +1,97 @@
+"""K3 — bit-plane GEMV: counterpart of `repro.kernels.bitplane_gemv`.
+
+`bitplane_gemv(x_r, planes, n_bits=, group=)` returns the raw f32
+contraction [B, M] = x @ U over packed digit planes, U being the
+unsigned offset form they store (`kernels/ref.py`); the caller
+(`ops.bitplane_matmul`) applies the `2^(n-1) * sum(x)` offset and the
+per-channel scale. On CUDA tensors it launches the hand-written kernel
+of `csrc/bitplane_gemv.cu` (built at first use) and counts the launch
+in `LAUNCHES`; on CPU tensors — and only there — it runs the plain
+version `ref.bitplane_raw_ref`.
+
+Layouts (the reference's):
+    x_r     [8/g, B, K8]        bf16 / f32, x_r[r, b, q] = x[b, q*8/g + r]
+    planes  [n_digits, K8, M]   uint8, K8 = K*g/8
+    out     [B, M]              f32
+
+The reference kernel needs K8 and M to be multiples of its TPU blocks
+(128 and 256), so it refuses qwen2-1.5b's K8 = 192 and 1120; this one
+takes any K8, M and B and masks the edges itself.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import ref
+from .paged_common import DTYPE_CODES, Q_DTYPES, launch_kernel, ptr
+
+#: kernel launches made by this process (the main-path evidence
+#: `chip_smoke.py` reads); only the CUDA launch below increments it
+LAUNCHES = 0
+
+#: x_r, planes, out; x dtype, B, K8, M, n_digits, group; stream
+RAW_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def check_raw_operands(name: str, x_r: torch.Tensor, planes: torch.Tensor,
+                       n_bits: int, group: int) -> None:
+    """What K3 and K4 check before any launch: the bit-plane format
+    (2 <= n_bits <= 8, g in {1, 2, 4}) and the operands' shapes and
+    dtypes; on a CUDA tensor also device and contiguity."""
+    ref.check_dims(0, n_bits, group)
+    _require(x_r.dim() == 3 and x_r.shape[0] == 8 // group,
+             f"{name}: x_r must be [{8 // group}, B, K8], got "
+             f"{tuple(x_r.shape)}")
+    nd = ref.n_digits(n_bits, group)
+    _require(planes.dim() == 3 and planes.shape[0] == nd
+             and planes.shape[1] == x_r.shape[2],
+             f"{name}: planes must be [{nd}, {x_r.shape[2]}, M], got "
+             f"{tuple(planes.shape)}")
+    _require(planes.dtype == torch.uint8,
+             f"{name}: planes dtype {planes.dtype} is not uint8")
+    _require(x_r.dtype in Q_DTYPES,
+             f"{name}: x_r dtype {x_r.dtype} not in {Q_DTYPES}")
+    if x_r.device.type == "cpu":
+        return
+    _require(x_r.device.type == "cuda",
+             f"{name}: x_r lies on {x_r.device}, not a CUDA device")
+    _require(planes.device == x_r.device,
+             f"{name}: planes lie on {planes.device}, x_r on {x_r.device}")
+    _require(x_r.is_contiguous() and planes.is_contiguous(),
+             f"{name}: x_r and planes must be contiguous")
+
+
+def launch_raw(name: str, x_r: torch.Tensor, planes: torch.Tensor,
+               n_bits: int, group: int):
+    """One launch of the K3 or K4 library `name` into a new f32 [B, M];
+    returns `(out, launches)` — no launch for an empty output."""
+    _, b, k8 = x_r.shape
+    m = planes.shape[2]
+    out = torch.empty((b, m), dtype=torch.float32, device=x_r.device)
+    if not (b and m):
+        return out, 0
+    launch_kernel(name, f"{name}_launch", RAW_ARGTYPES, (
+        ptr(x_r), ptr(planes), ptr(out), DTYPE_CODES[x_r.dtype], b, k8, m,
+        ref.n_digits(n_bits, group), group,
+    ), x_r.device)
+    return out, 1
+
+
+def bitplane_gemv(x_r: torch.Tensor, planes: torch.Tensor, *, n_bits: int,
+                  group: int = 1) -> torch.Tensor:
+    """One K3 launch: raw f32 [B, M] = x @ U."""
+    global LAUNCHES
+    check_raw_operands("bitplane_gemv", x_r, planes, n_bits, group)
+    if x_r.device.type == "cpu":
+        return ref.bitplane_raw_ref(x_r, planes, group)
+    out, launched = launch_raw("bitplane_gemv", x_r, planes, n_bits, group)
+    LAUNCHES += launched
+    return out

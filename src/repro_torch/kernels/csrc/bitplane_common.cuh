@@ -1,0 +1,109 @@
+// Shared device half of the three bit-plane kernels (bitplane_gemv.cu,
+// bitplane_gemm.cu, bitplane_pack.cu): digit extraction.
+//
+// Format (kernels/ref.py): an n-bit weight is kept in its unsigned offset
+// form U = W_q + 2^(n-1), split into n_d = ceil(n/g) digits of g bits;
+// planes[j, q, m] packs digit j of the 8/g weights U[q*8/g + r, m],
+// r = 0..8/g-1, at bits [g*r, g*r + g).
+//
+// Seen one column m and one packed row q at a time, the n_d plane bytes
+// (byte j = plane j, digit r = row r) and the 8/g offset weights (byte
+// r = U[q*8/g + r], digit j = digit j of that weight) are the same
+// (8/g) x (8/g) matrix of g-bit digits, transposed. `transpose_digits`
+// turns one into the other with three (g = 1), two (g = 2) or one
+// (g = 4) delta swaps on a 64-bit word — integer shifts and masks in
+// registers — so K3/K4 rebuild U from the planes and K5 builds the
+// planes from U with the same function.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace bitplane {
+
+// dtype codes of the C interface (kernels/paged_common.py DTYPE_CODES)
+enum DType : int { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Swap the bits of `x` selected by `mask` with those `d` places above.
+__device__ __forceinline__ uint64_t delta_swap(uint64_t x, uint64_t mask,
+                                               int d) {
+  const uint64_t t = (x ^ (x >> d)) & mask;
+  return x ^ t ^ (t << d);
+}
+
+// Byte a of `x` holds 8/G digits of G bits, digit b at bits [G*b, G*b+G)
+// (bytes a >= 8/G are zero). Returns the word whose byte b holds digit b
+// of byte a at bits [G*a, G*a+G): the transpose of the digit matrix.
+template <int G>
+__device__ __forceinline__ uint64_t transpose_digits(uint64_t x);
+
+template <>
+__device__ __forceinline__ uint64_t transpose_digits<1>(uint64_t x) {
+  x = delta_swap(x, 0x00AA00AA00AA00AAull, 7);
+  x = delta_swap(x, 0x0000CCCC0000CCCCull, 14);
+  return delta_swap(x, 0x00000000F0F0F0F0ull, 28);
+}
+
+template <>
+__device__ __forceinline__ uint64_t transpose_digits<2>(uint64_t x) {
+  x = delta_swap(x, 0x00CC00CCull, 6);
+  return delta_swap(x, 0x0000F0F0ull, 12);
+}
+
+template <>
+__device__ __forceinline__ uint64_t transpose_digits<4>(uint64_t x) {
+  return delta_swap(x, 0x00F0ull, 4);
+}
+
+// Bytes m0 .. m0+3 of one plane row (`row` points at column 0), as one
+// little-endian word; columns at or past M read as zero. `vec` says the
+// row is 4-byte aligned and M % 4 == 0, so one 32-bit load serves.
+__device__ __forceinline__ uint32_t load_row4(const uint8_t* __restrict__ row,
+                                              int m0, int M, bool vec) {
+  if (m0 >= M) return 0u;
+  if (vec) return *reinterpret_cast<const uint32_t*>(row + m0);
+  uint32_t w = 0;
+  for (int c = 0; c < 4 && m0 + c < M; ++c)
+    w |= static_cast<uint32_t>(row[m0 + c]) << (8 * c);
+  return w;
+}
+
+// The offset weights of column c (0..3) of four plane words: gathers
+// byte c of w[0..n_d) into one word (byte j = plane j) and transposes
+// it, so byte r of the result is U[q*8/G + r, m0 + c].
+template <int G>
+__device__ __forceinline__ uint64_t offset_weights(const uint32_t* w, int c) {
+  constexpr int DPB = 8 / G;
+  uint64_t x = 0;
+#pragma unroll
+  for (int j = 0; j < DPB; ++j)
+    x |= static_cast<uint64_t>((w[j] >> (8 * c)) & 0xFFu) << (8 * j);
+  return transpose_digits<G>(x);
+}
+
+// Plane words of packed row q for columns m0..m0+3: w[j] for j < n_d,
+// zero above (a digit that is not stored is zero).
+template <int G>
+__device__ __forceinline__ void load_plane_words(
+    const uint8_t* __restrict__ planes, int q, int K8, int M, int nd,
+    int m0, bool vec, uint32_t* w) {
+  constexpr int DPB = 8 / G;
+#pragma unroll
+  for (int j = 0; j < DPB; ++j)
+    w[j] = j < nd ? load_row4(planes + (static_cast<size_t>(j) * K8 + q) * M,
+                              m0, M, vec)
+                  : 0u;
+}
+
+// True when 32-bit loads of plane rows are aligned.
+inline bool rows_aligned(const void* planes, int M) {
+  return M % 4 == 0 && reinterpret_cast<uintptr_t>(planes) % 4 == 0;
+}
+
+}  // namespace bitplane

@@ -1,10 +1,16 @@
-"""Impl dispatch and the length-bucketed paged-dispatch planner.
+"""Impl dispatch, the length-bucketed paged-dispatch planner and the
+bit-plane ops.
 
-Counterpart of `repro.kernels.ops` (its lines 38-247). The planner
+Counterpart of `repro.kernels.ops`. The planner
 half (`make_bucket_plan`, `plan_streamed_pages`,
 `grouped_streamed_pages`, `is_bucket_plan`) is pure numpy and gives the
 reference's `(plan, perm)` exactly; `bucket_args*` add the
 serving-layer gate and move the permutations onto the launch device.
+
+`quantize_and_pack`, `bitplane_matmul` and `packed_bytes` are the
+bit-plane half (the reference's lines 250-314): K5 packs at load, K3
+(B <= 512 rows) or K4 (above) computes the raw contraction, and
+`bitplane_matmul` applies the offset and the per-channel scale.
 
 Impl names belong to the port:
 
@@ -22,12 +28,20 @@ from typing import Literal, Optional, Tuple
 import numpy as np
 import torch
 
+from . import ref
+from .bitplane_gemm import bitplane_gemm
+from .bitplane_gemv import bitplane_gemv
+from .pack import pack_bitplanes
+
 Impl = Literal["auto", "cuda", "ref"]
 
 #: a bucket plan: ((walk_depth, padded_slot_count), ...) — hashable, so
 #: it can key the step cache of `serve.compiled`
 BucketPlan = Tuple[Tuple[int, int], ...]
 BucketStrategy = Literal["none", "pow2"]
+
+#: B threshold below which the GEMV (untiled-B) kernel is used
+_GEMV_MAX_B = 512
 
 
 def resolve_impl(impl: str, device) -> Literal["ref", "cuda"]:
@@ -214,3 +228,64 @@ def bucket_args_grouped(
         else torch.tensor(p, dtype=torch.int64, device=device)
         for p in perms
     )
+
+
+# ---------------------------------------------------------------------------
+# bit-plane weights (K3, K4, K5)
+# ---------------------------------------------------------------------------
+
+def quantize_and_pack(w: torch.Tensor, n_bits: int, group: int = 1,
+                      impl: str = "auto"
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """W [K, M] float -> (planes [n_d, K*g//8, M] u8, scale [M] f32); the
+    planes come from K5 on CUDA tensors (`impl` resolved on w's device),
+    from `ref.pack_ref` otherwise — byte-identical either way."""
+    w_q, scale = ref.quantize_ref(w, n_bits)
+    if resolve_impl(impl, w.device) == "ref":
+        return ref.pack_ref(w_q, n_bits, group), scale
+    k, m = w_q.shape
+    dpb = ref.check_dims(k, n_bits, group)
+    u = (w_q + 2 ** (n_bits - 1)).to(torch.uint8)
+    u_r = u.reshape(k // dpb, dpb, m).permute(1, 0, 2).contiguous()
+    return pack_bitplanes(u_r, n_bits, group), scale
+
+
+def bitplane_kernel(b: int):
+    """The raw-contraction kernel for B rows: K3 up to `_GEMV_MAX_B`,
+    K4 above."""
+    return bitplane_gemv if b <= _GEMV_MAX_B else bitplane_gemm
+
+
+def bitplane_matmul(
+    x: torch.Tensor,        # [B, K] or [..., K]
+    planes: torch.Tensor,   # [n_digits, K*g//8, M] uint8
+    scale: torch.Tensor,    # [M] f32
+    *,
+    n_bits: int,
+    group: int = 1,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """y = x @ dequant(planes, scale) in x's dtype; batch dims flattened
+    internally. `ref` is the reference's oracle (unpack, f32 matmul,
+    scale); the kernel path runs K3/K4 for the raw f32 x @ U and then
+    `(raw - 2^(n-1) * sum(x)) * scale`, as the reference does."""
+    lead = x.shape[:-1]
+    k = x.shape[-1]
+    xf = x.reshape(-1, k)
+    m = planes.shape[-1]
+    if resolve_impl(impl, x.device) == "ref":
+        y = ref.bitplane_matmul_ref(xf, planes, scale, n_bits, group)
+        return y.reshape(*lead, m)
+    x_r = ref.prepare_x_ref(xf, group).contiguous()
+    raw = bitplane_kernel(xf.shape[0])(x_r, planes, n_bits=n_bits,
+                                       group=group)
+    off = float(2 ** (n_bits - 1))
+    sum_x = xf.float().sum(dim=-1, keepdim=True)
+    y = (raw - off * sum_x) * scale[None, :]
+    return y.to(x.dtype).reshape(*lead, m)
+
+
+def packed_bytes(k: int, m: int, n_bits: int, group: int = 1) -> int:
+    """Device bytes of the packed representation: planes + f32 scale."""
+    nd = -(-n_bits // group)
+    return nd * (k * group // 8) * m + 4 * m

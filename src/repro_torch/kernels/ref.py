@@ -1,6 +1,28 @@
-"""Plain PyTorch versions of the paged-attention kernels K1 and K2:
-counterpart of `repro.kernels.ref` (its lines 140-252).
+"""Plain PyTorch versions of the port's kernels: counterpart of
+`repro.kernels.ref`.
 
+Bit-plane half (K3 GEMV, K4 GEMM, K5 pack; the reference's lines
+29-134). An n-bit signed weight matrix is stored as `n_digits` planes of
+g-bit digits, 8/g digits packed per byte along the contraction (K)
+dimension:
+
+    W_q [K, M]  (int, two's complement, n_bits)
+    U = W_q + 2^(n-1)                      unsigned offset form
+    digit_j(U) = (U >> (g*j)) & (2^g - 1)  j = 0..n_digits-1
+    planes[j, kq, m] byte = sum_r digit_j(U[kq*(8/g)+r, m]) << (g*r)
+
+so `planes` is [n_digits, K*g//8, M] uint8 and
+
+    x @ W_q = x @ U - 2^(n-1) * sum_k x_k
+
+K3 and K4 compute the raw contraction `x @ U` in f32
+(`bitplane_raw_ref` is its plain version); `ops.bitplane_matmul` applies
+the offset and the per-channel scale. Dtype rules follow the reference
+exactly, so planes and scales are bit-equal to its own: a bf16 weight
+gives a bf16 `absmax / qmax` before the f32 cast, `w / scale` promotes
+to f32, and `round` is half-to-even in both frameworks.
+
+Paged-attention half (K1, K2; the reference's lines 140-252).
 Dense-gather every slot's pages and run the masked GQA softmax. With
 the default arguments the math is the reference oracle's, line for
 line, including the don't-care rows (length-0 slots, padded suffix
@@ -19,12 +41,152 @@ shorter sums add the same exact zeros in another order).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 NEG_INF = -1e30
 
+
+# ---------------------------------------------------------------------------
+# bit-plane weights (K3, K4, K5)
+# ---------------------------------------------------------------------------
+
+def check_dims(k: int, n_bits: int, group: int) -> int:
+    """Validate a bit-plane format; returns digits per byte (8/g)."""
+    if group not in (1, 2, 4):
+        raise ValueError(f"group must be 1, 2 or 4, got {group}")
+    if not 2 <= n_bits <= 8:
+        raise ValueError(f"n_bits must be in [2, 8], got {n_bits}")
+    digits_per_byte = 8 // group
+    if k % digits_per_byte:
+        raise ValueError(f"K={k} not a multiple of {digits_per_byte}")
+    return digits_per_byte
+
+
+def n_digits(n_bits: int, group: int) -> int:
+    return -(-n_bits // group)
+
+
+def quantize_ref(w: torch.Tensor, n_bits: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel quantization of W [K, M].
+
+    Returns (w_q int32 [K, M], scale f32 [M]) with w_q in
+    [-2^(n-1), 2^(n-1)-1]."""
+    qmax = float(2 ** (n_bits - 1) - 1)
+    absmax = w.abs().amax(dim=0)
+    scale = torch.where(absmax > 0, absmax / qmax, 1.0).float()
+    w_q = torch.clamp(torch.round(w / scale), -(qmax + 1), qmax)
+    return w_q.to(torch.int32), scale
+
+
+def pack_ref(w_q: torch.Tensor, n_bits: int, group: int = 1
+             ) -> torch.Tensor:
+    """Pack signed w_q [K, M] into digit planes [n_digits, K*g//8, M] u8."""
+    k, m = w_q.shape
+    dpb = check_dims(k, n_bits, group)
+    u = (w_q.to(torch.int32) + 2 ** (n_bits - 1)).reshape(k // dpb, dpb, m)
+    digit_mask = (1 << group) - 1
+    shifts = (group * torch.arange(dpb, dtype=torch.int32,
+                                   device=w_q.device))[None, :, None]
+    planes = []
+    for j in range(n_digits(n_bits, group)):
+        digits = (u >> (group * j)) & digit_mask            # [K8, dpb, M]
+        planes.append((digits << shifts).sum(dim=1).to(torch.uint8))
+    return torch.stack(planes, dim=0)
+
+
+def pack_bitplanes_ref(u_r: torch.Tensor, n_bits: int, group: int = 1
+                       ) -> torch.Tensor:
+    """Plain K5: pre-strided offset weights u_r [8/g, K8, M] uint8
+    (u_r[r, q, m] = U[q*8/g + r, m]) -> planes [n_digits, K8, M] uint8."""
+    dpb, k8, m = u_r.shape
+    u = u_r.permute(1, 0, 2).reshape(k8 * dpb, m).to(torch.int32)
+    return pack_ref(u - 2 ** (n_bits - 1), n_bits, group)
+
+
+def offset_form_ref(planes: torch.Tensor, group: int = 1) -> torch.Tensor:
+    """The unsigned offset form U [K, M] uint8 that `planes` store."""
+    nd, k8, m = planes.shape
+    dpb = 8 // group
+    digit_mask = (1 << group) - 1
+    shifts = (group * torch.arange(dpb, dtype=torch.uint8,
+                                   device=planes.device))[None, :, None]
+    u = torch.zeros((k8, dpb, m), dtype=torch.uint8, device=planes.device)
+    for j in range(nd):
+        digits = (planes[j][:, None, :] >> shifts) & digit_mask
+        u |= digits << (group * j)
+    return u.reshape(k8 * dpb, m)
+
+
+def unpack_ref(planes: torch.Tensor, n_bits: int, group: int = 1
+               ) -> torch.Tensor:
+    """Inverse of pack_ref: planes -> signed w_q [K, M] int32."""
+    return offset_form_ref(planes, group).to(torch.int32) - 2 ** (n_bits - 1)
+
+
+def prepare_x_ref(x: torch.Tensor, group: int = 1) -> torch.Tensor:
+    """x [B, K] -> x_r [8/g, B, K*g//8] with x_r[r, :, q] = x[:, q*(8/g)+r]
+    (a view; the kernels take it contiguous)."""
+    b, k = x.shape
+    dpb = 8 // group
+    return x.reshape(b, k // dpb, dpb).permute(2, 0, 1)
+
+
+def bitplane_raw_ref(x_r: torch.Tensor, planes: torch.Tensor,
+                     group: int = 1) -> torch.Tensor:
+    """Plain K3/K4: the raw contraction f32 [B, M] = x @ U, with x taken
+    back from its pre-strided form x_r [8/g, B, K8]."""
+    dpb, b, k8 = x_r.shape
+    x = x_r.permute(1, 2, 0).reshape(b, k8 * dpb)
+    return x.float() @ offset_form_ref(planes, group).float()
+
+
+def bitplane_matmul_ref(
+    x: torch.Tensor,
+    planes: torch.Tensor,
+    scale: torch.Tensor,
+    n_bits: int,
+    group: int = 1,
+) -> torch.Tensor:
+    """Oracle: y = x @ dequant(planes) — computed the straightforward way
+    (unpack to int, matmul in f32)."""
+    w_q = unpack_ref(planes, n_bits, group)
+    y = x.float() @ w_q.float()
+    return (y * scale[None, :]).to(x.dtype)
+
+
+def bitplane_matmul_planewise_ref(
+    x: torch.Tensor,
+    planes: torch.Tensor,
+    scale: torch.Tensor,
+    n_bits: int,
+    group: int = 1,
+) -> torch.Tensor:
+    """Second oracle following the TPU kernel's contraction order
+    (digit-plane matmuls + offset correction)."""
+    nd, k8, m = planes.shape
+    dpb = 8 // group
+    digit_mask = (1 << group) - 1
+    x_r = prepare_x_ref(x, group).float()
+    acc = torch.zeros((x.shape[0], m), dtype=torch.float32, device=x.device)
+    for j in range(nd):
+        for r in range(dpb):
+            digits = ((planes[j] >> (group * r)) & digit_mask).float()
+            acc = acc + float(2 ** (group * j)) * (x_r[r] @ digits)
+    off = float(2 ** (n_bits - 1))
+    acc = acc - off * x.float().sum(dim=1, keepdim=True)
+    return (acc * scale[None, :]).to(x.dtype)
+
+
+def dequantize_ref(planes, scale, n_bits: int, group: int = 1):
+    return unpack_ref(planes, n_bits, group).float() * scale[None, :]
+
+
+# ---------------------------------------------------------------------------
+# paged attention (K1, K2)
+# ---------------------------------------------------------------------------
 
 def _walk_columns(block_table: torch.Tensor, block_start, depth):
     """[B, depth] table columns of the (possibly bounded) walk."""

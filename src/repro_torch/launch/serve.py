@@ -7,9 +7,12 @@ arch's smoke config with random weights; prompts are ragged (4 ..
 --prompt-len tokens), and with --prefix every prompt opens with a shared
 --shared-prefix-len system prompt whose KV pages are prefilled once.
 
+--quantize converts the projection weights to PIM bit-plane weights
+(--bits, --group) before serving, as the reference launcher does, and
+prints the packed fraction of the parameter bytes.
+
 Only the paged cache is ported: running without --paged, or with
---quantize or --metrics (or the flags that imply it), raises "not ported
-yet".
+--metrics (or the flags that imply it), raises "not ported yet".
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import torch
 from ..configs import get_config
 from ..models import init_lm
 from ..models.common import resolve_device
-from ..serve import ContinuousBatcher, Request
+from ..quant.bitplane import PimQuantConfig
+from ..serve import ContinuousBatcher, Request, ServeConfig, ServeEngine
 
 
 def main(argv=None):
@@ -34,9 +38,10 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=8)
     ap.add_argument("--quantize", action="store_true",
-                    help="PIM bit-plane weights (not ported yet)")
+                    help="PIM bit-plane weights: every projection packed "
+                         "into --bits-bit digit planes of --group bits")
     ap.add_argument("--bits", type=int, default=8)
-    ap.add_argument("--group", type=int, default=1)
+    ap.add_argument("--group", type=int, default=1, choices=[1, 2, 4])
     ap.add_argument("--paged", action="store_true",
                     help="block-paged KV cache (required: the only cache "
                          "the port has)")
@@ -53,9 +58,10 @@ def main(argv=None):
                     help="paged KV page-pool storage")
     ap.add_argument("--kernel-impl", default="auto",
                     choices=["auto", "cuda", "ref"],
-                    help="paged-attention path: 'auto' follows the device, "
-                         "'cuda' is strict (raises off the card), 'ref' "
-                         "is the plain PyTorch version")
+                    help="kernel path (paged attention, bit-plane "
+                         "projections and packing): 'auto' follows the "
+                         "device, 'cuda' is strict (raises off the "
+                         "card), 'ref' is the plain PyTorch version")
     ap.add_argument("--device", default="cuda",
                     help="where the model and pools live (default the "
                          "card; raises when none is present)")
@@ -77,8 +83,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not args.paged:
         ap.error("the dense cache is not ported yet: pass --paged")
-    if args.quantize:
-        ap.error("--quantize is not ported yet")
     if args.metrics or args.events_out or args.profile_annotations:
         ap.error("--metrics / --events-out / --profile-annotations are "
                  "not ported yet")
@@ -89,6 +93,15 @@ def main(argv=None):
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_lm(cfg, gen, device)
+    if args.quantize:
+        eng = ServeEngine(cfg, params, ServeConfig(paged=True,
+                                                   device=str(device)))
+        frac = eng.quantize(PimQuantConfig(
+            n_bits=args.bits, group=args.group, impl=args.kernel_impl,
+            min_features=1))
+        params = eng.params
+        print(f"PIM-quantized: {frac:.1%} of param bytes packed "
+              f"({args.bits}-bit, group={args.group})")
 
     shared_len = args.shared_prefix_len if args.prefix else 0
     cache_len = shared_len + args.prompt_len + args.new_tokens + 8

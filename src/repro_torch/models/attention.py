@@ -5,7 +5,9 @@ The reference's pools are immutable and each call returns new ones.
 Here the per-layer pools passed in are views of the stacked
 `[L, n_blocks, ...]` pools, and the KV append writes into them IN PLACE
 (`index_put_`); the functions still return the pools so the call shape
-matches the reference's.
+matches the reference's. Every projection goes through
+`quant.pim_linear` with the step's `impl`, so PIM bit-plane weights run
+on K3/K4 (or their plain versions under `impl="ref"`).
 """
 
 from __future__ import annotations
@@ -17,8 +19,8 @@ import torch
 from ..kernels.paged_attention import paged_attention
 from ..kernels.paged_common import requantize_page_update
 from ..kernels.paged_prefill import paged_prefill
+from ..quant.bitplane import pim_linear
 from .common import Params, apply_rope, dense_init
-from .mlp import linear
 
 
 def _select_bucket_plan(call, bucket_plans, bucket_perms, plan_class):
@@ -52,11 +54,11 @@ def init_attention(d_model: int, n_heads: int, n_kv_heads: int,
     return p
 
 
-def _project_qkv(params, x, n_heads, n_kv, hd):
+def _project_qkv(params, x, n_heads, n_kv, hd, impl):
     b, t, _ = x.shape
-    q = linear(x, params["wq"])
-    k = linear(x, params["wk"])
-    v = linear(x, params["wv"])
+    q = pim_linear(x, params["wq"], impl)
+    k = pim_linear(x, params["wk"], impl)
+    v = pim_linear(x, params["wv"], impl)
     if "bq" in params:
         q = q + params["bq"].to(q.dtype)
         k = k + params["bk"].to(k.dtype)
@@ -98,7 +100,8 @@ def attention_decode_paged(
     `(out, k_pages, v_pages, k_scales, v_scales)`."""
     b = x.shape[0]
     bs = k_pages.shape[1]
-    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim)
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim,
+                           impl)
     q = apply_rope(q, positions[:, None], rope_theta)
     k = apply_rope(k, positions[:, None], rope_theta)
     pos = positions.long()
@@ -139,7 +142,7 @@ def attention_decode_paged(
 
     out = _select_bucket_plan(call, bucket_plans, bucket_perms, plan_class)
     out = out.reshape(b, 1, n_heads * head_dim).to(x.dtype)
-    out = linear(out, params["wo"])
+    out = pim_linear(out, params["wo"], impl)
     if k_scales is None:
         return out, k_pages, v_pages
     return out, k_pages, v_pages, k_scales, v_scales
@@ -183,7 +186,8 @@ def attention_prefill_paged(
     bs = k_pages.shape[1]
     mb = block_table.shape[1]
     dev = x.device
-    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim)
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim,
+                           impl)
     positions = start.long()[:, None] + torch.arange(t, device=dev)[None, :]
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
@@ -238,7 +242,7 @@ def attention_prefill_paged(
 
     out = _select_bucket_plan(call, bucket_plans, bucket_perms, plan_class)
     out = out.reshape(b, t, n_heads * head_dim).to(x.dtype)
-    out = linear(out, params["wo"])
+    out = pim_linear(out, params["wo"], impl)
     if k_scales is None:
         return out, k_pages, v_pages
     return out, k_pages, v_pages, k_scales, v_scales

@@ -1,14 +1,16 @@
 """SwiGLU feed-forward block: counterpart of `repro.models.mlp.swiglu`.
 
-The reference routes each projection through `quant.pim_linear`, which
-is a dense matmul for dense weights (`--quantize` is not ported yet), so
-here each projection is `x @ w` in x's dtype.
+Each projection goes through `quant.pim_linear`, as in the reference: a
+dense matmul in x's dtype for a dense weight, the bit-plane op for a
+`PimWeight`. `impl` is the serving step's kernel impl, passed down to
+`pim_linear` (the reference's `swiglu` has no such argument).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..quant.bitplane import pim_linear
 from .common import ACTS, Params, dense_init
 
 
@@ -21,13 +23,8 @@ def init_swiglu(d_model: int, d_ff: int, generator, device,
     }
 
 
-def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Dense projection in x's dtype (the reference's `pim_linear` on a
-    dense weight)."""
-    return x @ w.to(x.dtype)
-
-
-def swiglu(params: Params, x: torch.Tensor, act: str = "silu"):
-    g = ACTS[act](linear(x, params["w_gate"]))
-    u = linear(x, params["w_up"])
-    return linear(g * u, params["w_down"])
+def swiglu(params: Params, x: torch.Tensor, act: str = "silu",
+           impl: str = "auto"):
+    g = ACTS[act](pim_linear(x, params["w_gate"], impl))
+    u = pim_linear(x, params["w_up"], impl)
+    return pim_linear(g * u, params["w_down"], impl)

@@ -87,7 +87,8 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
 
 
 def layer_params(stacked: Params, l: int) -> Params:
-    """Layer `l`'s parameter tree: views into the stacked tensors."""
+    """Layer `l`'s parameter tree: views into the stacked tensors (a
+    stacked `PimWeight` indexes to its layer's planes and scale)."""
     if isinstance(stacked, dict):
         return {k: layer_params(v, l) for k, v in stacked.items()}
     return stacked[l]
@@ -206,7 +207,8 @@ def _run_layers(params, x, cfg, attn_fn, attn_args, k_pages, v_pages,
                 k_scales, v_scales, impl):
     """The layer loop shared by decode and prefill (the reference's two
     `lax.scan` bodies): attention through `attn_fn` with each layer's
-    pools, table, window and plan variant, then the SwiGLU block."""
+    pools, table, window and plan variant, then the SwiGLU block. `impl`
+    reaches the attention kernels and every projection (`pim_linear`)."""
     capacity = block_table.shape[-1] * k_pages.shape[2]
     windows = _window_array(cfg, capacity)
     bt, st, plans, perms, cls = _per_layer_paged_views(
@@ -226,7 +228,7 @@ def _run_layers(params, x, cfg, attn_fn, attn_args, k_pages, v_pages,
         )[0]
         x = x + h
         x = x + swiglu(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps),
-                       cfg.act)
+                       cfg.act, impl)
     return x
 
 

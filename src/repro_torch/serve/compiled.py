@@ -12,7 +12,12 @@ signature a step sees is logged once, and `trace_count()` counts those
 entries exactly as the reference counts XLA traces, so the port shows
 the same bounded set of launch shapes.
 
-`impl` selects the paged-attention path (`kernels.ops.resolve_impl`).
+`impl` selects the kernel path of the paged attention and of every
+bit-plane projection (`kernels.ops.resolve_impl`). A `PimWeight` in the
+parameters signs as its planes' and scale's shapes plus `(n_bits,
+group)` — the static pair the reference's treedef carries into its jit
+key — so quantized serving logs as many signatures as the reference
+traces.
 `kv_dtype="int8"` builds the quantized-pool variant, whose scale stacks
 ride as two extra positional arguments after the pools.
 """
@@ -25,6 +30,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models import decode_step_paged, prefill_paged
+from ..quant.bitplane import PimWeight
 
 #: (step kind, plans) appended once per new step signature
 _TRACE_LOG: List[Tuple[str, object]] = []
@@ -44,6 +50,9 @@ def _leaf_sig(leaf):
         return tuple(_leaf_sig(x) for x in leaf)
     if isinstance(leaf, dict):
         return tuple((k, _leaf_sig(v)) for k, v in sorted(leaf.items()))
+    if isinstance(leaf, PimWeight):
+        return ("PimWeight", _leaf_sig(leaf.planes), _leaf_sig(leaf.scale),
+                leaf.n_bits, leaf.group)
     if isinstance(leaf, int):
         return ("int",)             # a dynamic scalar (e.g. last_pos)
     return ("py", type(leaf).__name__)

@@ -8,8 +8,11 @@ in the output); stopped rows are padded with it, release their pages at
 once, and generation returns when every row has stopped — so the
 returned width is the number of decode iterations run.
 
-The dense cache and `quantize()` (PIM bit-plane weights) are not ported
-yet and raise.
+`quantize(qcfg)` converts the projection weights to PIM bit-plane
+`PimWeight`s (K5 packs them on the card); `generate` and the
+`ContinuousBatcher` take the quantized parameters as they are, and every
+projection then runs on K3/K4. The dense cache is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -23,6 +26,11 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.ops import bucket_args_grouped, resolve_bucket_strategy
 from ..models.common import resolve_device
+from ..quant.bitplane import (
+    PimQuantConfig,
+    quantize_tree,
+    tree_packed_fraction,
+)
 from .compiled import paged_decode_step, paged_prefill_step
 from .paged_cache import PagedKVCache
 
@@ -71,10 +79,16 @@ class ServeEngine:
             cfg, impl=serve_cfg.kernel_impl, kv_dtype=serve_cfg.kv_dtype
         )
 
-    def quantize(self, qcfg=None) -> float:
-        raise NotImplementedError(
-            "PIM bit-plane quantized weights (--quantize) are not ported yet"
+    def quantize(self, qcfg: Optional[PimQuantConfig] = None) -> float:
+        """Convert projection weights to PIM-resident bit-planes; returns
+        the packed fraction of the parameter bytes."""
+        qcfg = qcfg or PimQuantConfig(
+            n_bits=self.cfg.quant_bits, group=self.cfg.quant_group,
+            min_features=1,
         )
+        self.params = quantize_tree(self.params, qcfg)
+        self.packed_fraction = tree_packed_fraction(self.params)
+        return self.packed_fraction
 
     def generate(self, prompts, rng: Optional[torch.Generator] = None):
         """Greedy (or temperature, with `rng`) generation for a [B, T]

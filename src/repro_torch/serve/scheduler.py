@@ -23,8 +23,11 @@ straight into the page pools.
     `bucket_strategy="none"`, when a kernel path runs (the plain version
     ignores plans, so none are built for it).
 
-The dense cache, telemetry (`telemetry=`) and PIM-quantized weights are
-not ported yet. Each tick brings its argmax to the host once.
+`params` may hold PIM bit-plane weights (`ServeEngine.quantize`); they
+flow through unchanged, and every projection then runs on K3/K4 (or
+their plain versions under `kernel_impl="ref"`). The dense cache and
+telemetry (`telemetry=`) are not ported yet. Each tick brings its argmax
+to the host once.
 """
 
 from __future__ import annotations

@@ -7,10 +7,13 @@ has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Tolerance: 1e-4 between a kernel and its plain version on valid rows
-(both fold in f32; they differ in summation order and in where hd^-0.5
-is applied); the bucketed launch and the single launch are compared bit
-for bit.
+Tolerances: 1e-4 between a paged-attention kernel and its plain
+version on valid rows (both fold in f32; they differ in summation order
+and in where hd^-0.5 is applied); the bucketed launch and the single
+launch are compared bit for bit. Bit-plane kernels: K5 planes equal the
+plain pack byte for byte; K3/K4 raw contractions within 1e-5 of
+max|raw| of the plain one (products of x with integer weights are exact
+in f32, only the summation order differs).
 """
 
 import dataclasses
@@ -20,9 +23,18 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import ops, paged_attention, paged_prefill, ref
+from repro_torch.kernels import (
+    bitplane_gemm,
+    bitplane_gemv,
+    ops,
+    pack,
+    paged_attention,
+    paged_prefill,
+    ref,
+)
 from repro_torch.kernels.paged_common import quantize_pages
 from repro_torch.models import init_lm
+from repro_torch.quant import PimQuantConfig, quantize_tree
 from repro_torch.serve import ContinuousBatcher, Request
 
 
@@ -129,4 +141,61 @@ def test_serving_on_the_card_launches_kernels_and_matches_plain(cuda_device):
             assert launched[0] > 0 and launched[1] > 0
         else:
             assert launched == (0, 0)
+    assert out["cuda"] == out["ref"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bits,group", [(8, 1), (4, 2), (8, 4), (3, 1)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bitplane_kernels_match_plain_versions(cuda_device, n_bits, group,
+                                                dtype):
+    """K5 byte-identical to the plain pack; K3 (B <= 512) and K4 (B > 512)
+    within 1e-5 of max|raw| of the plain contraction, on a K8 and an M
+    that no tile of the kernels divides."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    k, m = 200, 101
+    w = torch.randn((k, m), generator=gen, device=dev)
+    planes, scale = ops.quantize_and_pack(w, n_bits, group, "cuda")
+    w_q, want_scale = ref.quantize_ref(w, n_bits)
+    assert torch.equal(planes, ref.pack_ref(w_q, n_bits, group))
+    assert torch.equal(scale, want_scale)
+    u = ref.offset_form_ref(planes, group).float()
+    for b, mod in ((3, bitplane_gemv), (512, bitplane_gemv),
+                   (513, bitplane_gemm)):
+        x = torch.randn((b, k), generator=gen, device=dev).to(dtype)
+        x_r = ref.prepare_x_ref(x, group).contiguous()
+        before = mod.LAUNCHES
+        raw = ops.bitplane_kernel(b)(x_r, planes, n_bits=n_bits, group=group)
+        plain = x.float() @ u
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES == before + 1
+        err = float((raw - plain).abs().max() / plain.abs().max())
+        assert err <= 1e-5, (b, err)
+
+
+@pytest.mark.gpu
+def test_quantized_serving_on_the_card_matches_plain(cuda_device):
+    """An f32 drain with 8-bit bit-plane weights through K1-K5 equals the
+    same drain through the plain versions on the card."""
+    dev = cuda_device
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
+                              dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    pack.LAUNCHES = 0
+    qparams = quantize_tree(params, PimQuantConfig(min_features=1))
+    assert pack.LAUNCHES == 7 * cfg.n_layers
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n), dtype=np.int32)
+               for n in rng.integers(4, 30, 6)]
+    out = {}
+    for impl in ("cuda", "ref"):
+        bitplane_gemv.LAUNCHES = 0
+        cb = ContinuousBatcher(cfg, qparams, n_slots=3, cache_len=48,
+                               paged=True, block_size=4, kernel_impl=impl,
+                               device=dev)
+        for uid, p in enumerate(prompts):
+            cb.submit(Request(uid=uid, prompt=p, max_new_tokens=6))
+        out[impl] = cb.run_until_drained()
+        assert (bitplane_gemv.LAUNCHES > 0) == (impl == "cuda")
     assert out["cuda"] == out["ref"]
