@@ -11,7 +11,10 @@ entry points the launcher drives. Phases, one line each:
   1. card      nvidia-smi name and power limit, torch and CUDA versions;
                TF32 off for matmuls and cuDNN
   2. build     nvcc for sm_90a, one process per kernel (K1-K5), all at
-               once
+               once; ptxas's register report, and the count of
+               tensor-core instructions (HMMA / HGMMA) in each library's
+               SASS by cuobjdump ("unavailable" without it), which must
+               be above 0 for K2 and K4
   3. kernels   K1 (paged decode) and K2 (paged prefill) at the main
                path's head shapes (H 12, KV 2, hd 128, bs 16, 8 slots,
                ragged lengths 0..2048, windows {capacity, 256}, a
@@ -28,8 +31,14 @@ entry points the launcher drives. Phases, one line each:
                1e-5 * max|raw| (exact products, another summation order),
                `bitplane_matmul` within the reference's own tolerance of
                its oracle (2e-3 f32, 2e-2 bf16, of max|y|)
-  5. timing    each kernel at main-path shapes (CUDA events, median)
-               beside its plain version, its bound and a library call
+  5. timing    each kernel at main-path shapes beside its plain version,
+               its bound and a library call: device time (ms: 10 calls
+               in a CUDA graph, replayed between CUDA events, median /
+               10) and, for the kernel and the library call, the time of
+               one call from the host (call_ms: events around the call,
+               host dispatch included, as PR 11 and PR 12 timed);
+               K2 also on a first request with no cached prefix, K4 on
+               all four of qwen2-1.5b's projection shapes
   6. serve     full width, bf16: 8 slots, 16 requests, each a shared
                256-token system prompt plus a 64..768-token suffix, 64
                new tokens, prefix index on; the K1/K2 launch counts of
@@ -55,6 +64,9 @@ port's sources are not beside it.
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -84,8 +96,10 @@ def say(phase: str, **fields) -> None:
     print(f"[{phase}] {body}", flush=True)
 
 
-def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
-    """Median device time of one call of `fn`, by CUDA events."""
+def call_ms(fn, warmup: int = 3, reps: int = 20) -> float:
+    """Median time of one call of `fn` from the host: CUDA events around
+    the call, so the host's dispatch counts where the card waits for it
+    (how PR 11 and PR 12 timed every kernel)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -99,6 +113,47 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_ms(fn, warmup: int = 3, reps: int = 20, calls: int = 10) -> float:
+    """Device time of one call of `fn`: `calls` calls captured in one CUDA
+    graph, the graph replayed between CUDA events, the median over `reps`
+    replays divided by `calls`. No host dispatch is counted."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def time_kernel(fn, plain, library=None) -> dict:
+    """A kernel's device time beside its plain version's and one library
+    call's (None where there is none), and the per-call times of the
+    kernel and the library call."""
+    return dict(ms=cuda_ms(fn), call_ms=call_ms(fn), plain_ms=cuda_ms(plain),
+                library_ms=None if library is None else cuda_ms(library),
+                library_call_ms=None if library is None else call_ms(library))
+
+
+def say_timing(name: str, r: dict) -> None:
+    say("timing", kernel=name, shape=repr(r["shape"]), ms=r["ms"],
+        call_ms=r["call_ms"], plain_ms=r["plain_ms"],
+        library_ms=r["library_ms"], library_call_ms=r["library_call_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"])
 
 
 def kernel_modules():
@@ -117,6 +172,28 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {name: mod.LAUNCHES for name, mod in kernel_modules().items()}
+
+
+#: libraries whose products must run on the tensor cores
+TENSOR_CORE_KERNELS = ("paged_prefill", "bitplane_gemm")
+
+
+def tensor_core_counts(libs) -> dict:
+    """name -> the number of tensor-core instructions (HMMA / HGMMA) in
+    the library's SASS, by `cuobjdump -sass`; "unavailable" where the
+    toolkit has no cuobjdump or it fails."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    counts = {}
+    for name, path in libs.items():
+        if not os.path.exists(tool):
+            counts[name] = "unavailable"
+            continue
+        r = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                           text=True, timeout=300)
+        counts[name] = (len(re.findall(r"\bHG?MMA\.", r.stdout))
+                        if r.returncode == 0 else "unavailable")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -228,8 +305,9 @@ def sdpa_inputs(kp, vp, table, n_cols):
 def kernel_timings(dev):
     """Times at the main path's shapes: K1 over the 8 decode slots of
     the serving trace, K2 over one slot's 768-token suffix after the
-    256-token shared prefix. bf16 q and pools, table width 68 (1088
-    tokens of capacity)."""
+    256-token shared prefix (the JSON row) and over a 1024-token first
+    request with no cached prefix. bf16 q and pools, table width 68
+    (1088 tokens of capacity)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.paged_prefill import paged_prefill_attention
@@ -251,51 +329,54 @@ def kernel_timings(dev):
     lens_host = [340, 420, 560, 700, 810, 930, 1010, 1088]
     lengths = torch.tensor(lens_host, dtype=torch.int32, device=dev)
     q = torch.randn((b, H, HD), generator=gen, device=dev).to(dt)
-    ms = cuda_ms(lambda: paged_decode_attention(q, kp, vp, table, lengths,
-                                                capacity))
-    plain_ms = cuda_ms(lambda: ref.paged_attention_ref(
-        q, kp, vp, table, lengths, capacity))
     k_all, v_all = sdpa_inputs(kp, vp, table, mb)
     mask = (torch.arange(capacity, device=dev)[None, :]
             < lengths[:, None])[:, None, None, :]
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], k_all, v_all, attn_mask=mask))
     kv_pos = sum(lens_host)
     nbytes = (2 * kv_pos * KV * HD * item + q.numel() * item
               + b * H * HD * 4 + table.numel() * 4 + b * 4)
     ops = 4 * HD * H * kv_pos
-    out["paged_decode"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               **bound(nbytes, ops, dt),
-                               shape=f"q[{b},{H},{HD}] lens {lens_host}")
+    out["paged_decode"] = dict(
+        **time_kernel(
+            lambda: paged_decode_attention(q, kp, vp, table, lengths,
+                                           capacity),
+            lambda: ref.paged_attention_ref(q, kp, vp, table, lengths,
+                                            capacity),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], k_all, v_all, attn_mask=mask)),
+        **bound(nbytes, ops, dt), shape=f"q[{b},{H},{HD}] lens {lens_host}")
 
-    st_, tot = 256, 1024
-    t = tot - st_
-    q1 = torch.randn((1, t, H, HD), generator=gen, device=dev).to(dt)
-    start = torch.tensor([st_], dtype=torch.int32, device=dev)
-    total = torch.tensor([tot], dtype=torch.int32, device=dev)
-    bt1 = table[:1].contiguous()
-    ms = cuda_ms(lambda: paged_prefill_attention(q1, kp, vp, bt1, start,
-                                                 total, capacity))
-    plain_ms = cuda_ms(lambda: ref.paged_prefill_ref(
-        q1, kp, vp, bt1, start, total, capacity))
-    k1, v1 = sdpa_inputs(kp, vp, bt1, tot // BS)
-    qpos = st_ + torch.arange(t, device=dev)
-    pmask = (torch.arange(tot, device=dev)[None, :]
-             <= qpos[:, None])[None, None]
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q1.transpose(1, 2), k1, v1, attn_mask=pmask))
-    pairs = sum(st_ + i + 1 for i in range(t))
-    nbytes = (2 * tot * KV * HD * item + q1.numel() * item
-              + q1.numel() * 4 + bt1.numel() * 4 + 8)
-    ops = 4 * HD * H * pairs
-    out["paged_prefill"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                **bound(nbytes, ops, dt),
-                                shape=f"q[1,{t},{H},{HD}] start {st_} "
-                                      f"total {tot}")
+    # one slot's 768-token suffix after the cached 256-token prefix (the
+    # JSON row), then a first request with no cached prefix
+    for st_, tot in ((256, 1024), (0, 1024)):
+        t = tot - st_
+        q1 = torch.randn((1, t, H, HD), generator=gen, device=dev).to(dt)
+        start = torch.tensor([st_], dtype=torch.int32, device=dev)
+        total = torch.tensor([tot], dtype=torch.int32, device=dev)
+        bt1 = table[:1].contiguous()
+        k1, v1 = sdpa_inputs(kp, vp, bt1, tot // BS)
+        qpos = st_ + torch.arange(t, device=dev)
+        pmask = (torch.arange(tot, device=dev)[None, :]
+                 <= qpos[:, None])[None, None]
+        pairs = sum(st_ + i + 1 for i in range(t))
+        nbytes = (2 * tot * KV * HD * item + q1.numel() * item
+                  + q1.numel() * 4 + bt1.numel() * 4 + 8)
+        ops = 4 * HD * H * pairs
+        r = dict(
+            **time_kernel(
+                lambda: paged_prefill_attention(q1, kp, vp, bt1, start,
+                                                total, capacity),
+                lambda: ref.paged_prefill_ref(q1, kp, vp, bt1, start, total,
+                                              capacity),
+                lambda: F.scaled_dot_product_attention(
+                    q1.transpose(1, 2), k1, v1, attn_mask=pmask)),
+            **bound(nbytes, ops, dt),
+            shape=f"q[1,{t},{H},{HD}] start {st_} total {tot}")
+        out.setdefault("paged_prefill", r)
+        if st_ == 0:
+            say_timing("paged_prefill", r)
     for name, r in out.items():
-        say("timing", kernel=name, shape=repr(r["shape"]), ms=r["ms"],
-            plain_ms=r["plain_ms"], library_ms=r["library_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+        say_timing(name, r)
     return out
 
 
@@ -394,9 +475,10 @@ def bitplane_checks(dev):
 
 def bitplane_timings(dev):
     """Times at the main path's shapes, 8-bit g = 1 bf16: K3 at B = 8
-    (a decode tick's 8 slots), K4 at B = 768 (one slot's suffix), each on
-    [1536->8960] (w_gate/w_up, the row the JSON line carries) and
-    [8960->1536] (w_down); K5 packing one [1536, 8960] slice. The
+    (a decode tick's 8 slots) on [1536->8960] (w_gate/w_up, the row the
+    JSON line carries) and [8960->1536] (w_down); K4 at B = 768 (one
+    slot's suffix) on those two and on [1536->256] (wk/wv) and
+    [1536->1536] (wq/wo); K5 packing one [1536, 8960] slice. The
     library yardstick is one `x @ W` with W dequantized dense in x's
     dtype beforehand (the port never calls it); K5 has none."""
     from repro_torch.kernels import (bitplane_gemm, bitplane_gemv, ops, pack,
@@ -405,36 +487,36 @@ def bitplane_timings(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     dt = torch.bfloat16
     out = {}
-    for name, fn, b in (("bitplane_gemv", bitplane_gemv.bitplane_gemv, 8),
-                        ("bitplane_gemm", bitplane_gemm.bitplane_gemm, 768)):
-        for k, m in ((1536, 8960), (8960, 1536)):
+    for name, fn, b, shapes in (
+            ("bitplane_gemv", bitplane_gemv.bitplane_gemv, 8,
+             ((1536, 8960), (8960, 1536))),
+            ("bitplane_gemm", bitplane_gemm.bitplane_gemm, 768,
+             ((1536, 8960), (8960, 1536), (1536, 256), (1536, 1536)))):
+        for k, m in shapes:
             w = torch.randn((k, m), generator=gen, device=dev)
             planes, scale = ops.quantize_and_pack(w, 8, 1, "cuda")
             x = torch.randn((b, k), generator=gen, device=dev).to(dt)
             x_r = ref.prepare_x_ref(x, 1).contiguous()
             w_dense = ref.dequantize_ref(planes, scale, 8, 1).to(dt)
             r = dict(
-                ms=cuda_ms(lambda: fn(x_r, planes, n_bits=8, group=1)),
-                plain_ms=cuda_ms(lambda: ref.bitplane_raw_ref(x_r, planes, 1)),
-                library_ms=cuda_ms(lambda: x @ w_dense),
+                **time_kernel(
+                    lambda: fn(x_r, planes, n_bits=8, group=1),
+                    lambda: ref.bitplane_raw_ref(x_r, planes, 1),
+                    lambda: x @ w_dense),
                 **bound(planes.numel() + x_r.numel() * x_r.element_size()
                         + b * m * 4, 2 * b * k * m, dt),
                 shape=f"x[{b},{k}] planes[8,{k // 8},{m}] bf16")
-            say("timing", kernel=name, shape=repr(r["shape"]), ms=r["ms"],
-                plain_ms=r["plain_ms"], library_ms=r["library_ms"],
-                bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+            say_timing(name, r)
             out.setdefault(name, r)
     k, m = 1536, 8960
     w_q = torch.randint(-128, 128, (k, m), generator=gen, device=dev)
     u_r = (w_q + 128).to(torch.uint8).reshape(k // 8, 8, m).permute(
         1, 0, 2).contiguous()
-    r = dict(ms=cuda_ms(lambda: pack.pack_bitplanes(u_r, 8, 1)),
-             plain_ms=cuda_ms(lambda: ref.pack_bitplanes_ref(u_r, 8, 1)),
-             library_ms=None, **bound(2 * u_r.numel(), 0, dt),
+    r = dict(**time_kernel(lambda: pack.pack_bitplanes(u_r, 8, 1),
+                           lambda: ref.pack_bitplanes_ref(u_r, 8, 1)),
+             **bound(2 * u_r.numel(), 0, dt),
              shape=f"u_r[8,{k // 8},{m}] -> planes[8,{k // 8},{m}]")
-    say("timing", kernel="bitplane_pack", shape=repr(r["shape"]), ms=r["ms"],
-        plain_ms=r["plain_ms"], library_ms="-", bound_ms=r["bound_ms"],
-        bound_by=r["bound_by"])
+    say_timing("bitplane_pack", r)
     out["bitplane_pack"] = r
     return out
 
@@ -615,6 +697,11 @@ def main() -> int:
         for line in _build.log_path(name).read_text().splitlines():
             if "registers" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
+    sass = tensor_core_counts(libs)
+    say("sass", **{name: n for name, n in sass.items()})
+    for name in TENSOR_CORE_KERNELS:
+        check(sass[name] == "unavailable" or sass[name] > 0,
+              f"{name}: no tensor-core instruction in its SASS")
 
     errs = kernel_checks(dev)
     errs.update(bitplane_checks(dev))

@@ -29,9 +29,9 @@ KERNELS = ("paged_decode", "paged_prefill", "bitplane_gemv", "bitplane_gemm",
 #: the headers each kernel includes (part of its library's hash)
 _HEADERS = {
     "paged_decode": ("paged_common.cuh",),
-    "paged_prefill": ("paged_common.cuh",),
+    "paged_prefill": ("paged_common.cuh", "tensor_core.cuh"),
     "bitplane_gemv": ("bitplane_common.cuh",),
-    "bitplane_gemm": ("bitplane_common.cuh",),
+    "bitplane_gemm": ("bitplane_common.cuh", "tensor_core.cuh"),
     "bitplane_pack": ("bitplane_common.cuh",),
 }
 NVCC_FLAGS = (

@@ -33,7 +33,7 @@ from .paged_common import DTYPE_CODES, Q_DTYPES, launch_kernel, ptr
 LAUNCHES = 0
 
 #: x_r, planes, out; x dtype, B, K8, M, n_digits, group; stream
-RAW_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -69,22 +69,6 @@ def check_raw_operands(name: str, x_r: torch.Tensor, planes: torch.Tensor,
              f"{name}: x_r and planes must be contiguous")
 
 
-def launch_raw(name: str, x_r: torch.Tensor, planes: torch.Tensor,
-               n_bits: int, group: int):
-    """One launch of the K3 or K4 library `name` into a new f32 [B, M];
-    returns `(out, launches)` — no launch for an empty output."""
-    _, b, k8 = x_r.shape
-    m = planes.shape[2]
-    out = torch.empty((b, m), dtype=torch.float32, device=x_r.device)
-    if not (b and m):
-        return out, 0
-    launch_kernel(name, f"{name}_launch", RAW_ARGTYPES, (
-        ptr(x_r), ptr(planes), ptr(out), DTYPE_CODES[x_r.dtype], b, k8, m,
-        ref.n_digits(n_bits, group), group,
-    ), x_r.device)
-    return out, 1
-
-
 def bitplane_gemv(x_r: torch.Tensor, planes: torch.Tensor, *, n_bits: int,
                   group: int = 1) -> torch.Tensor:
     """One K3 launch: raw f32 [B, M] = x @ U."""
@@ -92,6 +76,14 @@ def bitplane_gemv(x_r: torch.Tensor, planes: torch.Tensor, *, n_bits: int,
     check_raw_operands("bitplane_gemv", x_r, planes, n_bits, group)
     if x_r.device.type == "cpu":
         return ref.bitplane_raw_ref(x_r, planes, group)
-    out, launched = launch_raw("bitplane_gemv", x_r, planes, n_bits, group)
-    LAUNCHES += launched
+    _, b, k8 = x_r.shape
+    m = planes.shape[2]
+    out = torch.empty((b, m), dtype=torch.float32, device=x_r.device)
+    if not (b and m):
+        return out
+    launch_kernel("bitplane_gemv", "bitplane_gemv_launch", _ARGTYPES, (
+        ptr(x_r), ptr(planes), ptr(out), DTYPE_CODES[x_r.dtype], b, k8, m,
+        ref.n_digits(n_bits, group), group,
+    ), x_r.device)
+    LAUNCHES += 1
     return out

@@ -12,8 +12,9 @@
 // (8/g) x (8/g) matrix of g-bit digits, transposed. `transpose_digits`
 // turns one into the other with three (g = 1), two (g = 2) or one
 // (g = 4) delta swaps on a 64-bit word — integer shifts and masks in
-// registers — so K3/K4 rebuild U from the planes and K5 builds the
-// planes from U with the same function.
+// registers — so K3 rebuilds U from the planes and K5 builds the planes
+// from U with the same function; K4 uses transpose_digit_words, the same
+// transpose done for four columns at once across the plane words.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,6 +60,40 @@ __device__ __forceinline__ uint64_t transpose_digits<2>(uint64_t x) {
 template <>
 __device__ __forceinline__ uint64_t transpose_digits<4>(uint64_t x) {
   return delta_swap(x, 0x00F0ull, 4);
+}
+
+// Digit positions p (0 .. 8/G) of a byte whose bit h is clear, in every
+// byte of a word: the lower half of each 2h-digit block.
+template <int G>
+__host__ __device__ constexpr uint32_t lower_digits_mask(int h) {
+  uint32_t m = 0;
+  for (int p = 0; p < 8 / G; ++p)
+    if ((p & h) == 0) m |= ((1u << G) - 1u) << (G * p);
+  return m * 0x01010101u;
+}
+
+// transpose_digits on four columns at once, across words instead of
+// within one: w[j] (j < 8/G) holds the plane-j bytes of four columns
+// (byte c = column c), and on return byte c of w[r] is the offset
+// weight U[q*8/G + r, column c]. log2(8/G) stages of block swaps
+// between word pairs, each a few shifts and masks for 4 x 8/G weights
+// (K4 decodes whole column tiles with it).
+template <int G>
+__device__ __forceinline__ void transpose_digit_words(uint32_t* w) {
+  constexpr int DPB = 8 / G;
+  constexpr int kStages = G == 1 ? 3 : G == 2 ? 2 : 1;  // log2(8/G)
+#pragma unroll
+  for (int s = 0; s < kStages; ++s) {
+    const int h = (DPB / 2) >> s;
+    const uint32_t mask = lower_digits_mask<G>(h);
+#pragma unroll
+    for (int j = 0; j < DPB; ++j) {
+      if (j & h) continue;
+      const uint32_t t = ((w[j] >> (G * h)) ^ w[j + h]) & mask;
+      w[j + h] ^= t;
+      w[j] ^= t << (G * h);
+    }
+  }
 }
 
 // Bytes m0 .. m0+3 of one plane row (`row` points at column 0), as one

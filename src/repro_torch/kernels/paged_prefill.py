@@ -12,7 +12,9 @@ position `start + t` and sees
 `paged_prefill_attention` is the kernel wrapper: on CUDA tensors it
 launches the hand-written kernel of `csrc/paged_prefill.cu` and counts
 the launch in `LAUNCHES`; on CPU tensors — and only there — it runs the
-plain version `ref.paged_prefill_ref` over the same walk.
+plain version `ref.paged_prefill_ref` over the same walk. On the card
+the walk is split into ranges (`walk_ranges`) whose softmax states the
+kernel merges through scratch that the wrapper allocates.
 
 Layouts (the reference's):
     q            [B, T, H, hd]           suffix queries (RoPE applied)
@@ -44,12 +46,34 @@ from .paged_common import (
 LAUNCHES = 0
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 10           # q, k/v pools, k/v scales, table,
-                                     # start, total, block_start, out
-    + [ctypes.c_int] * 11            # q/kv dtype, B, T, H, KV, hd, bs,
-                                     # mb, depth, window
+    [ctypes.c_void_p] * 12           # q, k/v pools, k/v scales, table,
+                                     # start, total, block_start, out,
+                                     # part_acc, part_ml
+    + [ctypes.c_int] * 13            # q/kv dtype, B, T, H, KV, hd, bs,
+                                     # mb, depth, window, n_ranges,
+                                     # range_chunks
     + [ctypes.c_float, ctypes.c_void_p]   # scale, stream
 )
+
+#: keys a fold step takes (csrc/paged_prefill.cu kChunkKeys)
+CHUNK_KEYS = 16
+#: walk chunks per range, and the most ranges a launch splits into
+RANGE_CHUNKS = 32
+MAX_RANGES = 4
+
+
+def walk_ranges(mb: int, bs: int):
+    """`(count, chunks)`: the kernel splits the page walk into `count`
+    ranges of `chunks` chunks (16 keys each), one CTA per query tile and
+    range, and merges the ranges' softmax states in order. It halves
+    the longest chain of dependent fold steps at the main path's 1088
+    tokens of capacity. A function of the table's width and the page
+    size only, so every launch of a serving run splits at the same table
+    positions and a row's output never depends on how the rows are
+    batched, chunked or bucketed."""
+    n_chunks = mb * -(-bs // CHUNK_KEYS)
+    count = min(-(-n_chunks // RANGE_CHUNKS), MAX_RANGES)
+    return count, -(-n_chunks // count)
 
 
 def paged_prefill_attention(
@@ -90,11 +114,19 @@ def paged_prefill_attention(
     if b == 0 or t == 0:
         return out
     _, bs, n_kv, _ = k_pages.shape
+    n_ranges, range_chunks = walk_ranges(mb, bs)
+    part_acc = part_ml = None
+    if n_ranges > 1:
+        part_acc = torch.empty((n_ranges, b, t, h, hd), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((n_ranges, b, t, h, 2), dtype=torch.float32,
+                              device=q.device)
     launch_kernel("paged_prefill", "paged_prefill_launch", _ARGTYPES, (
         ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scales), ptr(v_scales),
         ptr(block_table), ptr(start), ptr(total), ptr(block_start),
-        ptr(out), DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype],
-        b, t, h, n_kv, hd, bs, mb, depth, int(window), float(hd ** -0.5),
+        ptr(out), ptr(part_acc), ptr(part_ml), DTYPE_CODES[q.dtype],
+        DTYPE_CODES[k_pages.dtype], b, t, h, n_kv, hd, bs, mb, depth,
+        int(window), n_ranges, range_chunks, float(hd ** -0.5),
     ), q.device)
     LAUNCHES += 1
     return out

@@ -186,6 +186,34 @@ def test_kernel_path_splits_at_512_rows_and_matches_pallas(monkeypatch, b,
                                atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("k8,m,group", [
+    (192, 256, 1), (192, 1536, 1), (192, 8960, 1), (1120, 1536, 1),
+    (25, 101, 1), (50, 101, 2), (100, 101, 4), (384, 256, 2), (0, 64, 1),
+])
+def test_gemm_splits_cover_k_in_whole_nonempty_ranges(k8, m, group):
+    """K4's K split: a function of the weight alone, each range whole
+    pairs of chunks and none empty, and never more blocks than
+    `MAX_TILES` column tiles x splits."""
+    n_pairs = -(-k8 // (bitplane_gemm.PAIR_K * group // 8))
+    s = bitplane_gemm.gemm_splits(k8, m, group)
+    assert s >= 1
+    per = -(-n_pairs // s)
+    assert s == 1 or (s - 1) * per < n_pairs <= s * per
+    assert s == 1 or -(-m // bitplane_gemm.TILE_M) * s <= \
+        bitplane_gemm.MAX_TILES
+
+
+def test_gemm_splits_fill_the_card_on_the_main_path():
+    """At a 768-row prefill every qwen2-1.5b projection launches at
+    least 132 blocks (one per H100 SM), the long-K and narrow ones by
+    splitting K."""
+    row_tiles = -(-768 // 128)
+    for k, m in ((1536, 256), (1536, 1536), (1536, 8960), (8960, 1536)):
+        s = bitplane_gemm.gemm_splits(k // 8, m, 1)
+        col_tiles = -(-m // bitplane_gemm.TILE_M)
+        assert row_tiles * col_tiles * s >= 132, (k, m, s)
+
+
 def test_cuda_impl_raises_on_cpu_tensors():
     tw, _ = _weights(10, 64, 32)
     planes, scale = ops.quantize_and_pack(tw, 8, 1, "ref")

@@ -199,3 +199,135 @@ def test_quantized_serving_on_the_card_matches_plain(cuda_device):
         out[impl] = cb.run_until_drained()
         assert (bitplane_gemv.LAUNCHES > 0) == (impl == "cuda")
     assert out["cuda"] == out["ref"]
+
+
+def _prefill_case(gen, dev, kind, q_dtype, B, T, H, KV, hd, bs, mb):
+    """Pools, a permuted table and q for one K2 launch shape."""
+    nb = B * mb + 1
+    tk, tv, tks, tvs = _pools(gen, nb, bs, KV, hd, kind, dev)
+    perm = torch.randperm(nb - 1, generator=gen, device=dev)[: B * mb] + 1
+    bt = perm.reshape(B, mb).to(torch.int32)
+    q = torch.randn((B, T, H, hd), generator=gen, device=dev).to(q_dtype)
+    return q, tk, tv, bt, dict(k_scales=tks, v_scales=tvs)
+
+
+def _valid_rows(start, total, T):
+    dev = start.device
+    return (start[:, None] + torch.arange(T, device=dev)[None, :]
+            < total[:, None])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mb", [16, 80])
+def test_prefill_kernel_every_dtype_pair(cuda_device, kind, q_dtype, mb):
+    """Every (q, pool) dtype pair the C interface takes goes through the
+    tensor-core kernel and stays within 1e-4 of the plain version on
+    valid rows, with a full and a sliding window, in one walk (16-page
+    table) and split into merged ranges (80 pages)."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, T, H, KV, hd, bs = 2, 90, 12, 2, 128, 16
+    q, tk, tv, bt, sc = _prefill_case(gen, dev, kind, q_dtype, B, T, H, KV,
+                                      hd, bs, mb)
+    start = torch.tensor([0, 130], dtype=torch.int32, device=dev)
+    total = torch.tensor([77, 220], dtype=torch.int32, device=dev)
+    valid = _valid_rows(start, total, T)
+    for window in (mb * bs, 40):
+        out = paged_prefill.paged_prefill_attention(q, tk, tv, bt, start,
+                                                    total, window, **sc)
+        plain = ref.paged_prefill_ref(q, tk, tv, bt, start, total, window,
+                                      **sc)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        err = float((out - plain).abs()[valid].max())
+        assert err <= 1e-4, (kind, q_dtype, window, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,KV,hd,bs,T", [
+    (12, 2, 128, 16, 37),     # g = 6: 222 units, 3.5 tiles
+    (4, 4, 64, 16, 70),       # g = 1: 70 units
+    (6, 2, 96, 24, 45),       # hd and bs off the 16-wide tiles
+    (2, 1, 16, 4, 29),        # the smoke model's heads and pages
+])
+def test_prefill_kernel_ragged_tiles(cuda_device, H, KV, hd, bs, T):
+    """T and H*T that are not multiples of the 64-unit tile, head
+    widths below and between the compiled tile widths, and pages that
+    are not a multiple of the 16-key fold step."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B, mb = 3, (T + 64) // bs + 2
+    q, tk, tv, bt, sc = _prefill_case(gen, dev, "bf16", torch.bfloat16, B, T,
+                                      H, KV, hd, bs, mb)
+    start = torch.tensor([0, 5, 64], dtype=torch.int32, device=dev)
+    total = start + torch.tensor([T, T - 3, 11], dtype=torch.int32,
+                                 device=dev)
+    valid = _valid_rows(start, total, T)
+    for window in (mb * bs, 7):
+        out = paged_prefill.paged_prefill_attention(q, tk, tv, bt, start,
+                                                    total, window, **sc)
+        plain = ref.paged_prefill_ref(q, tk, tv, bt, start, total, window,
+                                      **sc)
+        torch.cuda.synchronize()
+        err = float((out - plain).abs()[valid].max())
+        assert err <= 1e-4, (H, KV, hd, bs, T, window, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("mb", [24, 72])
+def test_prefill_kernel_two_launches_equal_one(cuda_device, kind, mb):
+    """A suffix prefilled in two launches, the second starting where the
+    first stopped, gives the single launch's rows bit for bit: the tiles
+    fall on other rows, and a row's output must not depend on its tile
+    (24 pages: one walk; 72: three ranges, merged)."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, T, H, KV, hd, bs = 2, 150, 12, 2, 128, 16
+    q_dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    q, tk, tv, bt, sc = _prefill_case(gen, dev, kind, q_dtype, B, T, H, KV,
+                                      hd, bs, mb)
+    start = torch.tensor([0, 100], dtype=torch.int32, device=dev)
+    total = start + T
+    for window in (mb * bs, 50):
+        one = paged_prefill.paged_prefill_attention(q, tk, tv, bt, start,
+                                                    total, window, **sc)
+        t1 = 37
+        first = paged_prefill.paged_prefill_attention(
+            q[:, :t1].contiguous(), tk, tv, bt, start, start + t1, window,
+            **sc)
+        second = paged_prefill.paged_prefill_attention(
+            q[:, t1:].contiguous(), tk, tv, bt, start + t1, total, window,
+            **sc)
+        torch.cuda.synchronize()
+        assert torch.equal(first, one[:, :t1]), (kind, window)
+        assert torch.equal(second, one[:, t1:]), (kind, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,m", [(1536, 256), (8960, 1536), (200, 101)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bitplane_gemm_main_path_shapes(cuda_device, k, m, dtype):
+    """K4 on the narrow [1536->256] and the long-K [8960->1536]
+    projections (both split K) and a ragged one: within 1e-5 of max|raw|
+    of the plain contraction, and the rows of a 1024-row launch equal
+    the same rows of a 513-row launch bit for bit."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    w = torch.randn((k, m), generator=gen, device=dev)
+    planes, _ = ops.quantize_and_pack(w, 8, 1, "cuda")
+    u = ref.offset_form_ref(planes, 1).float()
+    x = torch.randn((1024, k), generator=gen, device=dev).to(dtype)
+    raws = {}
+    for b in (1024, 513):
+        x_r = ref.prepare_x_ref(x[:b], 1).contiguous()
+        before = bitplane_gemm.LAUNCHES
+        raws[b] = bitplane_gemm.bitplane_gemm(x_r, planes, n_bits=8, group=1)
+        assert bitplane_gemm.LAUNCHES == before + 1
+    plain = x.float() @ u
+    torch.cuda.synchronize()
+    err = float((raws[1024] - plain).abs().max() / plain.abs().max())
+    assert err <= 1e-5, (k, m, dtype, err)
+    assert torch.equal(raws[1024][:513], raws[513])

@@ -42,9 +42,13 @@ from repro_torch.kernels.paged_common import (
     quantize_pages,
 )
 from repro_torch.kernels.paged_prefill import (
+    CHUNK_KEYS,
+    MAX_RANGES,
+    RANGE_CHUNKS,
     paged_prefill,
     paged_prefill_attention,
     paged_prefill_attention_bucketed,
+    walk_ranges,
 )
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -345,3 +349,19 @@ def test_kernel_modules_import_without_nvcc_or_gpu(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("mb,bs", [(1, 16), (8, 16), (32, 16), (33, 16),
+                                   (68, 16), (128, 16), (2048, 16), (25, 4),
+                                   (6, 24), (10, 64)])
+def test_prefill_walk_ranges_cover_the_table(mb, bs):
+    """K2's split of the page walk: from the table's width and page size
+    alone, at most MAX_RANGES ranges that together cover every chunk of
+    the widest walk, none of them empty; a single range up to
+    RANGE_CHUNKS chunks."""
+    n_chunks = mb * -(-bs // CHUNK_KEYS)
+    count, chunks = walk_ranges(mb, bs)
+    assert 1 <= count <= MAX_RANGES
+    assert (count - 1) * chunks < n_chunks <= count * chunks
+    assert (count == 1) == (n_chunks <= RANGE_CHUNKS) or count == MAX_RANGES
+
