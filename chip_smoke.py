@@ -14,7 +14,7 @@ entry points the launcher drives. Phases, one line each:
                once; ptxas's register report, and the count of
                tensor-core instructions (HMMA / HGMMA) in each library's
                SASS by cuobjdump ("unavailable" without it), which must
-               be above 0 for K2 and K4
+               be above 0 for K1-K4
   3. kernels   K1 (paged decode) and K2 (paged prefill) at the main
                path's head shapes (H 12, KV 2, hd 128, bs 16, 8 slots,
                ragged lengths 0..2048, windows {capacity, 256}, a
@@ -37,8 +37,9 @@ entry points the launcher drives. Phases, one line each:
                10) and, for the kernel and the library call, the time of
                one call from the host (call_ms: events around the call,
                host dispatch included, as PR 11 and PR 12 timed);
-               K2 also on a first request with no cached prefix, K4 on
-               all four of qwen2-1.5b's projection shapes
+               K1 also on int8 pools, K2 also on a first request with
+               no cached prefix, K3 and K4 on all four of qwen2-1.5b's
+               projection shapes
   6. serve     full width, bf16: 8 slots, 16 requests, each a shared
                256-token system prompt plus a 64..768-token suffix, 64
                new tokens, prefix index on; the K1/K2 launch counts of
@@ -175,7 +176,8 @@ def read_launches() -> dict:
 
 
 #: libraries whose products must run on the tensor cores
-TENSOR_CORE_KERNELS = ("paged_prefill", "bitplane_gemm")
+TENSOR_CORE_KERNELS = ("paged_decode", "paged_prefill", "bitplane_gemv",
+                       "bitplane_gemm")
 
 
 def tensor_core_counts(libs) -> dict:
@@ -304,10 +306,10 @@ def sdpa_inputs(kp, vp, table, n_cols):
 
 def kernel_timings(dev):
     """Times at the main path's shapes: K1 over the 8 decode slots of
-    the serving trace, K2 over one slot's 768-token suffix after the
-    256-token shared prefix (the JSON row) and over a 1024-token first
-    request with no cached prefix. bf16 q and pools, table width 68
-    (1088 tokens of capacity)."""
+    the serving trace (bf16 pools, the JSON row, then int8 pools), K2
+    over one slot's 768-token suffix after the 256-token shared prefix
+    (the JSON row) and over a 1024-token first request with no cached
+    prefix. bf16 q, table width 68 (1088 tokens of capacity)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.paged_prefill import paged_prefill_attention
@@ -345,6 +347,29 @@ def kernel_timings(dev):
             lambda: F.scaled_dot_product_attention(
                 q[:, :, None, :], k_all, v_all, attn_mask=mask)),
         **bound(nbytes, ops, dt), shape=f"q[{b},{H},{HD}] lens {lens_host}")
+
+    # the same decode over int8 pools; the library call attends over the
+    # pools dequantized to bf16 beforehand
+    from repro_torch.kernels.paged_common import dequantize_pages
+    kq, vq, ks, vs, _ = make_pools(gen, n_blocks, "int8", dev)
+    k8_all, v8_all = sdpa_inputs(dequantize_pages(kq, ks).to(dt),
+                                 dequantize_pages(vq, vs).to(dt), table, mb)
+    live_pages = sum(-(-n // BS) for n in lens_host)
+    nbytes8 = (2 * kv_pos * KV * HD + 2 * live_pages * KV * 4
+               + q.numel() * item + b * H * HD * 4 + table.numel() * 4 + b * 4)
+    r = dict(
+        **time_kernel(
+            lambda: paged_decode_attention(q, kq, vq, table, lengths,
+                                           capacity, k_scales=ks,
+                                           v_scales=vs),
+            lambda: ref.paged_attention_ref(q, kq, vq, table, lengths,
+                                            capacity, k_scales=ks,
+                                            v_scales=vs),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], k8_all, v8_all, attn_mask=mask)),
+        **bound(nbytes8, ops, dt),
+        shape=f"q[{b},{H},{HD}] int8 pools lens {lens_host}")
+    say_timing("paged_decode", r)
 
     # one slot's 768-token suffix after the cached 256-token prefix (the
     # JSON row), then a first request with no cached prefix
@@ -476,7 +501,8 @@ def bitplane_checks(dev):
 def bitplane_timings(dev):
     """Times at the main path's shapes, 8-bit g = 1 bf16: K3 at B = 8
     (a decode tick's 8 slots) on [1536->8960] (w_gate/w_up, the row the
-    JSON line carries) and [8960->1536] (w_down); K4 at B = 768 (one
+    JSON line carries), [8960->1536] (w_down), [1536->1536] (wq/wo) and
+    [1536->256] (wk/wv); K4 at B = 768 (one
     slot's suffix) on those two and on [1536->256] (wk/wv) and
     [1536->1536] (wq/wo); K5 packing one [1536, 8960] slice. The
     library yardstick is one `x @ W` with W dequantized dense in x's
@@ -489,7 +515,7 @@ def bitplane_timings(dev):
     out = {}
     for name, fn, b, shapes in (
             ("bitplane_gemv", bitplane_gemv.bitplane_gemv, 8,
-             ((1536, 8960), (8960, 1536))),
+             ((1536, 8960), (8960, 1536), (1536, 1536), (1536, 256))),
             ("bitplane_gemm", bitplane_gemm.bitplane_gemm, 768,
              ((1536, 8960), (8960, 1536), (1536, 256), (1536, 1536)))):
         for k, m in shapes:

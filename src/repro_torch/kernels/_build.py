@@ -28,9 +28,9 @@ KERNELS = ("paged_decode", "paged_prefill", "bitplane_gemv", "bitplane_gemm",
            "bitplane_pack")
 #: the headers each kernel includes (part of its library's hash)
 _HEADERS = {
-    "paged_decode": ("paged_common.cuh",),
+    "paged_decode": ("paged_common.cuh", "tensor_core.cuh"),
     "paged_prefill": ("paged_common.cuh", "tensor_core.cuh"),
-    "bitplane_gemv": ("bitplane_common.cuh",),
+    "bitplane_gemv": ("bitplane_common.cuh", "tensor_core.cuh"),
     "bitplane_gemm": ("bitplane_common.cuh", "tensor_core.cuh"),
     "bitplane_pack": ("bitplane_common.cuh",),
 }

@@ -17,6 +17,14 @@ Layouts (the reference's):
 The reference kernel needs K8 and M to be multiples of its TPU blocks
 (128 and 256), so it refuses qwen2-1.5b's K8 = 192 and 1120; this one
 takes any K8, M and B and masks the edges itself.
+
+The kernel tiles the output in 32 columns of M by up to 64 rows of B
+and walks K in chunks of 64 unpacked rows; `gemv_splits` cuts K into
+ranges of whole chunks so that even a narrow or short projection puts
+enough blocks on the card. Each range writes an f32 partial into
+scratch and a second pass adds them in order. The split depends on K8,
+M and g only, never on B, so a row's result does not depend on how many
+rows share its launch.
 """
 
 from __future__ import annotations
@@ -32,8 +40,30 @@ from .paged_common import DTYPE_CODES, Q_DTYPES, launch_kernel, ptr
 #: `chip_smoke.py` reads); only the CUDA launch below increments it
 LAUNCHES = 0
 
-#: x_r, planes, out; x dtype, B, K8, M, n_digits, group; stream
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+#: the kernel's output tile along M and the unpacked K rows of one chunk
+#: (csrc/bitplane_gemv.cu kGemvTileM, kGemvChunkK)
+TILE_M = 32
+CHUNK_K = 64
+#: blocks a launch of up to 64 rows aims for: four of the kernel's small
+#: (2-warp) blocks on each of the H100's 132 SMs, so that enough plane
+#: loads are in flight to stream at the memory's rate
+TARGET_BLOCKS = 4 * 132
+
+#: x_r, planes, out, partial; x dtype, B, K8, M, n_digits, group,
+#: splits; stream
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def gemv_splits(k8: int, m: int, group: int) -> int:
+    """Number of K ranges for a [K8 packed rows -> M] projection: as many
+    as bring the column tiles times the splits to about `TARGET_BLOCKS`,
+    each range whole chunks and none empty. A function of the weight's
+    shape alone."""
+    n_chunks = -(-k8 // (CHUNK_K * group // 8))
+    want = min(-(-TARGET_BLOCKS // -(-m // TILE_M)), n_chunks)
+    if want <= 1:
+        return 1
+    return -(-n_chunks // -(-n_chunks // want))
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -81,9 +111,13 @@ def bitplane_gemv(x_r: torch.Tensor, planes: torch.Tensor, *, n_bits: int,
     out = torch.empty((b, m), dtype=torch.float32, device=x_r.device)
     if not (b and m):
         return out
+    splits = gemv_splits(k8, m, group)
+    partial = (torch.empty((splits, b, m), dtype=torch.float32,
+                           device=x_r.device) if splits > 1 else None)
     launch_kernel("bitplane_gemv", "bitplane_gemv_launch", _ARGTYPES, (
-        ptr(x_r), ptr(planes), ptr(out), DTYPE_CODES[x_r.dtype], b, k8, m,
-        ref.n_digits(n_bits, group), group,
+        ptr(x_r), ptr(planes), ptr(out), ptr(partial),
+        DTYPE_CODES[x_r.dtype], b, k8, m, ref.n_digits(n_bits, group), group,
+        splits,
     ), x_r.device)
     LAUNCHES += 1
     return out

@@ -12,9 +12,9 @@
 // (8/g) x (8/g) matrix of g-bit digits, transposed. `transpose_digits`
 // turns one into the other with three (g = 1), two (g = 2) or one
 // (g = 4) delta swaps on a 64-bit word — integer shifts and masks in
-// registers — so K3 rebuilds U from the planes and K5 builds the planes
-// from U with the same function; K4 uses transpose_digit_words, the same
-// transpose done for four columns at once across the plane words.
+// registers — so K5 builds the planes from U with it; K3 and K4 use
+// transpose_digit_words, the same transpose done for four columns at
+// once across the plane words, to rebuild U from the planes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,11 +25,6 @@ namespace bitplane {
 
 // dtype codes of the C interface (kernels/paged_common.py DTYPE_CODES)
 enum DType : int { kF32 = 0, kBF16 = 1 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // Swap the bits of `x` selected by `mask` with those `d` places above.
 __device__ __forceinline__ uint64_t delta_swap(uint64_t x, uint64_t mask,
@@ -77,7 +72,7 @@ __host__ __device__ constexpr uint32_t lower_digits_mask(int h) {
 // (byte c = column c), and on return byte c of w[r] is the offset
 // weight U[q*8/G + r, column c]. log2(8/G) stages of block swaps
 // between word pairs, each a few shifts and masks for 4 x 8/G weights
-// (K4 decodes whole column tiles with it).
+// (K3 and K4 decode whole column tiles with it).
 template <int G>
 __device__ __forceinline__ void transpose_digit_words(uint32_t* w) {
   constexpr int DPB = 8 / G;
@@ -94,51 +89,6 @@ __device__ __forceinline__ void transpose_digit_words(uint32_t* w) {
       w[j] ^= t << (G * h);
     }
   }
-}
-
-// Bytes m0 .. m0+3 of one plane row (`row` points at column 0), as one
-// little-endian word; columns at or past M read as zero. `vec` says the
-// row is 4-byte aligned and M % 4 == 0, so one 32-bit load serves.
-__device__ __forceinline__ uint32_t load_row4(const uint8_t* __restrict__ row,
-                                              int m0, int M, bool vec) {
-  if (m0 >= M) return 0u;
-  if (vec) return *reinterpret_cast<const uint32_t*>(row + m0);
-  uint32_t w = 0;
-  for (int c = 0; c < 4 && m0 + c < M; ++c)
-    w |= static_cast<uint32_t>(row[m0 + c]) << (8 * c);
-  return w;
-}
-
-// The offset weights of column c (0..3) of four plane words: gathers
-// byte c of w[0..n_d) into one word (byte j = plane j) and transposes
-// it, so byte r of the result is U[q*8/G + r, m0 + c].
-template <int G>
-__device__ __forceinline__ uint64_t offset_weights(const uint32_t* w, int c) {
-  constexpr int DPB = 8 / G;
-  uint64_t x = 0;
-#pragma unroll
-  for (int j = 0; j < DPB; ++j)
-    x |= static_cast<uint64_t>((w[j] >> (8 * c)) & 0xFFu) << (8 * j);
-  return transpose_digits<G>(x);
-}
-
-// Plane words of packed row q for columns m0..m0+3: w[j] for j < n_d,
-// zero above (a digit that is not stored is zero).
-template <int G>
-__device__ __forceinline__ void load_plane_words(
-    const uint8_t* __restrict__ planes, int q, int K8, int M, int nd,
-    int m0, bool vec, uint32_t* w) {
-  constexpr int DPB = 8 / G;
-#pragma unroll
-  for (int j = 0; j < DPB; ++j)
-    w[j] = j < nd ? load_row4(planes + (static_cast<size_t>(j) * K8 + q) * M,
-                              m0, M, vec)
-                  : 0u;
-}
-
-// True when 32-bit loads of plane rows are aligned.
-inline bool rows_aligned(const void* planes, int M) {
-  return M % 4 == 0 && reinterpret_cast<uintptr_t>(planes) % 4 == 0;
 }
 
 }  // namespace bitplane

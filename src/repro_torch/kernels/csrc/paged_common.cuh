@@ -1,24 +1,26 @@
 // Shared device half of the two paged-attention kernels (paged_decode.cu,
-// paged_prefill.cu): the page walk and the online-softmax fold.
+// paged_prefill.cu): the walk bounds, the numerics both folds keep, and
+// the ordered merge of a walk split into ranges.
 //
 // Counterpart of the device half of repro/kernels/paged_common.py
-// (effective_walk_start, load_kv_page, reset/online_softmax_fold/
+// (effective_walk_start, reset/online_softmax_fold/
 // finalize_online_softmax). The TPU walked one page per sequential grid
-// step with a double-buffered DMA; here one CTA loops over its pages and
-// stages each page's K and V rows for its kv-head in shared memory.
+// step with a double-buffered DMA; here the walk is cut into ranges at
+// fixed table positions, each folded by its own CTA (or warp), and the
+// ranges' softmax states are merged in order.
 //
 // Numerics follow the reference exactly:
 //   * masked scores are the FINITE sentinel -1e30, never -inf, and the
 //     epilogue divides by max(l, 1e-30), so a wholly masked row (idle
 //     slot, bucket dummy row, suffix pad row) stays finite;
-//   * a page whose positions are all masked for a row that has seen a
+//   * a chunk whose positions are all masked for a row that has seen a
 //     valid position folds as an exact no-op (p = 0, alpha = 1), and one
-//     folded before any valid position is wiped by alpha = 0 — so a CTA
-//     may skip pages that are masked for all its rows without changing
+//     folded before any valid position is wiped by alpha = 0 — so a fold
+//     may skip chunks that are masked for all its rows without changing
 //     any valid row by a bit (bucketed == single launch, chunked ==
 //     single-shot prefill);
-//   * int8 codes are dequantized code * scale[page, kv_head] in f32 right
-//     after the load, as load_kv_page does.
+//   * a range that holds no valid key of a row keeps (m, l, acc) =
+//     (-1e30, 0, 0) and adds exact zeros to the merge.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,18 +30,26 @@
 namespace paged {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
-constexpr int kDefaultSmem = 48 * 1024;
+constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = 2^(x log2 e)
 
 // dtype codes of the C interface (kernels/paged_common.py DTYPE_CODES)
 enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// Shared-memory row padding (elements): keeps rows 16-byte aligned and
+// the fragment loads free of bank conflicts.
+template <typename T>
+constexpr int row_pad() {
+  return sizeof(T) == 1 ? 16 : 8;
 }
-__device__ __forceinline__ float to_f32(int8_t x) {
-  return static_cast<float>(x);
+
+__device__ __forceinline__ void set_zero(float& x) { x = 0.0f; }
+__device__ __forceinline__ void set_zero(__nv_bfloat16& x) {
+  x = __float2bfloat16(0.0f);
+}
+__device__ __forceinline__ void set_zero(int8_t& x) { x = 0; }
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
 }
 
 // First table column a depth-bounded walk visits: the slot's first live
@@ -50,96 +60,40 @@ __device__ __forceinline__ int walk_start(const int* block_start, int row,
   return max(min(s, mb - depth), 0);
 }
 
-// Stage one page's K and V rows of kv-head `kvh` as f32 in shared memory
-// (row stride `ld`), dequantizing int8 codes with the page's scales.
-template <typename KVT>
-__device__ void load_kv_page(const KVT* __restrict__ kp,
-                             const KVT* __restrict__ vp,
-                             const float* __restrict__ ks,
-                             const float* __restrict__ vs, int page, int kvh,
-                             int n_kv, int bs, int hd, float* k_s, float* v_s,
-                             int ld) {
-  const size_t base = static_cast<size_t>(page) * bs * n_kv * hd;
-  const size_t srow = static_cast<size_t>(page) * n_kv + kvh;
-  const float k_scale = ks ? ks[srow] : 1.0f;
-  const float v_scale = vs ? vs[srow] : 1.0f;
-  for (int i = threadIdx.x; i < bs * hd; i += blockDim.x) {
-    const int r = i / hd, d = i - r * hd;
-    const size_t off = base + (static_cast<size_t>(r) * n_kv + kvh) * hd + d;
-    float kx = to_f32(kp[off]);
-    float vx = to_f32(vp[off]);
-    if (ks) {
-      kx *= k_scale;
-      vx *= v_scale;
+// out = sum over ranges r (in order) of acc_r w_r / max(sum of l_r w_r,
+// 1e-30), w_r = exp(m_r - max m). acc is [count, units, hd] and ml
+// [count, units, 2] (m, l). A range that saw no valid key of a row has
+// m_r = -1e30 and adds exact zeros, so a row that one range holds gets
+// that range's fold bit for bit.
+__global__ void merge_ranges_kernel(const float* __restrict__ acc,
+                                    const float* __restrict__ ml,
+                                    float* __restrict__ out, size_t units,
+                                    int hd, int count) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < units * hd; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t unit = i / hd;
+    float m = kNegInf;
+    for (int r = 0; r < count; ++r) m = fmaxf(m, ml[(r * units + unit) * 2]);
+    float num = 0.0f, den = 0.0f;
+    for (int r = 0; r < count; ++r) {
+      const float w = exp2f((ml[(r * units + unit) * 2] - m) * kLog2e);
+      num += acc[r * units * hd + i] * w;
+      den += ml[(r * units + unit) * 2 + 1] * w;
     }
-    k_s[r * ld + d] = kx;
-    v_s[r * ld + d] = vx;
+    out[i] = num / fmaxf(den, 1e-30f);
   }
 }
 
-// Fold one page into the carried state of `n_units` query rows: s_s holds
-// each row's `bs` masked scores (overwritten with the probabilities),
-// m_s/l_s/alpha_s one float per row, acc_s `hd` floats per row. Ends with
-// a barrier, so the caller may restage k/v right after.
-__device__ void online_softmax_fold(float* s_s, int bs, float* m_s,
-                                    float* l_s, float* alpha_s, float* acc_s,
-                                    int hd, const float* v_s, int ld,
-                                    int n_units) {
-  for (int u = threadIdx.x; u < n_units; u += blockDim.x) {
-    float* s = s_s + u * bs;
-    const float m_old = m_s[u];
-    float m_new = m_old;
-    for (int r = 0; r < bs; ++r) m_new = fmaxf(m_new, s[r]);
-    float l_page = 0.0f;
-    for (int r = 0; r < bs; ++r) {
-      const float p = expf(s[r] - m_new);
-      s[r] = p;
-      l_page += p;
-    }
-    const float alpha = expf(m_old - m_new);
-    alpha_s[u] = alpha;
-    m_s[u] = m_new;
-    l_s[u] = alpha * l_s[u] + l_page;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n_units * hd; i += blockDim.x) {
-    const int u = i / hd, d = i - u * hd;
-    const float* p = s_s + u * bs;
-    float pv = 0.0f;
-    for (int r = 0; r < bs; ++r) pv += p[r] * v_s[r * ld + d];
-    acc_s[i] = alpha_s[u] * acc_s[i] + pv;
-  }
-  __syncthreads();
-}
-
-// Masked scores of `n_units` query rows (f32, pre-scaled, hd per row in
-// q_s) against the staged page: s_s[u * bs + r] = q.k or the sentinel.
-// `visible(u, kv_pos)` is the kernel's mask.
-template <typename Visible>
-__device__ void page_scores(const float* q_s, const float* k_s, int ld,
-                            int hd, int bs, int n_units, int first_pos,
-                            Visible visible, float* s_s) {
-  for (int i = threadIdx.x; i < n_units * bs; i += blockDim.x) {
-    const int u = i / bs, r = i - u * bs;
-    float score = kNegInf;
-    if (visible(u, first_pos + r)) {
-      const float* qr = q_s + u * hd;
-      const float* kr = k_s + r * ld;
-      float dot = 0.0f;
-      for (int d = 0; d < hd; ++d) dot += qr[d] * kr[d];
-      score = dot;
-    }
-    s_s[i] = score;
-  }
-  __syncthreads();
-}
-
-template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= static_cast<size_t>(kDefaultSmem)) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+// Launches merge_ranges_kernel over `units` rows of `hd`.
+inline cudaError_t merge_ranges(const float* acc, const float* ml, float* out,
+                                size_t units, int hd, int count,
+                                cudaStream_t stream) {
+  const size_t n = units * hd;
+  const int blocks = static_cast<int>(
+      (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  merge_ranges_kernel<<<blocks, 256, 0, stream>>>(acc, ml, out, units, hd,
+                                                  count);
+  return cudaGetLastError();
 }
 
 }  // namespace paged

@@ -76,7 +76,6 @@
 //     launch == single launch).
 //   * Any hd <= 256 (the tile is compiled for 64, 128 or 256 columns;
 //     unused columns are zero in shared memory), bs <= 64 and T.
-#include <algorithm>
 #include <type_traits>
 
 #include "paged_common.cuh"
@@ -87,15 +86,7 @@ namespace paged {
 constexpr int kTileUnits = 64;        // query units per CTA
 constexpr int kChunkKeys = 16;        // keys per fold step
 constexpr int kPrefillThreads = 128;  // warp w folds units 16w .. 16w + 15
-constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = 2^(x log2 e)
 constexpr int kStages = 3;            // chunks in the shared-memory ring
-
-// Shared-memory row padding (elements): keeps rows 16-byte aligned and
-// the fragment loads free of bank conflicts.
-template <typename T>
-constexpr int row_pad() {
-  return sizeof(T) == 1 ? 16 : 8;
-}
 
 template <typename QT, typename KVT, int HDP>
 struct PrefillSmem {
@@ -111,22 +102,12 @@ struct PrefillSmem {
 // (chunk c of column col is number col * ceil(bs/16) + c), one CTA per
 // (tile, range). With count > 1 each CTA writes its rows' unnormalised
 // state, acc [count, B, T, H, hd] and (m, l) [count, B, T, H, 2], and
-// merge_ranges_kernel adds the ranges in order.
+// merge_ranges (paged_common.cuh, shared with K1) adds them in order.
 struct Ranges {
   float* acc;
   float* ml;
   int count, chunks;
 };
-
-__device__ __forceinline__ void set_zero(float& x) { x = 0.0f; }
-__device__ __forceinline__ void set_zero(__nv_bfloat16& x) {
-  x = __float2bfloat16(0.0f);
-}
-__device__ __forceinline__ void set_zero(int8_t& x) { x = 0; }
-
-__device__ __forceinline__ int floor_div(int a, int b) {
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
 
 // Stage keys key0 .. key0 + nk of `page` for kv-head `kvh` into rows
 // 0 .. nk of k_s / v_s (zero rows past nk; columns >= hd are untouched).
@@ -489,29 +470,6 @@ __global__ void __launch_bounds__(kPrefillThreads) paged_prefill_kernel(
   }
 }
 
-// out = sum over ranges r (in order) of acc_r w_r / max(sum of l_r w_r,
-// 1e-30), w_r = exp(m_r - max m). A range that saw no valid key of a row
-// has m_r = -1e30 and adds exact zeros, so a row that one range holds
-// gets that range's fold bit for bit.
-__global__ void merge_ranges_kernel(const float* __restrict__ acc,
-                                    const float* __restrict__ ml,
-                                    float* __restrict__ out, size_t units,
-                                    int hd, int count) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       i < units * hd; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const size_t unit = i / hd;
-    float m = kNegInf;
-    for (int r = 0; r < count; ++r) m = fmaxf(m, ml[(r * units + unit) * 2]);
-    float num = 0.0f, den = 0.0f;
-    for (int r = 0; r < count; ++r) {
-      const float w = exp2f((ml[(r * units + unit) * 2] - m) * kLog2e);
-      num += acc[r * units * hd + i] * w;
-      den += ml[(r * units + unit) * 2 + 1] * w;
-    }
-    out[i] = num / fmaxf(den, 1e-30f);
-  }
-}
-
 template <typename QT, typename KVT, int HDP>
 cudaError_t launch_hdp(const void* q, const void* kp, const void* vp,
                        const void* ks, const void* vs, const void* table,
@@ -538,12 +496,8 @@ cudaError_t launch_hdp(const void* q, const void* kp, const void* vp,
       KV, hd, bs, mb, depth, window, scale, kv_vec, rg);
   err = cudaGetLastError();
   if (err != cudaSuccess || rg.count == 1) return err;
-  const size_t units = static_cast<size_t>(B) * T * H;
-  const int blocks =
-      static_cast<int>(std::min<size_t>((units * hd + 255) / 256, 4096));
-  merge_ranges_kernel<<<blocks, 256, 0, stream>>>(
-      rg.acc, rg.ml, static_cast<float*>(out), units, hd, rg.count);
-  return cudaGetLastError();
+  return merge_ranges(rg.acc, rg.ml, static_cast<float*>(out),
+                      static_cast<size_t>(B) * T * H, hd, rg.count, stream);
 }
 
 template <typename QT, typename KVT>

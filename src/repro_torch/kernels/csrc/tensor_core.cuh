@@ -1,8 +1,9 @@
-// Shared device half of the two tensor-core kernels (bitplane_gemm.cu,
-// paged_prefill.cu): the warp-level bf16 MMA, asynchronous copies into
-// shared memory, and the exact split of an operand into bf16 terms.
+// Shared device half of the four tensor-core kernels (paged_decode.cu,
+// paged_prefill.cu, bitplane_gemv.cu, bitplane_gemm.cu): the warp-level
+// bf16 MMA, asynchronous copies into shared memory, and the exact split
+// of an operand into bf16 terms.
 //
-// Both kernels run their products as mma.sync.m16n8k16 with bf16
+// All four run their products as mma.sync.m16n8k16 with bf16
 // operands and f32 accumulators. Fragment layout (PTX ISA, "Matrix
 // fragments for mma.m16n8k16"), lane = 4 * grp + tig:
 //   A (16 x 16, row-major): a[0] = (row grp,     cols 2 tig, +1)

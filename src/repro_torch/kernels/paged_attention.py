@@ -7,7 +7,9 @@ one launch. `paged_decode_attention` is the kernel wrapper: on CUDA
 tensors it launches the hand-written kernel of `csrc/paged_decode.cu`
 (built at first use) and counts the launch in `LAUNCHES`; on CPU
 tensors — and only there — it runs the plain version `ref.
-paged_attention_ref` over the same walk.
+paged_attention_ref` over the same walk. On the card the walk is split
+into ranges (`decode_ranges`), one block each, whose softmax states the
+kernel merges in order through scratch that the wrapper allocates.
 
 Layouts (the reference's):
     q            [B, H, hd]              one query token per slot
@@ -41,12 +43,32 @@ from .paged_common import (
 LAUNCHES = 0
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 9            # q, k/v pools, k/v scales, table,
-                                     # lengths, block_start, out
-    + [ctypes.c_int] * 10            # q/kv dtype, B, H, KV, hd, bs, mb,
-                                     # depth, window
+    [ctypes.c_void_p] * 11           # q, k/v pools, k/v scales, table,
+                                     # lengths, block_start, out,
+                                     # part_acc, part_ml
+    + [ctypes.c_int] * 12            # q/kv dtype, B, H, KV, hd, bs, mb,
+                                     # depth, window, n_ranges,
+                                     # range_chunks
     + [ctypes.c_float, ctypes.c_void_p]   # scale, stream
 )
+
+#: keys a fold step takes (csrc/paged_decode.cu kDecodeKeys)
+CHUNK_KEYS = 16
+#: walk chunks per range: two for each of a block's four warps
+RANGE_CHUNKS = 8
+
+
+def decode_ranges(mb: int, bs: int):
+    """`(count, chunks)`: the kernel splits the page walk into `count`
+    ranges of `chunks` chunks (16 keys each; a page is ceil(bs/16)
+    chunks), one block per (slot, kv-head, range), and merges the
+    ranges' softmax states in order. At the main path's 68-column table
+    that is 9 ranges, 144 blocks for 8 slots. A function of the table's
+    width and the page size only, so every launch of a serving run —
+    bucketed, depth-bounded or not — splits at the same table positions
+    and a valid row's output never depends on how rows are bucketed."""
+    n_chunks = mb * -(-bs // CHUNK_KEYS)
+    return -(-n_chunks // RANGE_CHUNKS), RANGE_CHUNKS
 
 
 def paged_decode_attention(
@@ -67,8 +89,9 @@ def paged_decode_attention(
     `depth` bounds the walk to table columns `[s, s + depth)` with
     `s = max(min(block_start, mb - depth), 0)` (`block_start` defaults
     to zeros, `depth` to the table width). `k_scales`/`v_scales` are
-    required iff the pools are int8; the kernel dequantizes each code
-    right after its load."""
+    required iff the pools are int8; the kernel multiplies the codes'
+    dot products by the page's k scale and the probabilities by its v
+    scale, which equals dequantizing every code."""
     global LAUNCHES
     check_quantized_operands(k_pages, k_scales, v_scales)
     b, h, hd = q.shape
@@ -90,11 +113,19 @@ def paged_decode_attention(
     if b == 0:
         return out
     _, bs, n_kv, _ = k_pages.shape
+    n_ranges, range_chunks = decode_ranges(mb, bs)
+    part_acc = part_ml = None
+    if n_ranges > 1:
+        part_acc = torch.empty((n_ranges, b, h, hd), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((n_ranges, b, h, 2), dtype=torch.float32,
+                              device=q.device)
     launch_kernel("paged_decode", "paged_decode_launch", _ARGTYPES, (
         ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scales), ptr(v_scales),
         ptr(block_table), ptr(lengths), ptr(block_start), ptr(out),
-        DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype],
-        b, h, n_kv, hd, bs, mb, depth, int(window), float(hd ** -0.5),
+        ptr(part_acc), ptr(part_ml), DTYPE_CODES[q.dtype],
+        DTYPE_CODES[k_pages.dtype], b, h, n_kv, hd, bs, mb, depth,
+        int(window), n_ranges, range_chunks, float(hd ** -0.5),
     ), q.device)
     LAUNCHES += 1
     return out

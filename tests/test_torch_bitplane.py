@@ -214,6 +214,34 @@ def test_gemm_splits_fill_the_card_on_the_main_path():
         assert row_tiles * col_tiles * s >= 132, (k, m, s)
 
 
+@pytest.mark.parametrize("k8,m,group", [
+    (192, 256, 1), (192, 1536, 1), (192, 8960, 1), (1120, 1536, 1),
+    (384, 256, 2), (768, 8960, 4), (25, 101, 1), (50, 101, 2),
+    (100, 101, 4), (1, 8, 1), (0, 64, 1),
+])
+def test_gemv_splits_cover_k_in_whole_nonempty_ranges(k8, m, group):
+    """K3's K split: a function of (K8, M, g) alone — the same answer
+    however often it is asked, and no B in its signature — each range
+    whole chunks and none empty, never more ranges than chunks."""
+    n_chunks = -(-k8 // (bitplane_gemv.CHUNK_K * group // 8))
+    s = bitplane_gemv.gemv_splits(k8, m, group)
+    assert s == bitplane_gemv.gemv_splits(k8, m, group)
+    assert s >= 1
+    per = -(-n_chunks // s)
+    assert s == 1 or (s - 1) * per < n_chunks <= s * per
+    assert s <= max(n_chunks, 1)
+
+
+@pytest.mark.parametrize("k,m", [(1536, 256), (1536, 1536), (1536, 8960),
+                                 (8960, 1536)])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_gemv_splits_fill_the_card_on_the_main_path(k, m, group):
+    """At a decode tick's 8 rows (one row tile) every qwen2-1.5b
+    projection launches at least 132 blocks, one per H100 SM."""
+    s = bitplane_gemv.gemv_splits(k * group // 8, m, group)
+    assert -(-m // bitplane_gemv.TILE_M) * s >= 132, (k, m, group, s)
+
+
 def test_cuda_impl_raises_on_cpu_tensors():
     tw, _ = _weights(10, 64, 32)
     planes, scale = ops.quantize_and_pack(tw, 8, 1, "ref")

@@ -331,3 +331,149 @@ def test_bitplane_gemm_main_path_shapes(cuda_device, k, m, dtype):
     err = float((raws[1024] - plain).abs().max() / plain.abs().max())
     assert err <= 1e-5, (k, m, dtype, err)
     assert torch.equal(raws[1024][:513], raws[513])
+
+
+def _decode_case(gen, dev, kind, q_dtype, lengths, mb, B=None, H=12, KV=2,
+                 hd=128, bs=16):
+    """Pools, a permuted table (every slot its own pages) and q for one
+    K1 launch shape."""
+    b = len(lengths) if B is None else B
+    nb = b * mb + 1
+    tk, tv, tks, tvs = _pools(gen, nb, bs, KV, hd, kind, dev)
+    perm = torch.randperm(nb - 1, generator=gen, device=dev)[: b * mb] + 1
+    bt = perm.reshape(b, mb).to(torch.int32)
+    q = torch.randn((b, H, hd), generator=gen, device=dev).to(q_dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, tk, tv, bt, ln, dict(k_scales=tks, v_scales=tvs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_every_dtype_pair(cuda_device, kind, q_dtype):
+    """Every (q, pool) dtype pair goes through the split-walk kernel and
+    stays within 1e-4 of the plain version on valid rows, with a full
+    and a 256-token window, at lengths 0, 1, one page, one page + 1, a
+    walk range's boundary (8 chunks of 16 keys) +- 1 and the full
+    68-column table."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    mb, bs = 68, 16
+    rng_len = paged_attention.RANGE_CHUNKS * paged_attention.CHUNK_KEYS
+    lengths = [0, 1, 16, 17, rng_len - 1, rng_len, rng_len + 1, mb * bs]
+    q, tk, tv, bt, ln, sc = _decode_case(gen, dev, kind, q_dtype, lengths,
+                                         mb)
+    assert paged_attention.decode_ranges(mb, bs)[0] > 1
+    valid = ln > 0
+    for window in (mb * bs, 256):
+        out = paged_attention.paged_decode_attention(q, tk, tv, bt, ln,
+                                                     window, **sc)
+        plain = ref.paged_attention_ref(q, tk, tv, bt, ln, window, **sc)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        err = float((out - plain).abs()[valid].max())
+        assert err <= 1e-4, (kind, q_dtype, window, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_decode_kernel_bucketed_and_bounded_walks_equal_single(cuda_device,
+                                                               kind):
+    """The bucketed launch and depth-bounded launches from `block_start`
+    give the single full launch's valid rows bit for bit, with depths
+    that cut the walk's ranges mid-way, a full window and a 256-token
+    window whose first live blocks are not 0."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(8)
+    mb, bs = 68, 16
+    lengths = [1, 100, 300, 517, 700, 900, 1000, 1088]
+    q_dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    q, tk, tv, bt, ln, sc = _decode_case(gen, dev, kind, q_dtype, lengths,
+                                         mb)
+    lens = np.asarray(lengths)
+    valid = ln > 0
+    for window in (mb * bs, 256):
+        start = np.maximum(lens - window, 0) // bs
+        needs = -(-lens // bs) - start
+        blk = torch.tensor(start, dtype=torch.int32, device=dev)
+        one = paged_attention.paged_decode_attention(q, tk, tv, bt, ln,
+                                                     window, **sc)
+        plan, perm = ops.make_bucket_plan(lens, bs, mb, needs=needs)
+        assert plan is not None
+        buck = paged_attention.paged_decode_attention_bucketed(
+            q, tk, tv, bt, ln, window, plan,
+            torch.tensor(perm, dtype=torch.int64, device=dev),
+            block_start=blk, **sc)
+        torch.cuda.synchronize()
+        assert torch.equal(buck[valid], one[valid]), (kind, window, plan)
+        deepest = int(needs.max())
+        for depth in sorted({deepest, min(deepest + 3, mb),
+                             max(deepest, mb - 5)}):
+            bounded = paged_attention.paged_decode_attention(
+                q, tk, tv, bt, ln, window, block_start=blk, depth=depth, **sc)
+            torch.cuda.synchronize()
+            assert torch.equal(bounded[valid], one[valid]), (kind, window,
+                                                             depth)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,m", [(1536, 256), (1536, 1536), (1536, 8960),
+                                 (8960, 1536)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bitplane_gemv_main_path_shapes(cuda_device, k, m, dtype):
+    """K3 on qwen2-1.5b's four projection shapes: within 1e-5 of max|raw|
+    of the plain contraction at 512 rows, and the rows of an 8-row launch
+    equal the same rows of a 1-row and a 512-row launch bit for bit (the
+    K split does not move with B, rows never mix)."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(9)
+    w = torch.randn((k, m), generator=gen, device=dev)
+    planes, _ = ops.quantize_and_pack(w, 8, 1, "cuda")
+    u = ref.offset_form_ref(planes, 1).float()
+    x = torch.randn((512, k), generator=gen, device=dev).to(dtype)
+    raws = {}
+    for b in (512, 100, 8, 1):
+        x_r = ref.prepare_x_ref(x[:b], 1).contiguous()
+        before = bitplane_gemv.LAUNCHES
+        raws[b] = bitplane_gemv.bitplane_gemv(x_r, planes, n_bits=8, group=1)
+        assert bitplane_gemv.LAUNCHES == before + 1
+    plain = x.float() @ u
+    torch.cuda.synchronize()
+    err = float((raws[512] - plain).abs().max() / plain.abs().max())
+    assert err <= 1e-5, (k, m, dtype, err)
+    assert torch.equal(raws[512][:100], raws[100])
+    assert torch.equal(raws[512][:8], raws[8])
+    assert torch.equal(raws[8][:1], raws[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,KV,hd,bs,kind", [
+    (12, 2, 128, 16, "int8"),   # the main path's heads, int8 pools
+    (16, 1, 256, 64, "f32"),    # g = 16, widest head and page: one stage
+    (4, 4, 64, 24, "bf16"),     # g = 1; pages of 1.5 fold chunks
+    (6, 2, 96, 4, "f32"),       # hd between the compiled widths
+    (2, 1, 16, 4, "bf16"),      # the smoke model's heads and pages
+    (4, 2, 4, 8, "bf16"),       # rows of 8 bytes: staged by plain loads
+])
+def test_decode_kernel_ragged_shapes(cuda_device, H, KV, hd, bs, kind):
+    """Head groups of 1 to 16, head widths below and between the
+    compiled tile widths, pages that are not a multiple of the 16-key
+    fold step and rows too short for 16-byte copies: within 1e-4 of the
+    plain version on valid rows, with a full and a short window."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(10)
+    mb = 40
+    cap = mb * bs
+    lengths = [0, 1, bs, bs + 1, 129, cap // 2 + 3, cap - 3, cap]
+    q_dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    q, tk, tv, bt, ln, sc = _decode_case(gen, dev, kind, q_dtype, lengths,
+                                         mb, H=H, KV=KV, hd=hd, bs=bs)
+    valid = ln > 0
+    for window in (cap, 7):
+        out = paged_attention.paged_decode_attention(q, tk, tv, bt, ln,
+                                                     window, **sc)
+        plain = ref.paged_attention_ref(q, tk, tv, bt, ln, window, **sc)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        err = float((out - plain).abs()[valid].max())
+        assert err <= 1e-4, (H, KV, hd, bs, kind, window, err)

@@ -1,7 +1,7 @@
-"""The PyTorch port stands alone: no module of `src/repro_torch/` and not
-`chip_smoke.py` imports `jax` or the JAX package `repro` (importing
-`repro` imports JAX). Checked on the syntax tree, so a lazy import
-inside a function counts too."""
+"""The PyTorch port stands alone: no module of `src/repro_torch/`, and
+neither `chip_smoke.py` nor `chip_ab.py`, imports `jax` or the JAX
+package `repro` (importing `repro` imports JAX). Checked on the syntax
+tree, so a lazy import inside a function counts too."""
 
 import ast
 import pathlib
@@ -10,7 +10,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"
+    REPO / "chip_smoke.py", REPO / "chip_ab.py"
 ]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 

@@ -30,7 +30,9 @@ from repro.kernels.paged_attention import paged_decode_attention as j_decode
 from repro.kernels.paged_common import quantize_pages as j_quantize
 from repro.kernels.paged_prefill import paged_prefill_attention as j_prefill
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_attention as k1
 from repro_torch.kernels.paged_attention import (
+    decode_ranges,
     paged_attention,
     paged_decode_attention,
     paged_decode_attention_bucketed,
@@ -365,3 +367,58 @@ def test_prefill_walk_ranges_cover_the_table(mb, bs):
     assert (count - 1) * chunks < n_chunks <= count * chunks
     assert (count == 1) == (n_chunks <= RANGE_CHUNKS) or count == MAX_RANGES
 
+
+
+@pytest.mark.parametrize("mb,bs", [(68, 16), (128, 16), (1, 16), (8, 16),
+                                   (9, 16), (25, 4), (6, 24), (10, 64),
+                                   (2048, 16)])
+def test_decode_ranges_cover_the_table_at_fixed_columns(mb, bs):
+    """K1's split of the page walk: from the table's width and page size
+    alone, ranges of RANGE_CHUNKS chunks starting at fixed multiples of
+    it, which together cover every chunk of the table and none of which
+    is empty; at the main path's 68 columns and chip_smoke's 128, enough
+    ranges for 8 slots x 2 kv-heads to put a block on each H100 SM."""
+    cpp = -(-bs // k1.CHUNK_KEYS)
+    n_chunks = mb * cpp
+    count, chunks = decode_ranges(mb, bs)
+    assert chunks == k1.RANGE_CHUNKS <= 32
+    assert (count - 1) * chunks < n_chunks <= count * chunks
+    starts = [r * chunks for r in range(count)]
+    assert starts[-1] < n_chunks
+    if (mb, bs) in ((68, 16), (128, 16)):
+        assert 8 * 2 * count >= 132
+
+
+@pytest.mark.parametrize("window", [68 * 16, 256])
+def test_decode_ranges_ignore_depth_and_block_start(monkeypatch, rng,
+                                                    window):
+    """A bucketed decode makes launches of other depths and block_starts
+    than the single launch, yet each gets the table at its full width,
+    so `decode_ranges` — a function of (width, page size) only — gives
+    every launch the same split at the same table columns."""
+    mb, bs, B = 68, 16, 8
+    lens = np.array([1, 100, 300, 517, 700, 900, 1000, 1088])
+    start = np.maximum(lens - window, 0) // bs
+    needs = -(-lens // bs) - start
+    plan, perm = ops.make_bucket_plan(lens, bs, mb, needs=needs)
+    assert plan is not None and len(plan) > 1
+    seen = []
+    real = k1.paged_decode_attention
+
+    def spy(q, kp, vp, bt, ln, w, **kw):
+        seen.append((bt.shape[1], kw["depth"],
+                     tuple(kw["block_start"].tolist())))
+        return real(q, kp, vp, bt, ln, w, **kw)
+
+    monkeypatch.setattr(k1, "paged_decode_attention", spy)
+    q = torch.zeros((B, 2, 8))
+    pools = torch.zeros((B * mb + 1, bs, 1, 8))
+    table = torch.arange(1, B * mb + 1, dtype=torch.int32).reshape(B, mb)
+    k1.paged_decode_attention_bucketed(
+        q, pools, pools, table, torch.tensor(lens, dtype=torch.int32),
+        window, plan, torch.tensor(perm),
+        block_start=torch.tensor(start, dtype=torch.int32))
+    assert len(seen) == len(plan)
+    assert len({d for _, d, _ in seen}) == len(plan)
+    assert {decode_ranges(width, bs) for width, _, _ in seen} == \
+        {decode_ranges(mb, bs)}
