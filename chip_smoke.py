@@ -2,11 +2,15 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, and drives the
-port's main paths — paged continuous-batching serving of qwen2-1.5b at
+port's main paths through `ServeEngine.quantize` and
+`ContinuousBatcher`, the entry points the launcher drives, with random
+weights from a seed: paged continuous-batching serving of qwen2-1.5b at
 full width (28 layers, d 1536, 12 heads, 2 kv-heads, d_ff 8960, vocab
-151936; random weights from a seed), with dense and with PIM bit-plane
-weights — through `ServeEngine.quantize` and `ContinuousBatcher`, the
-entry points the launcher drives. Phases, one line each:
+151936), with dense and with PIM bit-plane weights, then gemma3-27b at
+its published width (62 layers, d 5376, 32 heads, 16 kv-heads, hd 128,
+d_ff 21504, vocab 262144; 5:1 local:global layers with a 1024-token
+window), whose paged cache splits into a global and a windowed layer
+group that retires pages. Phases, one line each:
 
   1. card      nvidia-smi name and power limit, torch and CUDA versions;
                TF32 off for matmuls and cuDNN
@@ -15,23 +19,27 @@ entry points the launcher drives. Phases, one line each:
                tensor-core instructions (HMMA / HGMMA) in each library's
                SASS by cuobjdump ("unavailable" without it), which must
                be above 0 for K1-K4
-  3. kernels   K1 (paged decode) and K2 (paged prefill) at the main
-               path's head shapes (H 12, KV 2, hd 128, bs 16, 8 slots,
-               ragged lengths 0..2048, windows {capacity, 256}, a
-               COW-fragmented table) for bf16, f32 and int8 pools: max
+  3. kernels   K1 (paged decode) and K2 (paged prefill) at qwen2's head
+               shapes (H 12, KV 2, hd 128, bs 16, 8 slots, ragged
+               lengths 0..2048, windows {capacity, 256}, a COW-fragmented
+               table) and at gemma3's (H 32, KV 16, 212 columns, lengths
+               0..3392, windows {capacity, 1024}), walks starting at each
+               slot's first live block, for bf16, f32 and int8 pools: max
                abs error vs the plain version <= 1e-4 on valid rows, the
                bucketed launch bit-identical to the single launch
   4. bitplane  K3 (GEMV), K4 (GEMM) and K5 (pack) against their plain
                versions for (n_bits, g) in {(8,1), (4,2), (8,4), (3,1)}
-               and x in {bf16, f32}, on the main path's projections
+               and x in {bf16, f32}, on qwen2's projections
                [1536->256], [1536->1536], [1536->8960], [8960->1536]
-               (K8 = 192 and 1120) and a ragged [200->101]; B in
+               (K8 = 192 and 1120) and a ragged [200->101], and in 8-bit
+               g = 1 on gemma3's five projections (K8 = 672, 512, 2688;
+               M up to 21504) at B {8, 512, 1024}; B in
                {1, 8, 512} must launch K3 and {513, 1024} K4. K5 planes
                byte-identical to ref.pack_ref, K3/K4 raw within
                1e-5 * max|raw| (exact products, another summation order),
                `bitplane_matmul` within the reference's own tolerance of
                its oracle (2e-3 f32, 2e-2 bf16, of max|y|)
-  5. timing    each kernel at main-path shapes beside its plain version,
+  5. timing    each kernel at qwen2's shapes beside its plain version,
                its bound and a library call: device time (ms: 10 calls
                in a CUDA graph, replayed between CUDA events, median /
                10) and, for the kernel and the library call, the time of
@@ -39,8 +47,12 @@ entry points the launcher drives. Phases, one line each:
                host dispatch included, as PR 11 and PR 12 timed);
                K1 also on int8 pools, K2 also on a first request with
                no cached prefix, K3 and K4 on all four of qwen2-1.5b's
-               projection shapes
-  6. serve     full width, bf16: 8 slots, 16 requests, each a shared
+               projection shapes; then at gemma3-27b's shapes: K1 at
+               q [8, 32, 128] over a windowed and a global walk, K2 at
+               q [1, 512, 32, 128] from start 1024 with the window, K3
+               at [8, 5376] -> 21504 and [8, 21504] -> 5376, K4 at
+               [768, 5376] -> 21504
+  6. serve     qwen2-1.5b, bf16: 8 slots, 16 requests, each a shared
                256-token system prompt plus a 64..768-token suffix, 64
                new tokens, prefix index on; the K1/K2 launch counts of
                this run must be > 0
@@ -49,13 +61,28 @@ entry points the launcher drives. Phases, one line each:
                g = 1 PIM bit-plane weights (K5 packs every projection
                slice on the card), then the bf16-KV trace of phase 6;
                K1-K5 must each have launched in that path
-  9. parity    full width in f32 with 4 layers: greedy tokens with the
+  9. parity    qwen2-1.5b in f32 with 4 layers: greedy tokens with the
                CUDA kernels equal those with the plain versions on the
                card, and chunked prefill (64) equals single-shot
  10. parity    phase 9 with 8-bit g = 1 bit-plane weights
- 11. a JSON line {"kernels": [...]} with each kernel's launches, error,
-     times and bound, then the last line
-     {"ok": true, "device": {"platform": "gpu", ...}}
+ 11. init      gemma3-27b, all 62 layers in bf16 (the qwen2 weights
+               freed first): parameters, seconds, peak device memory
+ 12. serve     gemma3-27b: 8 slots, 16 requests, each a shared 256-token
+               system prompt plus a 768..2816-token suffix (every prompt
+               crosses the window), 64 new tokens, prefix index, pow2
+               bucketing, 512-token prefill chunks, groups sized "auto";
+               K1/K2 launched, pages retired in the windowed group only,
+               every group's pool whole again, prefix hits > 0
+ 13. serve     the same with int8 KV pools
+ 14. parity    gemma3-27b in f32 with 6 layers (one whole 5:1 pattern),
+               prompts of 1100..1300 tokens: kernels == plain versions
+               and 512-token chunks (auto-sized groups) == single-shot
+ 15. serve     gemma3-27b with 12 layers through `ServeEngine.quantize`
+               (K5 launched 7 x 12 times) and a drain with 1024-token
+               chunks: K1-K5 must each have launched
+ 16. a JSON line {"kernels": [...]} with each kernel's launches (those
+     of the qwen2 paths, and per path), error, times and bound, then the
+     last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 Any failed check ends the script with a non-zero exit and no "ok" line.
 It exits non-zero at once when no CUDA device is present, or when the
@@ -205,8 +232,8 @@ def tensor_core_counts(libs) -> dict:
 H, KV, HD, BS = 12, 2, 128, 16
 
 
-def make_pools(gen, n_blocks, kind, dev):
-    shape = (n_blocks, BS, KV, HD)
+def make_pools(gen, n_blocks, kind, dev, kv=KV):
+    shape = (n_blocks, BS, kv, HD)
     k = torch.randn(shape, generator=gen, device=dev)
     v = torch.randn(shape, generator=gen, device=dev)
     if kind == "int8":
@@ -225,7 +252,22 @@ def fragmented_table(rng, b, mb, n_blocks, dev):
     return torch.tensor(t, dtype=torch.int32, device=dev)
 
 
+#: the paged kernels' check cases: (model, heads, kv-heads, table width,
+#: decode lengths, prefill totals, the second window); the first window
+#: is always the table's capacity
+ATTN_CASES = (
+    ("qwen2-1.5b", H, KV, 128, [0, 1, 17, 300, 777, 1024, 1500, 2048],
+     [1, 17, 64, 300, 777, 1024, 1500, 2048], 256),
+    ("gemma3-27b", 32, 16, 212, [0, 1, 17, 1023, 1024, 1025, 2500, 3392],
+     [1, 17, 64, 1023, 1100, 2048, 2500, 3392], 1024),
+)
+
+
 def kernel_checks(dev):
+    """K1 and K2 against their plain versions at the head shapes of both
+    models' main paths, bf16, f32 and int8 pools. With the short window
+    each slot's walk starts at its first live block, as a windowed layer
+    group's does once it has retired the blocks behind the window."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.paged_attention import (
         paged_decode_attention, paged_decode_attention_bucketed)
@@ -234,72 +276,97 @@ def kernel_checks(dev):
 
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    b, mb, t = 8, 128, 64
-    n_blocks = b * mb // 2 + 1
-    capacity = mb * BS
-    table = fragmented_table(rng, b, mb, n_blocks, dev)
-    lengths = torch.tensor([0, 1, 17, 300, 777, 1024, 1500, 2048],
-                           dtype=torch.int32, device=dev)
-    total = torch.tensor([1, 17, 64, 300, 777, 1024, 1500, 2048],
-                         dtype=torch.int32, device=dev)
-    n_new = torch.tensor([1, 17, 40, 64, 13, 64, 50, 64], dtype=torch.int32,
-                         device=dev)
-    start = torch.clamp(total - n_new, min=0)
-    dvalid = lengths > 0
-    pvalid = (start[:, None] + torch.arange(t, device=dev)[None, :]
-              < total[:, None])
     errs = {"paged_decode": 0.0, "paged_prefill": 0.0}
-    for kind in ("bf16", "f32", "int8"):
-        kp, vp, ks, vs, qdt = make_pools(gen, n_blocks, kind, dev)
-        q = torch.randn((b, H, HD), generator=gen, device=dev).to(qdt)
-        qp = torch.randn((b, t, H, HD), generator=gen, device=dev).to(qdt)
-        sc = dict(k_scales=ks, v_scales=vs)
-        dplan, dperm = ops.make_bucket_plan(lengths.cpu().numpy(), BS, mb)
-        pplan, pperm = ops.make_bucket_plan(total.cpu().numpy(), BS, mb)
-        check(dplan is not None and pplan is not None, "no bucket plan")
-        dperm = torch.tensor(dperm, dtype=torch.int64, device=dev)
-        pperm = torch.tensor(pperm, dtype=torch.int64, device=dev)
-        for window in (capacity, 256):
-            out = paged_decode_attention(q, kp, vp, table, lengths, window,
-                                         **sc)
-            buck = paged_decode_attention_bucketed(
-                q, kp, vp, table, lengths, window, dplan, dperm, **sc)
-            plain = ref.paged_attention_ref(q, kp, vp, table, lengths,
-                                            window, **sc)
-            torch.cuda.synchronize()
-            err = float((out - plain).abs()[dvalid].max())
-            check(torch.isfinite(out).all(), f"decode {kind}: non-finite")
-            check(err <= 1e-4, f"decode {kind} w={window}: err {err}")
-            check(torch.equal(buck[dvalid], out[dvalid]),
-                  f"decode {kind} w={window}: bucketed != single")
-            errs["paged_decode"] = max(errs["paged_decode"], err)
+    for model, h, kv, mb, lens, tots, short in ATTN_CASES:
+        b, t = 8, 64
+        n_blocks = b * mb // 2 + 1
+        capacity = mb * BS
+        table = fragmented_table(rng, b, mb, n_blocks, dev)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        total = torch.tensor(tots, dtype=torch.int32, device=dev)
+        n_new = torch.tensor([1, 17, 40, 64, 13, 64, 50, 64],
+                             dtype=torch.int32, device=dev)
+        start = torch.clamp(total - n_new, min=0)
+        dvalid = lengths > 0
+        pvalid = (start[:, None] + torch.arange(t, device=dev)[None, :]
+                  < total[:, None])
+        for kind in ("bf16", "f32", "int8"):
+            kp, vp, ks, vs, qdt = make_pools(gen, n_blocks, kind, dev, kv=kv)
+            q = torch.randn((b, h, HD), generator=gen, device=dev).to(qdt)
+            qp = torch.randn((b, t, h, HD), generator=gen,
+                             device=dev).to(qdt)
+            sc = dict(k_scales=ks, v_scales=vs)
+            for window in (capacity, short):
+                # first live blocks: dead behind the decode query (at
+                # length - 1) and behind the chunk's first query (start)
+                dblk = torch.clamp(lengths - window, min=0) // BS
+                pblk = torch.clamp(start - window + 1, min=0) // BS
+                dneeds = (-(-lengths.clamp(min=1) // BS) - dblk).clamp(min=1)
+                pneeds = (-(-total // BS) - pblk).clamp(min=1)
+                dplan, dperm = ops.make_bucket_plan(
+                    lengths.cpu().numpy(), BS, mb, needs=dneeds.cpu().numpy())
+                pplan, pperm = ops.make_bucket_plan(
+                    total.cpu().numpy(), BS, mb, needs=pneeds.cpu().numpy())
+                check(dplan is not None and pplan is not None,
+                      "no bucket plan")
+                dperm = torch.tensor(dperm, dtype=torch.int64, device=dev)
+                pperm = torch.tensor(pperm, dtype=torch.int64, device=dev)
+                tag = f"{model} {kind} w={window}"
 
-            out = paged_prefill_attention(qp, kp, vp, table, start, total,
-                                          window, **sc)
-            buck = paged_prefill_attention_bucketed(
-                qp, kp, vp, table, start, total, window, pplan, pperm, **sc)
-            plain = ref.paged_prefill_ref(qp, kp, vp, table, start, total,
-                                          window, **sc)
-            torch.cuda.synchronize()
-            err = float((out - plain).abs()[pvalid].max())
-            check(torch.isfinite(out).all(), f"prefill {kind}: non-finite")
-            check(err <= 1e-4, f"prefill {kind} w={window}: err {err}")
-            check(torch.equal(buck[pvalid], out[pvalid]),
-                  f"prefill {kind} w={window}: bucketed != single")
-            errs["paged_prefill"] = max(errs["paged_prefill"], err)
-        say("kernels", pools=kind, decode_err=errs["paged_decode"],
-            prefill_err=errs["paged_prefill"], bucketed="bit-identical")
+                out = paged_decode_attention(q, kp, vp, table, lengths,
+                                             window, block_start=dblk, **sc)
+                buck = paged_decode_attention_bucketed(
+                    q, kp, vp, table, lengths, window, dplan, dperm,
+                    block_start=dblk, **sc)
+                plain = ref.paged_attention_ref(q, kp, vp, table, lengths,
+                                                window, **sc)
+                torch.cuda.synchronize()
+                err = float((out - plain).abs()[dvalid].max())
+                check(torch.isfinite(out).all(), f"decode {tag}: non-finite")
+                check(err <= 1e-4, f"decode {tag}: err {err}")
+                check(torch.equal(buck[dvalid], out[dvalid]),
+                      f"decode {tag}: bucketed != single")
+                errs["paged_decode"] = max(errs["paged_decode"], err)
+
+                out = paged_prefill_attention(qp, kp, vp, table, start,
+                                              total, window, block_start=pblk,
+                                              **sc)
+                buck = paged_prefill_attention_bucketed(
+                    qp, kp, vp, table, start, total, window, pplan, pperm,
+                    block_start=pblk, **sc)
+                plain = ref.paged_prefill_ref(qp, kp, vp, table, start,
+                                              total, window, **sc)
+                torch.cuda.synchronize()
+                err = float((out - plain).abs()[pvalid].max())
+                check(torch.isfinite(out).all(),
+                      f"prefill {tag}: non-finite")
+                check(err <= 1e-4, f"prefill {tag}: err {err}")
+                check(torch.equal(buck[pvalid], out[pvalid]),
+                      f"prefill {tag}: bucketed != single")
+                errs["paged_prefill"] = max(errs["paged_prefill"], err)
+            say("kernels", model=model, heads=f"{h}/{kv}", pools=kind,
+                windows=f"{capacity},{short}",
+                decode_err=errs["paged_decode"],
+                prefill_err=errs["paged_prefill"], bucketed="bit-identical")
     return errs
 
 
-def sdpa_inputs(kp, vp, table, n_cols):
-    """K/V gathered dense and expanded to all query heads, [B, H, S, hd]
-    (outside the timed region: only the library call is timed)."""
-    pages = table[:, :n_cols].long()
+def sdpa_inputs(kp, vp, table, n_cols, h=H, col0=None):
+    """K/V gathered dense and expanded to all `h` query heads,
+    [B, h, S, hd] (outside the timed region: only the library call is
+    timed): table columns [0, n_cols), or [col0[b], col0[b] + n_cols) of
+    each row b when `col0` is given."""
+    if col0 is None:
+        pages = table[:, :n_cols].long()
+    else:
+        cols = (col0[:, None] + torch.arange(n_cols, device=table.device)
+                ).clamp(max=table.shape[1] - 1)
+        pages = table.gather(1, cols).long()
     b = pages.shape[0]
-    k = kp[pages].reshape(b, n_cols * BS, KV, HD).transpose(1, 2)
-    v = vp[pages].reshape(b, n_cols * BS, KV, HD).transpose(1, 2)
-    g = H // KV
+    _, bs, kv, hd = kp.shape
+    k = kp[pages].reshape(b, n_cols * bs, kv, hd).transpose(1, 2)
+    v = vp[pages].reshape(b, n_cols * bs, kv, hd).transpose(1, 2)
+    g = h // kv
     return (k.repeat_interleave(g, dim=1).contiguous(),
             v.repeat_interleave(g, dim=1).contiguous())
 
@@ -405,6 +472,96 @@ def kernel_timings(dev):
     return out
 
 
+#: gemma3-27b's attention: 32 query heads over 16 KV heads, the drains'
+#: 212-column tables (3392 tokens) and a 1024-token window
+G3_H, G3_KV, G3_MB, G3_WINDOW = 32, 16, 212, 1024
+
+
+def gemma3_kernel_timings(dev):
+    """K1 and K2 at gemma3-27b's shapes, bf16: K1 over 8 decode slots of
+    1300..3136 tokens on a windowed layer (each walk from the slot's
+    first live block) and on a global layer; K2 over a 512-token chunk
+    at start 1024 with the 1024-token window. The library call attends
+    over the same visible keys, gathered dense beforehand."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.paged_prefill import paged_prefill_attention
+    F = torch.nn.functional
+
+    rng = np.random.default_rng(SEED + 6)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    mb, b = G3_MB, 8
+    capacity = mb * BS
+    n_blocks = 1 + b * mb
+    kp, vp, _, _, dt = make_pools(gen, n_blocks, "bf16", dev, kv=G3_KV)
+    table = torch.tensor(
+        rng.permutation(np.arange(1, n_blocks))[: b * mb].reshape(b, mb),
+        dtype=torch.int32, device=dev)
+    item = kp.element_size()
+    lens_host = [1300, 1800, 2200, 2500, 2700, 2900, 3000, 3136]
+    lengths = torch.tensor(lens_host, dtype=torch.int32, device=dev)
+    q = torch.randn((b, G3_H, HD), generator=gen, device=dev).to(dt)
+    out = {}
+    for walk, window in (("windowed", G3_WINDOW), ("global", capacity)):
+        # the windowed group has retired every block behind the window
+        first = [max(n - window, 0) // BS for n in lens_host]
+        blk = torch.tensor(first, dtype=torch.int32, device=dev)
+        n_cols = max(-(-n // BS) - f for n, f in zip(lens_host, first))
+        k_all, v_all = sdpa_inputs(kp, vp, table, n_cols, h=G3_H, col0=blk)
+        pos = (blk[:, None] * BS
+               + torch.arange(n_cols * BS, device=dev)[None, :])
+        mask = ((pos < lengths[:, None])
+                & (pos > lengths[:, None] - 1 - window))[:, None, None, :]
+        kv_pos = sum(min(n, window) for n in lens_host)
+        nbytes = (2 * kv_pos * G3_KV * HD * item + q.numel() * item
+                  + b * G3_H * HD * 4 + table.numel() * 4 + 2 * b * 4)
+        r = dict(
+            **time_kernel(
+                lambda: paged_decode_attention(q, kp, vp, table, lengths,
+                                               window, block_start=blk),
+                lambda: ref.paged_attention_ref(q, kp, vp, table, lengths,
+                                                window),
+                lambda: F.scaled_dot_product_attention(
+                    q[:, :, None, :], k_all, v_all, attn_mask=mask)),
+            **bound(nbytes, 4 * HD * G3_H * kv_pos, dt),
+            shape=f"gemma3 q[{b},{G3_H},{HD}] kv {G3_KV} {walk} walk "
+                  f"(window {window}) lens {lens_host}")
+        say_timing("paged_decode", r)
+        out[f"paged_decode {walk}"] = r
+
+    st_, t = 1024, 512
+    tot = st_ + t
+    q1 = torch.randn((1, t, G3_H, HD), generator=gen, device=dev).to(dt)
+    start = torch.tensor([st_], dtype=torch.int32, device=dev)
+    total = torch.tensor([tot], dtype=torch.int32, device=dev)
+    bt1 = table[:1].contiguous()
+    blk = torch.tensor([max(st_ - G3_WINDOW + 1, 0) // BS],
+                       dtype=torch.int32, device=dev)
+    k1, v1 = sdpa_inputs(kp, vp, bt1, -(-tot // BS), h=G3_H)
+    qpos = st_ + torch.arange(t, device=dev)
+    kpos = torch.arange(tot, device=dev)[None, :]
+    pmask = ((kpos <= qpos[:, None])
+             & (kpos > qpos[:, None] - G3_WINDOW))[None, None]
+    pairs = int(pmask.sum())
+    keys = tot - max(st_ - G3_WINDOW + 1, 0)
+    nbytes = (2 * keys * G3_KV * HD * item + q1.numel() * item
+              + q1.numel() * 4 + bt1.numel() * 4 + 12)
+    r = dict(
+        **time_kernel(
+            lambda: paged_prefill_attention(q1, kp, vp, bt1, start, total,
+                                            G3_WINDOW, block_start=blk),
+            lambda: ref.paged_prefill_ref(q1, kp, vp, bt1, start, total,
+                                          G3_WINDOW),
+            lambda: F.scaled_dot_product_attention(
+                q1.transpose(1, 2), k1, v1, attn_mask=pmask)),
+        **bound(nbytes, 4 * HD * G3_H * pairs, dt),
+        shape=f"gemma3 q[1,{t},{G3_H},{HD}] kv {G3_KV} start {st_} "
+              f"total {tot} window {G3_WINDOW}")
+    say_timing("paged_prefill", r)
+    out["paged_prefill"] = r
+    return out
+
+
 def bound(nbytes: int, ops: int, dtype) -> dict:
     """Least time for the work: bytes each input read / output written
     once over HBM, or its operations over the tensor-core peak of the
@@ -428,112 +585,149 @@ BITPLANE_MATRICES = ((1536, 256), (1536, 1536), (1536, 8960), (8960, 1536),
 GEMV_ROWS, GEMM_ROWS = (1, 8, 512), (513, 1024)
 
 
+#: gemma3-27b's projections (wk/wv, wq, wo, w_gate/w_up, w_down: K8 =
+#: 672, 512 and 2688 at 8 bits, g = 1), checked in the format its
+#: --quantize path runs, at a decode tick's 8 rows, a 512-row chunk (K3)
+#: and a 1024-row chunk (K4)
+G3_BITPLANE_MATRICES = ((5376, 2048), (5376, 4096), (4096, 5376),
+                        (5376, 21504), (21504, 5376))
+G3_BITPLANE_ROWS = (8, 512, 1024)
+
+
 def bitplane_checks(dev):
     """K5 byte-identical to the plain pack; K3/K4 raw within 1e-5 of
     max|raw| of the plain contraction; `bitplane_matmul` (kernel, offset,
     scale) within the reference's tolerance of its oracle. The counts
-    must show B <= 512 on K3 and B > 512 on K4."""
-    from repro_torch.kernels import ops, ref
-
+    must show B <= 512 on K3 and B > 512 on K4. qwen2-1.5b's shapes in
+    four formats, then gemma3-27b's in 8-bit g = 1."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     abs_err = {"bitplane_gemv": 0.0, "bitplane_gemm": 0.0,
                "bitplane_pack": 0.0}
-    for n_bits, group in BITPLANE_FORMATS:
-        rel_err = dict.fromkeys(("bitplane_gemv", "bitplane_gemm",
-                                 "matmul_bf16", "matmul_f32"), 0.0)
-        for k, m in BITPLANE_MATRICES:
-            tag = f"({n_bits},{group}) [{k}->{m}]"
-            w = torch.randn((k, m), generator=gen, device=dev)
-            w_q, scale = ref.quantize_ref(w, n_bits)
-            plain_planes = ref.pack_ref(w_q, n_bits, group)
-            reset_launches()
-            planes, got_scale = ops.quantize_and_pack(w, n_bits, group, "cuda")
-            torch.cuda.synchronize()
-            check(read_launches()["bitplane_pack"] == 1, f"{tag}: no K5")
-            check(torch.equal(planes, plain_planes)
-                  and torch.equal(got_scale, scale),
-                  f"{tag}: K5 planes differ from ref.pack_ref")
-            u = ref.offset_form_ref(planes, group).float()
-            for dt in (torch.bfloat16, torch.float32):
-                for b in GEMV_ROWS + GEMM_ROWS:
-                    name = "bitplane_gemv" if b in GEMV_ROWS else \
-                        "bitplane_gemm"
-                    x = torch.randn((b, k), generator=gen, device=dev).to(dt)
-                    x_r = ref.prepare_x_ref(x, group).contiguous()
-                    reset_launches()
-                    raw = ops.bitplane_kernel(b)(x_r, planes, n_bits=n_bits,
-                                                 group=group)
-                    y = ops.bitplane_matmul(x, planes, scale, n_bits=n_bits,
-                                            group=group, impl="cuda")
-                    launched = read_launches()
-                    plain = x.float() @ u
-                    y_ref = ref.bitplane_matmul_ref(x, planes, scale, n_bits,
-                                                    group).float()
-                    torch.cuda.synchronize()
-                    check(launched[name] == 2 and sum(launched.values()) == 2,
-                          f"{tag} B={b}: expected 2 launches of {name}, got "
-                          f"{launched}")
-                    check(bool(torch.isfinite(raw).all())
-                          and bool(torch.isfinite(y).all()),
-                          f"{tag} B={b}: non-finite output")
-                    err = float((raw - plain).abs().max())
-                    rel = err / (float(plain.abs().max()) + 1e-30)
-                    check(rel <= 1e-5, f"{tag} {dt} B={b}: raw rel err {rel}")
-                    yerr = float((y.float() - y_ref).abs().max()) / (
-                        float(y_ref.abs().max()) + 1e-6)
-                    tol = 2e-2 if dt == torch.bfloat16 else 2e-3
-                    check(yerr < tol, f"{tag} {dt} B={b}: matmul rel err "
-                                      f"{yerr} >= {tol}")
-                    abs_err[name] = max(abs_err[name], err)
-                    rel_err[name] = max(rel_err[name], rel)
-                    key = "matmul_bf16" if dt == torch.bfloat16 else \
-                        "matmul_f32"
-                    rel_err[key] = max(rel_err[key], yerr)
-        say("bitplane", format=f"({n_bits},{group})",
-            matrices=len(BITPLANE_MATRICES), pack="byte-identical",
-            gemv_rel_err=rel_err["bitplane_gemv"],
-            gemm_rel_err=rel_err["bitplane_gemm"],
-            matmul_rel_err_bf16=rel_err["matmul_bf16"],
-            matmul_rel_err_f32=rel_err["matmul_f32"])
+    for model, formats, matrices, rows in (
+            ("qwen2-1.5b", BITPLANE_FORMATS, BITPLANE_MATRICES,
+             GEMV_ROWS + GEMM_ROWS),
+            ("gemma3-27b", ((8, 1),), G3_BITPLANE_MATRICES,
+             G3_BITPLANE_ROWS)):
+        for n_bits, group in formats:
+            rel_err = dict.fromkeys(("bitplane_gemv", "bitplane_gemm",
+                                     "matmul_bf16", "matmul_f32"), 0.0)
+            for k, m in matrices:
+                check_bitplane_matrix(dev, gen, n_bits, group, k, m, rows,
+                                      abs_err, rel_err)
+            say("bitplane", model=model, format=f"({n_bits},{group})",
+                matrices=len(matrices), rows=",".join(map(str, rows)),
+                pack="byte-identical",
+                gemv_rel_err=rel_err["bitplane_gemv"],
+                gemm_rel_err=rel_err["bitplane_gemm"],
+                matmul_rel_err_bf16=rel_err["matmul_bf16"],
+                matmul_rel_err_f32=rel_err["matmul_f32"])
     return abs_err
+
+
+def check_bitplane_matrix(dev, gen, n_bits, group, k, m, rows, abs_err,
+                          rel_err):
+    """One [k -> m] weight: K5 against the plain pack, then K3 or K4 (by
+    row count) and `bitplane_matmul` for bf16 and f32 x of each of
+    `rows` rows; the worst errors go into `abs_err` / `rel_err`."""
+    from repro_torch.kernels import ops, ref
+
+    tag = f"({n_bits},{group}) [{k}->{m}]"
+    w = torch.randn((k, m), generator=gen, device=dev)
+    w_q, scale = ref.quantize_ref(w, n_bits)
+    plain_planes = ref.pack_ref(w_q, n_bits, group)
+    reset_launches()
+    planes, got_scale = ops.quantize_and_pack(w, n_bits, group, "cuda")
+    torch.cuda.synchronize()
+    check(read_launches()["bitplane_pack"] == 1, f"{tag}: no K5")
+    check(torch.equal(planes, plain_planes)
+          and torch.equal(got_scale, scale),
+          f"{tag}: K5 planes differ from ref.pack_ref")
+    del w, w_q, plain_planes
+    u = ref.offset_form_ref(planes, group).float()
+    for dt in (torch.bfloat16, torch.float32):
+        for b in rows:
+            name = "bitplane_gemv" if b <= 512 else "bitplane_gemm"
+            x = torch.randn((b, k), generator=gen, device=dev).to(dt)
+            x_r = ref.prepare_x_ref(x, group).contiguous()
+            reset_launches()
+            raw = ops.bitplane_kernel(b)(x_r, planes, n_bits=n_bits,
+                                         group=group)
+            y = ops.bitplane_matmul(x, planes, scale, n_bits=n_bits,
+                                    group=group, impl="cuda")
+            launched = read_launches()
+            plain = x.float() @ u
+            y_ref = ref.bitplane_matmul_ref(x, planes, scale, n_bits,
+                                            group).float()
+            torch.cuda.synchronize()
+            check(launched[name] == 2 and sum(launched.values()) == 2,
+                  f"{tag} B={b}: expected 2 launches of {name}, got "
+                  f"{launched}")
+            check(bool(torch.isfinite(raw).all())
+                  and bool(torch.isfinite(y).all()),
+                  f"{tag} B={b}: non-finite output")
+            err = float((raw - plain).abs().max())
+            rel = err / (float(plain.abs().max()) + 1e-30)
+            check(rel <= 1e-5, f"{tag} {dt} B={b}: raw rel err {rel}")
+            yerr = float((y.float() - y_ref).abs().max()) / (
+                float(y_ref.abs().max()) + 1e-6)
+            tol = 2e-2 if dt == torch.bfloat16 else 2e-3
+            check(yerr < tol, f"{tag} {dt} B={b}: matmul rel err "
+                              f"{yerr} >= {tol}")
+            abs_err[name] = max(abs_err[name], err)
+            rel_err[name] = max(rel_err[name], rel)
+            key = "matmul_bf16" if dt == torch.bfloat16 else "matmul_f32"
+            rel_err[key] = max(rel_err[key], yerr)
+
+
+def bitplane_row(dev, gen, name, b, k, m, model="qwen2-1.5b") -> dict:
+    """One K3 or K4 timing, 8-bit g = 1, bf16 x of `b` rows against a
+    [k -> m] weight; the library yardstick is one `x @ W` with W
+    dequantized dense in x's dtype beforehand (the port never calls
+    it)."""
+    from repro_torch.kernels import bitplane_gemm, bitplane_gemv, ops, ref
+
+    fn = {"bitplane_gemv": bitplane_gemv.bitplane_gemv,
+          "bitplane_gemm": bitplane_gemm.bitplane_gemm}[name]
+    dt = torch.bfloat16
+    w = torch.randn((k, m), generator=gen, device=dev)
+    planes, scale = ops.quantize_and_pack(w, 8, 1, "cuda")
+    del w
+    x = torch.randn((b, k), generator=gen, device=dev).to(dt)
+    x_r = ref.prepare_x_ref(x, 1).contiguous()
+    w_dense = ref.dequantize_ref(planes, scale, 8, 1).to(dt)
+    r = dict(
+        **time_kernel(
+            lambda: fn(x_r, planes, n_bits=8, group=1),
+            lambda: ref.bitplane_raw_ref(x_r, planes, 1),
+            lambda: x @ w_dense),
+        **bound(planes.numel() + x_r.numel() * x_r.element_size()
+                + b * m * 4, 2 * b * k * m, dt),
+        shape=f"{model} x[{b},{k}] planes[8,{k // 8},{m}] bf16")
+    say_timing(name, r)
+    return r
 
 
 def bitplane_timings(dev):
     """Times at the main path's shapes, 8-bit g = 1 bf16: K3 at B = 8
     (a decode tick's 8 slots) on [1536->8960] (w_gate/w_up, the row the
     JSON line carries), [8960->1536] (w_down), [1536->1536] (wq/wo) and
-    [1536->256] (wk/wv); K4 at B = 768 (one
-    slot's suffix) on those two and on [1536->256] (wk/wv) and
-    [1536->1536] (wq/wo); K5 packing one [1536, 8960] slice. The
-    library yardstick is one `x @ W` with W dequantized dense in x's
-    dtype beforehand (the port never calls it); K5 has none."""
-    from repro_torch.kernels import (bitplane_gemm, bitplane_gemv, ops, pack,
-                                     ref)
+    [1536->256] (wk/wv); K4 at B = 768 (one slot's suffix) on those two
+    and on [1536->256] (wk/wv) and [1536->1536] (wq/wo); K5 packing one
+    [1536, 8960] slice; then K3 and K4 at gemma3-27b's widest shapes:
+    K3 [5376->21504] (w_gate/w_up) and [21504->5376] (w_down) at B = 8,
+    K4 [5376->21504] at B = 768. K5 has no library call."""
+    from repro_torch.kernels import pack, ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     dt = torch.bfloat16
     out = {}
-    for name, fn, b, shapes in (
-            ("bitplane_gemv", bitplane_gemv.bitplane_gemv, 8,
+    for name, b, shapes in (
+            ("bitplane_gemv", 8,
              ((1536, 8960), (8960, 1536), (1536, 1536), (1536, 256))),
-            ("bitplane_gemm", bitplane_gemm.bitplane_gemm, 768,
+            ("bitplane_gemm", 768,
              ((1536, 8960), (8960, 1536), (1536, 256), (1536, 1536)))):
         for k, m in shapes:
-            w = torch.randn((k, m), generator=gen, device=dev)
-            planes, scale = ops.quantize_and_pack(w, 8, 1, "cuda")
-            x = torch.randn((b, k), generator=gen, device=dev).to(dt)
-            x_r = ref.prepare_x_ref(x, 1).contiguous()
-            w_dense = ref.dequantize_ref(planes, scale, 8, 1).to(dt)
-            r = dict(
-                **time_kernel(
-                    lambda: fn(x_r, planes, n_bits=8, group=1),
-                    lambda: ref.bitplane_raw_ref(x_r, planes, 1),
-                    lambda: x @ w_dense),
-                **bound(planes.numel() + x_r.numel() * x_r.element_size()
-                        + b * m * 4, 2 * b * k * m, dt),
-                shape=f"x[{b},{k}] planes[8,{k // 8},{m}] bf16")
-            say_timing(name, r)
-            out.setdefault(name, r)
+            out.setdefault(name, bitplane_row(dev, gen, name, b, k, m))
     k, m = 1536, 8960
     w_q = torch.randint(-128, 128, (k, m), generator=gen, device=dev)
     u_r = (w_q + 128).to(torch.uint8).reshape(k // 8, 8, m).permute(
@@ -544,11 +738,15 @@ def bitplane_timings(dev):
              shape=f"u_r[8,{k // 8},{m}] -> planes[8,{k // 8},{m}]")
     say_timing("bitplane_pack", r)
     out["bitplane_pack"] = r
+    for name, b, k, m in (("bitplane_gemv", 8, 5376, 21504),
+                          ("bitplane_gemv", 8, 21504, 5376),
+                          ("bitplane_gemm", 768, 5376, 21504)):
+        bitplane_row(dev, gen, name, b, k, m, model="gemma3-27b")
     return out
 
 
 # ---------------------------------------------------------------------------
-# phases 4-6, 8-9: the main paths
+# phases 6-10: the qwen2-1.5b paths
 # ---------------------------------------------------------------------------
 
 def serving_trace(vocab, n_requests, shared_len, suffix_lo, suffix_hi, seed):
@@ -566,31 +764,54 @@ def drain(cfg, params, prompts, new_tokens, n_slots, cache_len, dev,
           reset=True, **kw):
     """One drain through `ContinuousBatcher`; every launch count is set
     to 0 just before it (unless `reset=False`: the caller did, before
-    earlier work of the same path) and read just after."""
+    earlier work of the same path) and read just after. Besides the
+    schedule it reports, per layer group, the pages retired and whether
+    the pool is whole again (every page free or held by the prefix
+    index), and the cache's page-byte accounting: the draw-time peak of
+    resident bytes, the provisioned bytes, and the per-tick peaks of
+    resident and lockstep-equivalent bytes."""
     from repro_torch.serve import ContinuousBatcher, Request
 
     cb = ContinuousBatcher(cfg, params, n_slots=n_slots, cache_len=cache_len,
                            paged=True, block_size=BS, device=dev, **kw)
     for uid, p in enumerate(prompts):
         cb.submit(Request(uid=uid, prompt=p, max_new_tokens=new_tokens))
+    peaks = {"resident": 0, "lockstep": 0}
+
+    def on_tick(b):
+        pc = b.pcache
+        peaks["resident"] = max(peaks["resident"], pc.resident_page_bytes())
+        peaks["lockstep"] = max(peaks["lockstep"],
+                                pc.lockstep_equiv_page_bytes())
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     if reset:
         reset_launches()
     t0 = time.perf_counter()
-    results = cb.run_until_drained()
+    results = cb.run_until_drained(on_tick=on_tick)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    cb.pcache.check_invariants(
-        None if cb.prefix is None else cb.prefix.page_refs())
+    pc = cb.pcache
+    index_refs = {} if cb.prefix is None else cb.prefix.page_refs()
+    pc.check_invariants(None if cb.prefix is None else index_refs)
     n_tok = sum(len(v) for v in results.values())
     stats = dict(
-        requests=len(results), tokens=n_tok, wall_s=wall,
-        tokens_per_s=n_tok / wall, ticks=cb.ticks,
+        layers=cfg.n_layers, requests=len(results), tokens=n_tok,
+        wall_s=wall, tokens_per_s=n_tok / wall, ticks=cb.ticks,
         prefill_tokens=cb.prefill_tokens,
-        pages_allocated=cb.pcache.pages_allocated,
+        pages_allocated=pc.pages_allocated,
         prefix_hits=None if cb.prefix is None else cb.prefix.hits,
+        retired_by_group=[p.pages_retired for p in pc.pools],
+        windows=[p.window for p in pc.pools],
+        pools_whole=all(
+            p.n_free + len(index_refs.get(p.gid, {})) == p.n_blocks - 1
+            for p in pc.pools),
+        peak_resident_page_bytes=pc.peak_resident_page_bytes(),
+        provisioned_page_bytes=pc.provisioned_page_bytes(),
+        tick_peak_resident_page_bytes=peaks["resident"],
+        tick_peak_lockstep_equiv_page_bytes=peaks["lockstep"],
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         **{f"launches_{k}": v for k, v in launches.items() if v},
     )
@@ -616,6 +837,8 @@ def serve_full_width(cfg, params, dev, kv_dtype, weights="bf16",
           f"{tag}: main path did not launch every kernel of {required}: "
           f"{launches}")
     check(stats["prefix_hits"] > 0, f"{tag}: no prefix hit")
+    check(stats["pools_whole"], f"{tag}: a page is still held after the "
+                                "drain")
     say("serve", model=cfg.name, kv_dtype=kv_dtype, weights=weights,
         **extra, **stats)
     return launches
@@ -655,25 +878,28 @@ def serve_quantized(cfg, qparams, frac, seconds, dev):
         quantize_s=seconds)
 
 
-def token_parity(dev, quantize=False):
-    import dataclasses
-    from repro_torch.configs import get_config
+def token_parity(dev, cfg, prompts, new_tokens, cache_len, chunk,
+                 quantize=False, chunk_kw=None):
+    """Greedy f32 tokens of one trace three ways: the CUDA kernels, the
+    plain versions on the card (no kernel may launch), and chunked
+    prefill (with `chunk_kw` besides) with the kernels; all three must
+    agree. Returns the kernel run's drain stats."""
     from repro_torch.models import init_lm
 
-    cfg = dataclasses.replace(get_config("qwen2-1.5b"), dtype="float32",
-                              n_layers=4)
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED + 2),
                      dev)
     if quantize:
         params = quantize_params(cfg, params)[0]
-    prompts = serving_trace(cfg.vocab_size, 6, 128, 16, 256, SEED + 2)
-    new_tokens, cache_len = 16, 128 + 256 + 16
-    runs = {}
-    for name, kw in (("kernel", dict(kernel_impl="auto")),
-                     ("plain", dict(kernel_impl="ref")),
-                     ("chunked", dict(kernel_impl="auto", prefill_chunk=64))):
-        runs[name], _, launches = drain(cfg, params, prompts, new_tokens, 4,
-                                        cache_len, dev, prefix=True, **kw)
+    runs, stats = {}, None
+    for name, extra in (("kernel", dict(kernel_impl="auto")),
+                        ("plain", dict(kernel_impl="ref")),
+                        ("chunked", dict(kernel_impl="auto",
+                                         prefill_chunk=chunk,
+                                         **(chunk_kw or {})))):
+        runs[name], st, launches = drain(cfg, params, prompts, new_tokens, 4,
+                                         cache_len, dev, prefix=True,
+                                         **extra)
+        stats = stats or st
         want = ("paged_decode", "paged_prefill") + (
             ("bitplane_gemv",) if quantize else ())
         if name == "plain":
@@ -684,13 +910,154 @@ def token_parity(dev, quantize=False):
                   f"parity {name}: kernels of {want} not launched: "
                   f"{launches}")
     check(runs["kernel"] == runs["plain"],
-          "f32 tokens differ between the CUDA kernels and the plain versions")
+          f"{cfg.name}: f32 tokens differ between the CUDA kernels and the "
+          "plain versions")
     check(runs["chunked"] == runs["kernel"],
-          "chunked-prefill tokens differ from single-shot")
-    say("parity", model=f"{cfg.name}[f32,4L]",
+          f"{cfg.name}: chunked-prefill tokens differ from single-shot")
+    say("parity", model=f"{cfg.name}[f32,{cfg.n_layers}L]",
         weights="pim8" if quantize else "f32", requests=len(runs["kernel"]),
         tokens=sum(len(v) for v in runs["kernel"].values()),
+        prompt_lens=f"{min(map(len, prompts))}..{max(map(len, prompts))}",
+        chunk=chunk, retired_by_group=stats["retired_by_group"],
         kernel_eq_plain=True, chunked_eq_single=True)
+    return stats
+
+
+def qwen2_parity(dev, quantize=False):
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), dtype="float32",
+                              n_layers=4)
+    prompts = serving_trace(cfg.vocab_size, 6, 128, 16, 256, SEED + 2)
+    token_parity(dev, cfg, prompts, 16, 128 + 256 + 16, 64,
+                 quantize=quantize)
+
+
+# ---------------------------------------------------------------------------
+# phases 11-15: gemma3-27b, two layer groups at full width
+# ---------------------------------------------------------------------------
+
+#: the gemma3 drains: a 256-token shared system prompt plus a
+#: 768..2816-token suffix, so every prompt (1024..3072 tokens) crosses
+#: the 1024-token window; 64 new tokens; 256 tokens of slack make the
+#: table 212 columns wide
+G3_SHARED, G3_SUFFIX, G3_NEW, G3_CHUNK = 256, (768, 2816), 64, 512
+G3_CACHE_LEN = G3_SHARED + G3_SUFFIX[1] + G3_NEW + 256
+
+
+def gemma3_serve(cfg, params, dev, kv_dtype):
+    """One full-width gemma3 drain: 16 requests, 8 slots, prefix index,
+    pow2 bucketing, chunked prefill with auto-sized groups. K1 and K2
+    must launch, pages must retire in the windowed group and nowhere
+    else, every pool must be whole again and the index must hit."""
+    prompts = serving_trace(cfg.vocab_size, 16, G3_SHARED, *G3_SUFFIX, SEED)
+    tag = f"gemma3 {kv_dtype} KV"
+    results, stats, launches = drain(
+        cfg, params, prompts, G3_NEW, 8, G3_CACHE_LEN, dev, prefix=True,
+        bucket_strategy="pow2", kernel_impl="auto", kv_dtype=kv_dtype,
+        prefill_chunk=G3_CHUNK, group_blocks="auto")
+    check(stats["requests"] == 16, f"{tag}: not every request finished")
+    check(all(len(v) == G3_NEW for v in results.values()),
+          f"{tag}: a request stopped short")
+    check(all(0 <= x < cfg.vocab_size for v in results.values() for x in v),
+          f"{tag}: token outside the vocab")
+    check(launches["paged_decode"] > 0 and launches["paged_prefill"] > 0,
+          f"{tag}: K1/K2 not launched: {launches}")
+    windows, retired = stats["windows"], stats["retired_by_group"]
+    check(len(windows) == 2 and sum(retired) > 0
+          and all(r == 0 for w, r in zip(windows, retired) if w is None),
+          f"{tag}: pages must retire in the windowed group only: "
+          f"{list(zip(windows, retired))}")
+    check(stats["pools_whole"], f"{tag}: a page is still held after the "
+                                "drain")
+    check(stats["prefix_hits"] > 0, f"{tag}: no prefix hit")
+    say("serve", model=cfg.name, kv_dtype=kv_dtype, weights="bf16",
+        prompt_lens=f"{min(map(len, prompts))}..{max(map(len, prompts))}",
+        chunk=G3_CHUNK, **stats)
+    return launches
+
+
+def gemma3_full_width(dev):
+    """Init at 62 layers and published width with the repaired init_lm,
+    then the bf16-KV and int8-KV drains. Returns each drain's counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+
+    cfg = get_config("gemma3-27b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    param_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    say("init", model=cfg.name, layers=cfg.n_layers, params=n_params,
+        param_bytes=param_bytes, seconds=time.perf_counter() - t0,
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    check(cfg.n_layers == 62 and cfg.d_model == 5376, "gemma3 cut in width")
+    out = {}
+    for kv_dtype in ("bf16", "int8"):
+        out[kv_dtype] = gemma3_serve(cfg, params, dev, kv_dtype)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def gemma3_parity(dev):
+    """f32 at published width and 6 layers (one whole 5:1 pattern):
+    prompts of 1100..1300 tokens cross the window; 16 new tokens."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("gemma3-27b"), dtype="float32",
+                              n_layers=6)
+    prompts = serving_trace(cfg.vocab_size, 6, 128, 972, 1172, SEED + 2)
+    stats = token_parity(dev, cfg, prompts, 16, 128 + 1172 + 16 + 28, 512,
+                         chunk_kw=dict(group_blocks="auto"))
+    check(stats["retired_by_group"][1] > 0 and
+          stats["retired_by_group"][0] == 0,
+          f"gemma3 parity: retirement {stats['retired_by_group']}")
+    torch.cuda.empty_cache()
+
+
+def gemma3_quantized(dev):
+    """The --quantize path at published width and 12 layers (two 5:1
+    patterns; the dense and the packed trees must fit together):
+    `ServeEngine.quantize` packs 7 x 12 slices by K5, then a drain with
+    1024-token chunks runs K3 on decode ticks and K4 on the chunks. The
+    counts are set to 0 before the quantize and read after the drain."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+
+    cfg = dataclasses.replace(get_config("gemma3-27b"), n_layers=12)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED + 5),
+                     dev)
+    reset_launches()
+    qparams, frac, seconds = quantize_params(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    k5 = read_launches()["bitplane_pack"]
+    check(k5 == 7 * cfg.n_layers,
+          f"gemma3 K5 launches {k5} != {7 * cfg.n_layers}")
+    prompts = serving_trace(cfg.vocab_size, 8, G3_SHARED, 768, 1792,
+                            SEED + 5)
+    results, stats, launches = drain(
+        cfg, qparams, prompts, 16, 8, G3_SHARED + 1792 + 16 + 240, dev,
+        reset=False, prefix=True, bucket_strategy="pow2",
+        kernel_impl="auto", prefill_chunk=1024, group_blocks="auto")
+    check(stats["requests"] == 8 and all(len(v) == 16
+                                         for v in results.values()),
+          "gemma3 pim8: a request stopped short")
+    check(all(launches[k] > 0 for k in kernel_modules()),
+          f"gemma3 pim8: not every kernel launched: {launches}")
+    check(stats["pools_whole"], "gemma3 pim8: a page is still held")
+    say("serve", model=cfg.name, kv_dtype="bf16", weights="pim8",
+        packed_fraction=frac, quantize_s=seconds, chunk=1024, **stats)
+    del qparams
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -703,6 +1070,7 @@ def main() -> int:
     from repro_torch.models import init_lm
 
     dev = torch.device("cuda")
+    started = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -732,6 +1100,7 @@ def main() -> int:
     errs = kernel_checks(dev)
     errs.update(bitplane_checks(dev))
     times = kernel_timings(dev)
+    gemma3_kernel_timings(dev)
     times.update(bitplane_timings(dev))
 
     cfg = get_config("qwen2-1.5b")
@@ -741,19 +1110,29 @@ def main() -> int:
     n_params = sum(x.numel() for x in _leaves(params))
     say("init", model=cfg.name, params=n_params,
         seconds=time.perf_counter() - t0)
-    launches = serve_full_width(cfg, params, dev, "bf16")
-    serve_full_width(cfg, params, dev, "int8")
+    by_path = {}
+    launches = by_path["qwen2-1.5b bf16 KV"] = serve_full_width(
+        cfg, params, dev, "bf16")
+    by_path["qwen2-1.5b int8 KV"] = serve_full_width(cfg, params, dev, "int8")
     reset_launches()
     qparams, frac, seconds = quantize_params(cfg, params)
     del params
     torch.cuda.empty_cache()
-    q_launches = serve_quantized(cfg, qparams, frac, seconds, dev)
+    q_launches = by_path["qwen2-1.5b pim8"] = serve_quantized(
+        cfg, qparams, frac, seconds, dev)
+    launches = dict(launches)
     for name in ("bitplane_gemv", "bitplane_gemm", "bitplane_pack"):
         launches[name] = q_launches[name]
     del qparams
     torch.cuda.empty_cache()
-    token_parity(dev)
-    token_parity(dev, quantize=True)
+    qwen2_parity(dev)
+    qwen2_parity(dev, quantize=True)
+
+    g3 = gemma3_full_width(dev)
+    by_path["gemma3-27b bf16 KV"] = g3["bf16"]
+    by_path["gemma3-27b int8 KV"] = g3["int8"]
+    gemma3_parity(dev)
+    by_path["gemma3-27b[12L] pim8"] = gemma3_quantized(dev)
 
     csrc = "src/repro_torch/kernels/csrc"
     sources = {
@@ -775,7 +1154,9 @@ def main() -> int:
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name], max_abs_err=errs[name], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            launches_by_path={path: n[name] for path, n in by_path.items()}))
+    say("done", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

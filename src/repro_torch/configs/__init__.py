@@ -14,6 +14,7 @@ from .base import ModelConfig
 
 _MODULES: Dict[str, str] = {
     "qwen2-1.5b": "qwen2_1_5b",
+    "gemma3-27b": "gemma3_27b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

@@ -50,12 +50,13 @@
 //     U fragment: every product stays exact, only the summation order
 //     differs from the plain f32 contraction.
 //   * The tensor core truncates when it accumulates, so one chain of
-//     MMAs along an 8960-deep K drifts: under 5e-6 of max|raw| with
-//     bf16 x, inside the 1e-5 bound, but 1.6e-5 with f32's three terms
-//     per k-step (tests/test_torch_gpu.py on the H100). With f32 x each output tile
-//     therefore sums 2 k-steps x 3 terms in a fresh MMA accumulator and
-//     adds that to its f32 sum with an ordinary (round-to-nearest) add;
-//     bf16 x accumulates in one chain, which keeps its registers free.
+//     MMAs along a deep K drifts: 1.6e-5 of max|raw| with f32's three
+//     terms per k-step over K = 8960, and 3.0e-5 with bf16 x over
+//     K = 21504 (gemma3-27b's w_down), against a 1e-5 bound
+//     (tests/test_torch_gpu.py on the H100). Each output tile therefore
+//     sums every 2 k-steps (x 3 terms for f32 x) in a fresh MMA
+//     accumulator and adds that to its f32 sum with an ordinary
+//     (round-to-nearest) add, whatever the type of x.
 //   * Filling the card: 128 x 128 tiles give B/128 x M/128 CTAs, too
 //     few for the narrow [1536 -> 256] and [8960 -> 1536] projections,
 //     so the caller may split K into `splits` ranges of whole pairs
@@ -252,11 +253,10 @@ struct Decode {
 
 // acc[mt][nt] += x tile (this warp's 32 rows) x U tile (its 64 columns)
 // over the staged chunk, two k-steps at a time (one ldmatrix.trans gives
-// the B fragments of both). bf16 x: the MMAs accumulate into acc
-// directly. f32 x: each (mt, nt) sums the 2 k-steps x 3 terms in a
-// fresh MMA accumulator, added to acc with an ordinary f32 add (the
-// tensor core truncates when it accumulates; three terms per k-step
-// would triple the drift of one long chain).
+// the B fragments of both). Each (mt, nt) sums the 2 k-steps (x 3 terms
+// for f32 x) in a fresh MMA accumulator, added to acc with an ordinary
+// f32 add: the tensor core truncates when it accumulates, and a chain as
+// long as K drifts past the bound.
 template <typename XT>
 __device__ __forceinline__ void gemm_mma(const XT* x_s, const uint16_t* u_s,
                                          float (&acc)[2][8][4], int wm,
@@ -298,19 +298,14 @@ __device__ __forceinline__ void gemm_mma(const XT* x_s, const uint16_t* u_s,
                  wn * 64 + nt * 8);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
-        if constexpr (NX == 1) {
-          tc::mma_bf16(acc[mt][nt], a[mt][0][0], r[0], r[1]);
-          tc::mma_bf16(acc[mt][nt], a[mt][1][0], r[2], r[3]);
-        } else {
-          float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-          for (int i = 0; i < NX; ++i) {
-            tc::mma_bf16(t, a[mt][0][i], r[0], r[1]);
-            tc::mma_bf16(t, a[mt][1][i], r[2], r[3]);
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += t[e];
+        for (int i = 0; i < NX; ++i) {
+          tc::mma_bf16(t, a[mt][0][i], r[0], r[1]);
+          tc::mma_bf16(t, a[mt][1][i], r[2], r[3]);
         }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += t[e];
       }
     }
   }

@@ -7,6 +7,11 @@ arch's smoke config with random weights; prompts are ragged (4 ..
 --prompt-len tokens), and with --prefix every prompt opens with a shared
 --shared-prefix-len system prompt whose KV pages are prefilled once.
 
+With `--arch gemma3-27b` the stack has a global and a windowed layer
+group; `--prefill-chunk` and `--group-pool auto` bound the windowed
+group's pages, and the summary prints each group's drawn and
+window-retired pages.
+
 --quantize converts the projection weights to PIM bit-plane weights
 (--bits, --group) before serving, as the reference launcher does, and
 prints the packed fraction of the parameter bytes.
@@ -140,6 +145,18 @@ def main(argv=None):
           f"window-retired: {pc.pages_retired}")
     print(f"  kv pool dtype: {pc.kv_dtype}, "
           f"page-layer bytes: {pc.page_layer_bytes}")
+    if len(pc.pools) > 1:            # layer groups by attention pattern
+        for p in pc.pools:
+            kind = "global" if p.window is None else f"window={p.window}"
+            bound = ("" if p.live_bound is None
+                     else f", live-bound {p.live_bound} blocks/slot")
+            print(f"  group {p.gid} ({kind}, {len(p.layers)} layers, "
+                  f"pool {p.n_blocks - 1} pages{bound}): "
+                  f"{p.pages_allocated} pages drawn, "
+                  f"window-retired {p.pages_retired}, {p.cow_events} COW")
+        print(f"  page bytes: peak resident "
+              f"{pc.peak_resident_page_bytes()}, provisioned "
+              f"{pc.provisioned_page_bytes()}")
     if args.prefix:
         ix = batcher.prefix
         print(f"  prefix index: {ix.hits}/{ix.lookups} hits, "

@@ -35,22 +35,26 @@ def _select_bucket_plan(call, bucket_plans, bucket_perms, plan_class):
 
 def init_attention(d_model: int, n_heads: int, n_kv_heads: int,
                    head_dim: int, qkv_bias: bool, generator, device,
-                   dtype=torch.float32) -> Params:
+                   dtype=torch.float32, out=None) -> Params:
+    """`out`: preallocated leaves to fill instead of new tensors."""
+    def o(name):
+        return None if out is None else out[name]
     p: Params = {
         "wq": dense_init(d_model, n_heads * head_dim, generator, device,
-                         dtype),
+                         dtype, o("wq")),
         "wk": dense_init(d_model, n_kv_heads * head_dim, generator, device,
-                         dtype),
+                         dtype, o("wk")),
         "wv": dense_init(d_model, n_kv_heads * head_dim, generator, device,
-                         dtype),
+                         dtype, o("wv")),
         "wo": dense_init(n_heads * head_dim, d_model, generator, device,
-                         dtype),
+                         dtype, o("wo")),
     }
     if qkv_bias:
         for name, width in (("bq", n_heads), ("bk", n_kv_heads),
                             ("bv", n_kv_heads)):
-            p[name] = torch.zeros((width * head_dim,), dtype=dtype,
-                                  device=device)
+            p[name] = (torch.zeros((width * head_dim,), dtype=dtype,
+                                   device=device)
+                       if out is None else out[name].zero_())
     return p
 
 

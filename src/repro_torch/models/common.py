@@ -39,13 +39,16 @@ def resolve_device(device) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def dense_init(fan_in: int, fan_out: int, generator: torch.Generator,
-               device, dtype=torch.float32) -> torch.Tensor:
-    """Truncated-normal fan-in init: stddev 1/sqrt(fan_in), cut at ±3σ."""
+               device, dtype=torch.float32, out=None) -> torch.Tensor:
+    """Truncated-normal fan-in init: stddev 1/sqrt(fan_in), cut at ±3σ.
+    Drawn in f32, then cast to `dtype` — or copied, with the same
+    rounding, into `out`, a preallocated view such as one layer of a
+    stacked `[L, ...]` leaf."""
     w = torch.empty((fan_in, fan_out), dtype=torch.float32, device=device)
     std = 1.0 / math.sqrt(fan_in)
     torch.nn.init.trunc_normal_(w, 0.0, std, -3.0 * std, 3.0 * std,
                                 generator=generator)
-    return w.to(dtype)
+    return w.to(dtype) if out is None else out.copy_(w)
 
 
 def embed_init(vocab: int, dim: int, generator: torch.Generator, device,
@@ -59,7 +62,9 @@ def embed_init(vocab: int, dim: int, generator: torch.Generator, device,
 # norms
 # ---------------------------------------------------------------------------
 
-def rmsnorm_params(dim: int, device) -> Params:
+def rmsnorm_params(dim: int, device, out=None) -> Params:
+    if out is not None:
+        return {"g": out["g"].fill_(1.0)}
     return {"g": torch.ones((dim,), dtype=torch.float32, device=device)}
 
 

@@ -15,11 +15,16 @@ from .common import ACTS, Params, dense_init
 
 
 def init_swiglu(d_model: int, d_ff: int, generator, device,
-                dtype=torch.float32) -> Params:
+                dtype=torch.float32, out=None) -> Params:
+    """`out`: preallocated leaves to fill instead of new tensors."""
+    def o(name):
+        return None if out is None else out[name]
     return {
-        "w_gate": dense_init(d_model, d_ff, generator, device, dtype),
-        "w_up": dense_init(d_model, d_ff, generator, device, dtype),
-        "w_down": dense_init(d_ff, d_model, generator, device, dtype),
+        "w_gate": dense_init(d_model, d_ff, generator, device, dtype,
+                             o("w_gate")),
+        "w_up": dense_init(d_model, d_ff, generator, device, dtype, o("w_up")),
+        "w_down": dense_init(d_ff, d_model, generator, device, dtype,
+                             o("w_down")),
     }
 
 

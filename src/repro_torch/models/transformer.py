@@ -44,23 +44,31 @@ def _check_supported(cfg: ModelConfig) -> None:
 # init
 # ---------------------------------------------------------------------------
 
-def init_layer(cfg: ModelConfig, generator, device, dtype) -> Params:
+def init_layer(cfg: ModelConfig, generator, device, dtype,
+               out: Optional[Params] = None) -> Params:
+    """One layer's parameters, drawn from `generator` in a fixed order.
+    With `out` (a tree of preallocated tensors of the same shapes, e.g.
+    `layer_params(stacked, l)`) the draws are written into it in place."""
+    def o(name):
+        return None if out is None else out[name]
     return {
-        "ln1": rmsnorm_params(cfg.d_model, device),
+        "ln1": rmsnorm_params(cfg.d_model, device, o("ln1")),
         "attn": init_attention(
             cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.qkv_bias,
-            generator, device, dtype,
+            generator, device, dtype, o("attn"),
         ),
-        "ln2": rmsnorm_params(cfg.d_model, device),
-        "mlp": init_swiglu(cfg.d_model, cfg.d_ff, generator, device, dtype),
+        "ln2": rmsnorm_params(cfg.d_model, device, o("ln2")),
+        "mlp": init_swiglu(cfg.d_model, cfg.d_ff, generator, device, dtype,
+                           o("mlp")),
     }
 
 
-def _stack(trees: List[Params]) -> Params:
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _empty_stack(tree: Params, n: int, device) -> Params:
+    """Uninitialised `[n, ...]` leaves shaped like `tree`'s."""
+    if isinstance(tree, dict):
+        return {k: _empty_stack(v, n, device) for k, v in tree.items()}
+    return torch.empty((n,) + tuple(tree.shape), dtype=tree.dtype,
+                       device=device)
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator,
@@ -69,15 +77,23 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     (truncated-normal fan-in projections, N(0, 0.02) embeddings, zero
     biases, unit norm gains), drawn from `generator` — which must live
     on `device`. Weights are stored in the compute dtype, norm gains in
-    f32 (the same once-cast `bridge.params_from_jax` applies)."""
+    f32 (the same once-cast `bridge.params_from_jax` applies).
+
+    Each stacked `[L, ...]` leaf is allocated once and filled layer by
+    layer (draws in layer order, then the embedding), so the device
+    holds the model plus one f32 draw at a time — never a second copy
+    of the layer stack."""
     cfg.validate()
     _check_supported(cfg)
     dev = resolve_device(device)
     dt = compute_dtype(cfg.dtype)
-    layers = [init_layer(cfg, generator, dev, dt) for _ in range(cfg.n_layers)]
+    shapes = init_layer(cfg, None, torch.device("meta"), dt)
+    layers = _empty_stack(shapes, cfg.n_layers, dev)
+    for l in range(cfg.n_layers):
+        init_layer(cfg, generator, dev, dt, out=layer_params(layers, l))
     params: Params = {
         "embed": embed_init(cfg.vocab_size, cfg.d_model, generator, dev, dt),
-        "layers": _stack(layers),
+        "layers": layers,
         "final_norm": rmsnorm_params(cfg.d_model, dev),
     }
     if not cfg.tie_embeddings:

@@ -86,6 +86,10 @@ class LayerPagePool:
         self.pages_allocated = 0
         self.cow_events = 0
         self.pages_retired = 0
+        #: high-water mark of simultaneously allocated pages, updated at
+        #: draw time — per-tick sampling would miss a single-shot
+        #: prefill's transient that retires within the same tick
+        self.peak_allocated = 0
 
     # -- small accessors ---------------------------------------------------
 
@@ -95,6 +99,16 @@ class LayerPagePool:
 
     def refcount(self, page: int) -> int:
         return self._ref.get(page, 0)
+
+    def live_pages(self, slot: int) -> int:
+        return sum(1 for p in self._owned[slot] if p is not None)
+
+    def allocated_pages(self) -> int:
+        return len(self._ref)
+
+    def extra_refs(self) -> int:
+        """References beyond the first, summed over allocated pages."""
+        return sum(r - 1 for r in self._ref.values())
 
     def available_blocks(self) -> int:
         outstanding = sum(
@@ -114,6 +128,8 @@ class LayerPagePool:
         self._ref[b] = 1
         self._drawn[slot] += 1
         self.pages_allocated += 1
+        if len(self._ref) > self.peak_allocated:
+            self.peak_allocated = len(self._ref)
         return b
 
     def retain(self, page: int) -> None:
@@ -140,6 +156,12 @@ class LayerPagePool:
         if self.retire_window is None:
             return 0
         return max(0, (q_min - self.retire_window + 1) // self.block_size)
+
+    def first_live_block(self, q_min: int) -> int:
+        """Index of the first block a kernel walk must visit when the
+        earliest remaining query sits at `q_min` (the dead leading block
+        count)."""
+        return self.dead_blocks(q_min)
 
     def retire(self, slot: int, q_min: int) -> int:
         """Window-aware page retirement (DESIGN.md §12): release every
@@ -765,3 +787,43 @@ class PagedKVCache:
         if self.quantized:
             data += 2 * kvh * self.k_scales.element_size()
         return data
+
+    def resident_page_bytes(self) -> int:
+        """KV bytes pinned right now: each group's allocated pages occupy
+        that group's layer rows only."""
+        plb = self.page_layer_bytes
+        return sum(
+            len(p.layers) * p.allocated_pages() * plb for p in self.pools
+        )
+
+    def peak_resident_page_bytes(self) -> int:
+        """High-water mark of `resident_page_bytes` over the cache's
+        lifetime, per group at draw time — so it catches a single-shot
+        long prefill that allocates its whole windowed table and retires
+        most of it within one tick."""
+        plb = self.page_layer_bytes
+        return sum(
+            len(p.layers) * p.peak_allocated * plb for p in self.pools
+        )
+
+    def provisioned_page_bytes(self) -> int:
+        """KV capacity provisioned (pool budget, not residency): each
+        group's non-scratch page budget times its layer rows."""
+        plb = self.page_layer_bytes
+        return sum(
+            len(p.layers) * (p.n_blocks - 1) * plb for p in self.pools
+        )
+
+    def lockstep_equiv_page_bytes(self) -> int:
+        """What the same logical state would pin if one logical page
+        occupied a row in every layer's pool. A non-retiring group never
+        retires or skips, so its allocation count is the logical page
+        count; with no such group (an all-windowed stack with retirement
+        on) this falls back to the largest group's count, a lower
+        bound."""
+        plb = self.page_layer_bytes
+        anchors = [p for p in self.pools if p.retire_window is None]
+        logical = max(
+            p.allocated_pages() for p in (anchors or self.pools)
+        )
+        return self.k_pages.shape[0] * logical * plb

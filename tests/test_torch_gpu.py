@@ -477,3 +477,133 @@ def test_decode_kernel_ragged_shapes(cuda_device, H, KV, hd, bs, kind):
         assert torch.isfinite(out).all()
         err = float((out - plain).abs()[valid].max())
         assert err <= 1e-4, (H, KV, hd, bs, kind, window, err)
+
+
+# gemma3-27b's heads and pages: 32 query heads over 16 KV heads (g = 2),
+# hd 128, 16-token pages, a 1024-token window; 212 columns of table is
+# the full-width drain's (3392 tokens of capacity)
+G3_H, G3_KV, G3_HD, G3_BS, G3_MB, G3_WINDOW = 32, 16, 128, 16, 212, 1024
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_gemma3_decode_bucketed_and_bounded_walks_equal_single(cuda_device,
+                                                               kind):
+    """K1 at g = 2 over 8 slots on the windowed layers' table (walks from
+    each slot's first live block) and the global layers' (from 0): within
+    1e-4 of the plain version, and bucketed and depth-bounded launches
+    equal the single launch bit for bit."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    lengths = [1, 300, 1023, 1024, 1025, 2000, 3000, 3136]
+    q, tk, tv, bt, ln, sc = _decode_case(
+        gen, dev, kind, torch.bfloat16, lengths, G3_MB, H=G3_H, KV=G3_KV,
+        hd=G3_HD, bs=G3_BS)
+    lens = np.asarray(lengths)
+    for window in (G3_WINDOW, G3_MB * G3_BS):
+        # a windowed group retires the blocks fully behind the query
+        start = np.maximum(lens - window, 0) // G3_BS
+        needs = np.maximum(-(-lens // G3_BS) - start, 1)
+        blk = torch.tensor(start, dtype=torch.int32, device=dev)
+        one = paged_attention.paged_decode_attention(
+            q, tk, tv, bt, ln, window, block_start=blk, **sc)
+        plain = ref.paged_attention_ref(q, tk, tv, bt, ln, window, **sc)
+        plan, perm = ops.make_bucket_plan(lens, G3_BS, G3_MB, needs=needs)
+        assert plan is not None
+        buck = paged_attention.paged_decode_attention_bucketed(
+            q, tk, tv, bt, ln, window, plan,
+            torch.tensor(perm, dtype=torch.int64, device=dev),
+            block_start=blk, **sc)
+        torch.cuda.synchronize()
+        err = float((one - plain).abs().max())
+        assert err <= 1e-4, (kind, window, err)
+        assert torch.equal(buck, one), (kind, window, plan)
+        deepest = int(needs.max())
+        for depth in sorted({deepest, min(deepest + 9, G3_MB)}):
+            bounded = paged_attention.paged_decode_attention(
+                q, tk, tv, bt, ln, window, block_start=blk, depth=depth, **sc)
+            torch.cuda.synchronize()
+            assert torch.equal(bounded, one), (kind, window, depth)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_gemma3_prefill_bucketed_and_bounded_walks_equal_single(cuda_device,
+                                                                kind):
+    """K2 at g = 2 on 512-token chunks (the drains' `prefill_chunk`) of
+    three slots starting at 0, 1024 and 2560, windowed and global: within
+    1e-4 of the plain version on valid rows, and bucketed and
+    depth-bounded launches from the first live block equal the single
+    launch bit for bit."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(12)
+    T = 512
+    q, tk, tv, bt, sc = _prefill_case(gen, dev, kind, torch.bfloat16, 3, T,
+                                      G3_H, G3_KV, G3_HD, G3_BS, G3_MB)
+    starts = np.asarray([0, 1024, 2560])
+    totals = starts + np.asarray([T, T, 300])
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    total = torch.tensor(totals, dtype=torch.int32, device=dev)
+    valid = _valid_rows(start, total, T)
+    for window in (G3_WINDOW, G3_MB * G3_BS):
+        first = np.maximum(starts - window + 1, 0) // G3_BS
+        needs = np.maximum(-(-totals // G3_BS) - first, 1)
+        blk = torch.tensor(first, dtype=torch.int32, device=dev)
+        one = paged_prefill.paged_prefill_attention(
+            q, tk, tv, bt, start, total, window, block_start=blk, **sc)
+        plain = ref.paged_prefill_ref(q, tk, tv, bt, start, total, window,
+                                      **sc)
+        plan, perm = ops.make_bucket_plan(totals, G3_BS, G3_MB, needs=needs)
+        assert plan is not None
+        buck = paged_prefill.paged_prefill_attention_bucketed(
+            q, tk, tv, bt, start, total, window, plan,
+            torch.tensor(perm, dtype=torch.int64, device=dev),
+            block_start=blk, **sc)
+        torch.cuda.synchronize()
+        err = float((one - plain).abs()[valid].max())
+        assert err <= 1e-4, (kind, window, err)
+        assert torch.equal(buck[valid], one[valid]), (kind, window, plan)
+        deepest = int(needs.max())
+        for depth in sorted({deepest, min(deepest + 9, G3_MB)}):
+            bounded = paged_prefill.paged_prefill_attention(
+                q, tk, tv, bt, start, total, window, block_start=blk,
+                depth=depth, **sc)
+            torch.cuda.synchronize()
+            assert torch.equal(bounded[valid], one[valid]), (kind, window,
+                                                             depth)
+
+
+#: gemma3-27b's projections: wk/wv, wq, wo, w_gate/w_up, w_down
+G3_MATRICES = [(5376, 2048), (5376, 4096), (4096, 5376), (5376, 21504),
+               (21504, 5376)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,m", G3_MATRICES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bitplane_kernels_gemma3_shapes(cuda_device, k, m, dtype):
+    """K3 (8 and 512 rows) and K4 (768 rows) at K8 = 672, 512 and 2688
+    and M up to 21504: within 1e-5 of max|raw| of the plain contraction,
+    and K3's rows of an 8-row launch equal those of the 512-row one bit
+    for bit."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(13)
+    w = torch.randn((k, m), generator=gen, device=dev)
+    planes, _ = ops.quantize_and_pack(w, 8, 1, "cuda")
+    u = ref.offset_form_ref(planes, 1).float()
+    del w
+    x = torch.randn((768, k), generator=gen, device=dev).to(dtype)
+    raws = {}
+    for b, mod, fn in ((768, bitplane_gemm, bitplane_gemm.bitplane_gemm),
+                       (512, bitplane_gemv, bitplane_gemv.bitplane_gemv),
+                       (8, bitplane_gemv, bitplane_gemv.bitplane_gemv)):
+        x_r = ref.prepare_x_ref(x[:b], 1).contiguous()
+        before = mod.LAUNCHES
+        raws[b] = fn(x_r, planes, n_bits=8, group=1)
+        assert mod.LAUNCHES == before + 1
+    plain = x.float() @ u
+    torch.cuda.synchronize()
+    for b, raw in raws.items():
+        err = float((raw - plain[:b]).abs().max() / plain[:b].abs().max())
+        assert err <= 1e-5, (k, m, dtype, b, err)
+    assert torch.equal(raws[512][:8], raws[8])

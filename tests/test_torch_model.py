@@ -171,3 +171,31 @@ def test_port_init_lm_shapes_and_scales():
     assert abs(float(tp["embed"].float().std()) - 0.02) < 0.004
     again = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert torch.equal(again["embed"], tp["embed"])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-27b"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_init_lm_equals_stacked_per_layer_draws(arch, dtype):
+    """`init_lm` fills preallocated `[L, ...]` leaves layer by layer; it
+    returns exactly what drawing each layer's tree in turn from the same
+    generator and stacking them gives (then the embedding), bit for bit."""
+    from repro_torch.models.common import compute_dtype, embed_init
+    from repro_torch.models.transformer import init_layer
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+    got = init_lm(cfg, torch.Generator().manual_seed(3), device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    dt = compute_dtype(dtype)
+    layers = [init_layer(cfg, gen, "cpu", dt) for _ in range(cfg.n_layers)]
+    want = {
+        "layers": jax.tree.map(lambda *xs: torch.stack(xs), *layers),
+        "embed": embed_init(cfg.vocab_size, cfg.d_model, gen, "cpu", dt),
+    }
+    got_leaves = jax.tree.leaves_with_path(got)
+    want_leaves = dict(jax.tree.leaves_with_path(want))
+    assert len(got_leaves) == len(want_leaves) + 1      # + final_norm
+    for path, x in got_leaves:
+        if path in want_leaves:
+            y = want_leaves[path]
+            assert x.dtype == y.dtype and torch.equal(x, y), path
+    assert torch.equal(got["final_norm"]["g"], torch.ones(cfg.d_model))

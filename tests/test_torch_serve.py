@@ -53,11 +53,13 @@ from repro_torch.serve import (
 from repro_torch.serve.compiled import trace_count
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg = dataclasses.replace(j_get_config("qwen2-1.5b", smoke=True),
+@pytest.fixture(scope="module", params=["qwen2-1.5b", "gemma3-27b"])
+def models(request):
+    """One global layer group (qwen2) and two, one of them windowed
+    (gemma3: window 8, whose pages retire on these traces)."""
+    jcfg = dataclasses.replace(j_get_config(request.param, smoke=True),
                                dtype="float32")
-    cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
+    cfg = dataclasses.replace(get_config(request.param, smoke=True),
                               dtype="float32")
     jp = j_init_lm(jax.random.PRNGKey(0), jcfg)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
@@ -318,8 +320,11 @@ def test_eos_stops_slot_and_frees_pages_the_same_tick(models, trace,
     the tick it is emitted, while other slots still decode."""
     _, _, cfg, tp = models
     base = single_shot[0]
-    eos = base[0][3]
-    stop0 = base[0].index(eos)
+    # an EOS that request 0 first emits in decode (from its 4th token
+    # on), not at prefill, so it finishes mid-drain with its slot busy
+    stop0 = next(j for j in range(3, NEW_TOKENS)
+                 if base[0].index(base[0][j]) == j)
+    eos = base[0][stop0]
     cb = ContinuousBatcher(cfg, tp, n_slots=N_SLOTS,
                            cache_len=MAX_PROMPT + NEW_TOKENS + 2, paged=True,
                            block_size=BLOCK, eos_token=eos, device="cpu")
