@@ -52,10 +52,30 @@ group that retires pages. Phases, one line each:
                q [1, 512, 32, 128] from start 1024 with the window, K3
                at [8, 5376] -> 21504 and [8, 21504] -> 5376, K4 at
                [768, 5376] -> 21504
+     init      qwen2-1.5b at full width, after a sync (the wait is
+               printed): the process's first meta-device shape pass timed
+               alone (and the modules it imports), then `init_lm`
   6. serve     qwen2-1.5b, bf16: 8 slots, 16 requests, each a shared
                256-token system prompt plus a 64..768-token suffix, 64
                new tokens, prefix index on; the K1/K2 launch counts of
-               this run must be > 0
+               this run must be > 0, and with no telemetry attached the
+               drain must not touch a metric (`obs.mutation_count()`)
+     telemetry the same drain once more with an `obs.ServeTelemetry` on
+               the host clock: tokens, ticks, prefill tokens and pages
+               equal the telemetry-off drain's; `serve_ticks` and
+               `serve_prefill_tokens` equal them, 16 requests finished,
+               first tokens plus `serve_decode_tokens` equal the tokens
+               out, the perf model's error is 0 with bucketed plans among
+               the launches, and the watcher saw every new step
+               signature; TTFT, TPOT and queue-delay percentiles,
+               streamed bytes, the roofline time at the H100 and the
+               walls with telemetry on and off
+     annotations  a short qwen2 drain (4 requests, 8 new tokens) with
+               `profile=True` under `torch.profiler`: one
+               `serve/paged_decode` range per decode launch, one
+               `serve/paged_prefill` range per prefill launch,
+               `paged_bucket_d*x*` ranges, and every K1 / K2 kernel the
+               card ran launched from inside a decode / prefill range
   7. serve     the same trace with int8 KV pools
   8. serve     the --quantize path: `ServeEngine.quantize` to 8-bit,
                g = 1 PIM bit-plane weights (K5 packs every projection
@@ -74,6 +94,11 @@ group that retires pages. Phases, one line each:
                K1/K2 launched, pages retired in the windowed group only,
                every group's pool whole again, prefix hits > 0
  13. serve     the same with int8 KV pools
+     telemetry the bf16-KV drain once more with telemetry: tokens and
+               schedule equal phase 12's, `pool_pages_retired` 0 / 832 by
+               group, the tick peak of `pool_resident_bytes` and of
+               `pool_lockstep_equiv_bytes` equal phase 12's per-tick
+               peaks, the perf model's error 0 with both groups' plans
  14. parity    gemma3-27b in f32 with 6 layers (one whole 5:1 pattern),
                prompts of 1100..1300 tokens: kernels == plain versions
                and 512-token chunks (auto-sized groups) == single-shot
@@ -784,14 +809,18 @@ def drain(cfg, params, prompts, new_tokens, n_slots, cache_len, dev,
         peaks["lockstep"] = max(peaks["lockstep"],
                                 pc.lockstep_equiv_page_bytes())
 
+    from repro_torch.obs import mutation_count
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     if reset:
         reset_launches()
+    mutations = mutation_count()
     t0 = time.perf_counter()
     results = cb.run_until_drained(on_tick=on_tick)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    mutations = mutation_count() - mutations
     launches = read_launches()
     pc = cb.pcache
     index_refs = {} if cb.prefix is None else cb.prefix.page_refs()
@@ -813,6 +842,7 @@ def drain(cfg, params, prompts, new_tokens, n_slots, cache_len, dev,
         tick_peak_resident_page_bytes=peaks["resident"],
         tick_peak_lockstep_equiv_page_bytes=peaks["lockstep"],
         max_memory_allocated=torch.cuda.max_memory_allocated(),
+        metric_mutations=mutations,
         **{f"launches_{k}": v for k, v in launches.items() if v},
     )
     return results, stats, launches
@@ -839,9 +869,11 @@ def serve_full_width(cfg, params, dev, kv_dtype, weights="bf16",
     check(stats["prefix_hits"] > 0, f"{tag}: no prefix hit")
     check(stats["pools_whole"], f"{tag}: a page is still held after the "
                                 "drain")
+    check(stats["metric_mutations"] == 0,
+          f"{tag}: the telemetry-off drain touched a metric")
     say("serve", model=cfg.name, kv_dtype=kv_dtype, weights=weights,
         **extra, **stats)
-    return launches
+    return launches, results, stats
 
 
 def quantize_params(cfg, params, n_bits=8, group=1):
@@ -875,7 +907,172 @@ def serve_quantized(cfg, qparams, frac, seconds, dev):
     return serve_full_width(
         cfg, qparams, dev, "bf16", weights="pim8", reset=False,
         required=tuple(kernel_modules()), packed_fraction=frac,
-        quantize_s=seconds)
+        quantize_s=seconds)[0]
+
+
+def telemetry_drain(cfg, params, dev, off_results, off_stats, tag, **kw):
+    """The drain of `off_results` once more with an `obs.ServeTelemetry`
+    on the host clock (the counts set to 0 before it, read after). The
+    tokens and the schedule must equal the telemetry-off drain's, K1/K2
+    must launch, the perf model must predict every launch exactly, and
+    the watcher must see every new step signature. Returns the telemetry
+    and the drain's stats."""
+    from repro_torch.obs import ServeTelemetry
+    from repro_torch.serve.compiled import trace_count
+
+    tel = ServeTelemetry()
+    signatures = trace_count()
+    results, stats, launches = drain(cfg, params, dev=dev, telemetry=tel,
+                                     **kw)
+    signatures = trace_count() - signatures
+    tel.close()
+    r = tel.registry
+    perf = tel.perf.summary()
+    n_tok = sum(len(v) for v in results.values())
+    check(results == off_results,
+          f"{tag}: tokens with telemetry differ from tokens without")
+    for key in ("ticks", "prefill_tokens", "pages_allocated",
+                "retired_by_group"):
+        check(stats[key] == off_stats[key],
+              f"{tag}: {key} {stats[key]} != {off_stats[key]} without "
+              "telemetry")
+    check(launches["paged_decode"] > 0 and launches["paged_prefill"] > 0,
+          f"{tag}: K1/K2 not launched: {launches}")
+    check(r.counter("serve_requests_finished").value == len(off_results),
+          f"{tag}: finished {r.counter('serve_requests_finished').value}")
+    check(r.counter("serve_prefill_tokens").value == stats["prefill_tokens"],
+          f"{tag}: serve_prefill_tokens != prefill tokens")
+    check(len(tel.events.of("first_token"))
+          + r.counter("serve_decode_tokens").value == n_tok,
+          f"{tag}: first tokens + decode tokens != tokens out")
+    check(perf["model_error_max"] == 0.0,
+          f"{tag}: perf model error {perf['model_error_max']}")
+    check(any(plans is not None for _, plans, _, _ in tel.perf.launch_log),
+          f"{tag}: no bucketed plan was accounted")
+    check(tel.compile_watcher().total == signatures,
+          f"{tag}: watcher saw {tel.compile_watcher().total} signatures, "
+          f"trace_count moved {signatures}")
+    check(sum(tel.tick_streamed_bytes) == tel.streamed_bytes_total,
+          f"{tag}: per-tick streamed bytes do not sum to the total")
+    return tel, stats
+
+
+def latency_fields(tel) -> dict:
+    out = {}
+    for key, s in tel.latency_summary().items():
+        if key == "e2e_s":
+            continue
+        for q in ("p50", "p90", "p99"):
+            out[f"{key[:-2]}_{q}_s"] = s[q]
+    return out
+
+
+def qwen2_telemetry(cfg, params, dev, off_results, off_stats):
+    """The full-width bf16-KV trace of phase 6 with telemetry attached."""
+    prompts = serving_trace(cfg.vocab_size, 16, 256, 64, 768, SEED)
+    tag = "qwen2 telemetry"
+    tel, stats = telemetry_drain(
+        cfg, params, dev, off_results, off_stats, tag, prompts=prompts,
+        new_tokens=64, n_slots=8, cache_len=256 + 768 + 64,
+        prefix=True, bucket_strategy="pow2", kernel_impl="auto",
+        kv_dtype="bf16")
+    r = tel.registry
+    check(r.counter("serve_ticks").value == stats["ticks"],
+          f"{tag}: serve_ticks {r.counter('serve_ticks').value} != "
+          f"{stats['ticks']}")
+    check(r.counter("serve_requests_finished").value == 16,
+          f"{tag}: not 16 requests finished")
+    perf = tel.perf.summary()
+    say("telemetry", model=cfg.name, layers=cfg.n_layers,
+        requests=r.counter("serve_requests_finished").value,
+        ticks=r.counter("serve_ticks").value,
+        **latency_fields(tel),
+        streamed_bytes=tel.streamed_bytes_total,
+        roofline_total_s=perf["roofline_total_s"], chip=perf["chip"],
+        model_error_max=perf["model_error_max"],
+        recompiles=tel.compile_watcher().total,
+        events=len(tel.events), wall_on_s=stats["wall_s"],
+        wall_off_s=off_stats["wall_s"],
+        launches_on=f"{stats.get('launches_paged_decode')}/"
+                    f"{stats.get('launches_paged_prefill')}")
+
+
+def qwen2_annotations(cfg, params, dev):
+    """A short drain with `profile=True` under `torch.profiler`: the step
+    and bucket ranges are in the trace, one step range per launch, and
+    every K1 / K2 kernel was launched from inside a decode / prefill
+    range (matched through the launch's correlation id)."""
+    from repro_torch.obs import ServeTelemetry
+    from repro_torch.serve import ContinuousBatcher, Request
+    from torch.profiler import ProfilerActivity
+
+    prompts = serving_trace(cfg.vocab_size, 4, 256, 64, 768, SEED + 7)
+    tel = ServeTelemetry(profile=True)
+    cb = ContinuousBatcher(cfg, params, n_slots=8, cache_len=256 + 768 + 8,
+                           paged=True, block_size=BS, prefix=True,
+                           telemetry=tel, device=dev)
+    for uid, p in enumerate(prompts):
+        cb.submit(Request(uid=uid, prompt=p, max_new_tokens=8))
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        cb.run_until_drained()
+        torch.cuda.synchronize()
+    launched = read_launches()
+    path = ROOT / "build" / "annotations_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    ranges, launches, kernels = {}, {}, {"paged_decode": [],
+                                         "paged_prefill": []}
+    for e in events:
+        cat, name = e.get("cat"), e.get("name", "")
+        corr = (e.get("args") or {}).get("correlation")
+        if cat == "user_annotation":
+            ranges.setdefault(name, []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))))
+        elif cat in ("cuda_runtime", "cuda_driver") and corr is not None:
+            launches[corr] = float(e["ts"])
+        elif cat == "kernel":
+            for k in kernels:
+                if f"{k}_kernel" in name:
+                    kernels[k].append(corr)
+    count = tel.registry.counter
+    n_decode = count("kernel_launches", {"kind": "decode"}).value
+    n_prefill = count("kernel_launches", {"kind": "prefill"}).value
+    buckets = {n: len(v) for n, v in ranges.items()
+               if n.startswith("paged_bucket_d")}
+
+    def inside(corr, names):
+        ts = launches.get(corr)
+        return ts is not None and any(
+            lo <= ts <= hi for n in names for lo, hi in ranges.get(n, ()))
+
+    check(len(ranges.get("serve/paged_decode", ())) == n_decode > 0,
+          f"annotations: {len(ranges.get('serve/paged_decode', ()))} "
+          f"serve/paged_decode ranges for {n_decode} decode launches")
+    check(len(ranges.get("serve/paged_prefill", ())) == n_prefill > 0,
+          f"annotations: {len(ranges.get('serve/paged_prefill', ()))} "
+          f"serve/paged_prefill ranges for {n_prefill} prefill launches")
+    check(sum(buckets.values()) > 0, "annotations: no paged_bucket range")
+    for k, step in (("paged_decode", "serve/paged_decode"),
+                    ("paged_prefill", "serve/paged_prefill")):
+        check(len(kernels[k]) == launched[k] > 0,
+              f"annotations: {len(kernels[k])} {k} kernels in the trace, "
+              f"{launched[k]} launches counted")
+        check(all(inside(c, (step,)) for c in kernels[k]),
+              f"annotations: a {k} kernel was launched outside {step}")
+    in_bucket = sum(inside(c, tuple(buckets)) for k in kernels
+                    for c in kernels[k])
+    check(in_bucket > 0, "annotations: no kernel launched inside a bucket "
+                         "range")
+    say("annotations", model=cfg.name, requests=len(prompts),
+        decode_ranges=n_decode, prefill_ranges=n_prefill,
+        bucket_ranges=json.dumps(buckets, sort_keys=True).replace(" ", ""),
+        k1_kernels=len(kernels["paged_decode"]),
+        k2_kernels=len(kernels["paged_prefill"]),
+        kernels_in_bucket_ranges=in_bucket)
 
 
 def token_parity(dev, cfg, prompts, new_tokens, cache_len, chunk,
@@ -946,7 +1143,7 @@ G3_SHARED, G3_SUFFIX, G3_NEW, G3_CHUNK = 256, (768, 2816), 64, 512
 G3_CACHE_LEN = G3_SHARED + G3_SUFFIX[1] + G3_NEW + 256
 
 
-def gemma3_serve(cfg, params, dev, kv_dtype):
+def gemma3_serve(cfg, params, dev, kv_dtype, **kw):
     """One full-width gemma3 drain: 16 requests, 8 slots, prefix index,
     pow2 bucketing, chunked prefill with auto-sized groups. K1 and K2
     must launch, pages must retire in the windowed group and nowhere
@@ -956,7 +1153,7 @@ def gemma3_serve(cfg, params, dev, kv_dtype):
     results, stats, launches = drain(
         cfg, params, prompts, G3_NEW, 8, G3_CACHE_LEN, dev, prefix=True,
         bucket_strategy="pow2", kernel_impl="auto", kv_dtype=kv_dtype,
-        prefill_chunk=G3_CHUNK, group_blocks="auto")
+        prefill_chunk=G3_CHUNK, group_blocks="auto", **kw)
     check(stats["requests"] == 16, f"{tag}: not every request finished")
     check(all(len(v) == G3_NEW for v in results.values()),
           f"{tag}: a request stopped short")
@@ -972,10 +1169,12 @@ def gemma3_serve(cfg, params, dev, kv_dtype):
     check(stats["pools_whole"], f"{tag}: a page is still held after the "
                                 "drain")
     check(stats["prefix_hits"] > 0, f"{tag}: no prefix hit")
+    check(stats["metric_mutations"] == 0,
+          f"{tag}: the telemetry-off drain touched a metric")
     say("serve", model=cfg.name, kv_dtype=kv_dtype, weights="bf16",
         prompt_lens=f"{min(map(len, prompts))}..{max(map(len, prompts))}",
         chunk=G3_CHUNK, **stats)
-    return launches
+    return launches, results, stats
 
 
 def gemma3_full_width(dev):
@@ -996,12 +1195,56 @@ def gemma3_full_width(dev):
         param_bytes=param_bytes, seconds=time.perf_counter() - t0,
         max_memory_allocated=torch.cuda.max_memory_allocated())
     check(cfg.n_layers == 62 and cfg.d_model == 5376, "gemma3 cut in width")
-    out = {}
+    out, off = {}, {}
     for kv_dtype in ("bf16", "int8"):
-        out[kv_dtype] = gemma3_serve(cfg, params, dev, kv_dtype)
+        out[kv_dtype], *off[kv_dtype] = gemma3_serve(cfg, params, dev,
+                                                     kv_dtype)
+    gemma3_telemetry(cfg, params, dev, *off["bf16"])
     del params
     torch.cuda.empty_cache()
     return out
+
+
+def gemma3_telemetry(cfg, params, dev, off_results, off_stats):
+    """The 62-layer bf16-KV drain of phase 12 with telemetry attached:
+    per-group retirement and residency gauges against phase 12's
+    readings, the perf model exact with both groups' plans."""
+    prompts = serving_trace(cfg.vocab_size, 16, G3_SHARED, *G3_SUFFIX, SEED)
+    tag = "gemma3 telemetry"
+    tel, stats = telemetry_drain(
+        cfg, params, dev, off_results, off_stats, tag, prompts=prompts,
+        new_tokens=G3_NEW, n_slots=8, cache_len=G3_CACHE_LEN,
+        prefix=True, bucket_strategy="pow2", kernel_impl="auto",
+        kv_dtype="bf16", prefill_chunk=G3_CHUNK, group_blocks="auto")
+    r = tel.registry
+    retired = [r.gauge("pool_pages_retired", {"group": g}).value
+               for g in (0, 1)]
+    resident = r.gauge("pool_resident_bytes").max
+    lockstep = r.gauge("pool_lockstep_equiv_bytes").max
+    check(retired == off_stats["retired_by_group"] == [0, 832],
+          f"{tag}: pages retired by group {retired}, "
+          f"{off_stats['retired_by_group']} without telemetry")
+    check(resident == off_stats["tick_peak_resident_page_bytes"],
+          f"{tag}: tick peak of pool_resident_bytes {resident} != "
+          f"{off_stats['tick_peak_resident_page_bytes']}")
+    check(lockstep == off_stats["tick_peak_lockstep_equiv_page_bytes"],
+          f"{tag}: tick peak of pool_lockstep_equiv_bytes {lockstep} != "
+          f"{off_stats['tick_peak_lockstep_equiv_page_bytes']}")
+    check(any(plans is not None and len(plans) == 2
+              and all(p is not None for p in plans)
+              for _, plans, _, _ in tel.perf.launch_log),
+          f"{tag}: no launch with both groups' plans")
+    perf = tel.perf.summary()
+    say("telemetry", model=cfg.name, layers=cfg.n_layers,
+        requests=r.counter("serve_requests_finished").value,
+        ticks=r.counter("serve_ticks").value, **latency_fields(tel),
+        streamed_bytes=tel.streamed_bytes_total,
+        roofline_total_s=perf["roofline_total_s"], chip=perf["chip"],
+        model_error_max=perf["model_error_max"],
+        retired_by_group=retired, tick_peak_resident_bytes=resident,
+        tick_peak_lockstep_equiv_bytes=lockstep,
+        recompiles=tel.compile_watcher().total, events=len(tel.events),
+        wall_on_s=stats["wall_s"], wall_off_s=off_stats["wall_s"])
 
 
 def gemma3_parity(dev):
@@ -1104,16 +1347,35 @@ def main() -> int:
     times.update(bitplane_timings(dev))
 
     cfg = get_config("qwen2-1.5b")
+    # the timings' queued work is not init's: wait for it first, and say
+    # how long that took
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    queued_s = time.perf_counter() - t0
+    # init_lm's shape pass on the meta device, timed alone: the first
+    # meta-device op of a process is where the init's time goes
+    from repro_torch.models.common import compute_dtype
+    from repro_torch.models.transformer import init_layer
+    modules = len(sys.modules)
+    t0 = time.perf_counter()
+    init_layer(cfg, None, torch.device("meta"), compute_dtype(cfg.dtype))
+    meta_s = time.perf_counter() - t0
+    modules = len(sys.modules) - modules
     t0 = time.perf_counter()
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in _leaves(params))
     say("init", model=cfg.name, params=n_params,
-        seconds=time.perf_counter() - t0)
+        seconds=time.perf_counter() - t0, queued_before_s=queued_s,
+        first_meta_pass_s=meta_s, modules_imported_by_it=modules)
     by_path = {}
-    launches = by_path["qwen2-1.5b bf16 KV"] = serve_full_width(
-        cfg, params, dev, "bf16")
-    by_path["qwen2-1.5b int8 KV"] = serve_full_width(cfg, params, dev, "int8")
+    launches, off_results, off_stats = serve_full_width(cfg, params, dev,
+                                                        "bf16")
+    by_path["qwen2-1.5b bf16 KV"] = launches
+    qwen2_telemetry(cfg, params, dev, off_results, off_stats)
+    qwen2_annotations(cfg, params, dev)
+    by_path["qwen2-1.5b int8 KV"] = serve_full_width(cfg, params, dev,
+                                                     "int8")[0]
     reset_launches()
     qparams, frac, seconds = quantize_params(cfg, params)
     del params

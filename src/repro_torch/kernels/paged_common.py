@@ -11,13 +11,16 @@ What lives here:
     floats on the host side;
   * `check_quantized_operands`, the pool-dtype/scale pairing rule;
   * `bucketed_page_dispatch`, the gather/launch/scatter scaffold of the
-    length-bucketed dispatch;
+    length-bucketed dispatch, and `bucket_scopes`, which names each of
+    its bucket launches in the profiler timeline;
   * `check_kernel_operands` / `launch_kernel`, what both CUDA wrappers
     check and how they call into the built libraries.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 from typing import Callable, Dict, Optional, Sequence
 
@@ -96,6 +99,25 @@ def check_quantized_operands(k_pages, k_scales, v_scales) -> bool:
     return quantized
 
 
+#: True while an annotated serve step runs (`serve.compiled`,
+#: `annotate=True`): each bucket launch then runs inside a
+#: `record_function` range; otherwise no range is opened at all
+_BUCKET_SCOPES = contextvars.ContextVar("paged_bucket_scopes",
+                                        default=False)
+
+
+@contextlib.contextmanager
+def bucket_scopes():
+    """Name every bucket launch of the dispatches inside this block
+    `paged_bucket_d{bound}x{count}` in the profiler timeline (the
+    reference's per-bucket `named_scope`)."""
+    token = _BUCKET_SCOPES.set(True)
+    try:
+        yield
+    finally:
+        _BUCKET_SCOPES.reset(token)
+
+
 def bucketed_page_dispatch(
     launch: Callable, plan, perm: torch.Tensor, block_table: torch.Tensor,
     slot_operands: Sequence[torch.Tensor],
@@ -113,14 +135,20 @@ def bucketed_page_dispatch(
 
     The pages a bucket's bound cuts off are fully masked for every valid
     row and fold as exact no-ops, so the bucketed output is
-    bit-identical to the single launch on every valid row."""
+    bit-identical to the single launch on every valid row. Inside
+    `bucket_scopes()` each launch is a `paged_bucket_d{bound}x{count}`
+    profiler range."""
     b = block_table.shape[0]
     bt_ext = torch.cat([block_table, torch.zeros_like(block_table[:1])])
     ops_ext = [torch.cat([o, torch.zeros_like(o[:1])]) for o in slot_operands]
     outs, off = [], 0
     for bound, count in plan:
         idx = perm[off: off + count]
-        outs.append(launch(bound, bt_ext[idx], *[o[idx] for o in ops_ext]))
+        with (torch.profiler.record_function(f"paged_bucket_d{bound}x{count}")
+              if _BUCKET_SCOPES.get() else contextlib.nullcontext()):
+            outs.append(
+                launch(bound, bt_ext[idx], *[o[idx] for o in ops_ext])
+            )
         off += count
     res = torch.cat(outs)
     out_full = res.new_zeros((b + 1,) + tuple(res.shape[1:]))

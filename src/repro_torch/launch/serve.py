@@ -16,8 +16,17 @@ window-retired pages.
 (--bits, --group) before serving, as the reference launcher does, and
 prints the packed fraction of the parameter bytes.
 
-Only the paged cache is ported: running without --paged, or with
---metrics (or the flags that imply it), raises "not ported yet".
+--metrics attaches the serving telemetry (`obs.ServeTelemetry`) and
+prints the reference launcher's telemetry block after the run: TTFT,
+TPOT and queue-delay percentiles, streamed bytes, the perf model's
+per-phase attribution priced at the H100, step-signature counts and a
+Prometheus-style snapshot. --events-out PATH streams the JSON-lines
+event log to PATH (ending in `run_end`); --profile-annotations wraps the
+serve steps and bucket launches in `torch.profiler.record_function`
+ranges. Both imply --metrics.
+
+Only the paged cache is ported: running without --paged raises "not
+ported yet".
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import torch
 from ..configs import get_config
 from ..models import init_lm
 from ..models.common import resolve_device
+from ..obs import ServeTelemetry
 from ..quant.bitplane import PimQuantConfig
 from ..serve import ContinuousBatcher, Request, ServeConfig, ServeEngine
 
@@ -79,18 +89,20 @@ def main(argv=None):
                     choices=["uniform", "auto"])
     ap.add_argument("--no-window-retirement", action="store_true")
     ap.add_argument("--metrics", action="store_true",
-                    help="serving telemetry (not ported yet)")
+                    help="attach the serving telemetry: request-lifecycle "
+                         "traces, per-tick pool/kernel gauges, TTFT/TPOT "
+                         "percentiles; prints the run summary and a "
+                         "Prometheus-style snapshot")
     ap.add_argument("--events-out", default=None, metavar="PATH",
-                    help="event log (implies --metrics; not ported yet)")
+                    help="stream the structured JSON-lines event log to "
+                         "PATH (implies --metrics)")
     ap.add_argument("--profile-annotations", action="store_true",
-                    help="profiler annotations (implies --metrics; not "
-                         "ported yet)")
+                    help="wrap the serve steps and bucket launches in "
+                         "torch.profiler.record_function ranges (implies "
+                         "--metrics)")
     args = ap.parse_args(argv)
     if not args.paged:
         ap.error("the dense cache is not ported yet: pass --paged")
-    if args.metrics or args.events_out or args.profile_annotations:
-        ap.error("--metrics / --events-out / --profile-annotations are "
-                 "not ported yet")
     if args.group_pool == "auto" and not args.prefill_chunk:
         ap.error("--group-pool auto requires --prefill-chunk > 0")
 
@@ -108,6 +120,13 @@ def main(argv=None):
         print(f"PIM-quantized: {frac:.1%} of param bytes packed "
               f"({args.bits}-bit, group={args.group})")
 
+    telemetry = None
+    if args.metrics or args.events_out or args.profile_annotations:
+        telemetry = ServeTelemetry(
+            events_path=args.events_out,
+            profile=args.profile_annotations,
+        )
+
     shared_len = args.shared_prefix_len if args.prefix else 0
     cache_len = shared_len + args.prompt_len + args.new_tokens + 8
     batcher = ContinuousBatcher(
@@ -118,7 +137,7 @@ def main(argv=None):
         kv_dtype=args.kv_dtype, prefill_chunk=args.prefill_chunk,
         group_pool_slack=args.group_pool_slack,
         group_blocks="auto" if args.group_pool == "auto" else None,
-        device=device,
+        telemetry=telemetry, device=device,
     )
     rng = np.random.default_rng(1)
     shared = rng.integers(0, cfg.vocab_size, shared_len, dtype=np.int32)
@@ -164,6 +183,42 @@ def main(argv=None):
               f"{len(ix)} pages indexed")
     for uid in sorted(results)[:3]:
         print(f"  req {uid}: {results[uid]}")
+    if telemetry is not None:
+        print_telemetry(telemetry)
+        telemetry.close()
+        if args.events_out:
+            print(f"  events written to {args.events_out}")
+
+
+def print_telemetry(telemetry: ServeTelemetry) -> None:
+    """The reference launcher's telemetry block."""
+    lat = telemetry.latency_summary()
+    print("  telemetry:")
+    for k in ("ttft_s", "tpot_s", "queue_delay_s"):
+        s = lat[k]
+        if s["n"]:
+            print(f"    {k}: p50={s['p50']:.4f} p90={s['p90']:.4f} "
+                  f"p99={s['p99']:.4f} (n={s['n']})")
+    print(f"    kernel streamed bytes: {telemetry.streamed_bytes_total} "
+          f"({len(telemetry.tick_streamed_bytes)} ticks sampled), "
+          f"{len(telemetry.events)} events")
+    if telemetry.perf.phases:
+        perf = telemetry.perf.summary()
+        print(f"  perf attribution (chip={perf['chip']}):")
+        for phase, st in sorted(perf["phases"].items()):
+            print(f"    {phase}: {st['launches']} launches, "
+                  f"predicted={st['predicted_bytes']}B "
+                  f"measured={st['measured_bytes']}B "
+                  f"err_max={st['model_error_max']:g} "
+                  f"roofline_frac={st['roofline_fraction']:.2f} "
+                  f"bucketing_savings={st['bucketing_savings']:.2f}")
+    w = telemetry.compile_watcher()
+    if w.total:
+        steps = ";".join(f"{k}={v}" for k, v in sorted(w.by_step().items()))
+        print(f"    recompiles: {w.total} total ({steps})")
+    print("  --- prometheus snapshot ---")
+    print("  " + telemetry.registry.prometheus().rstrip()
+          .replace("\n", "\n  "))
 
 
 if __name__ == "__main__":

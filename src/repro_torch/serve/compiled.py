@@ -20,6 +20,18 @@ key — so quantized serving logs as many signatures as the reference
 traces.
 `kv_dtype="int8"` builds the quantized-pool variant, whose scale stacks
 ride as two extra positional arguments after the pools.
+
+Telemetry hooks (DESIGN.md §13-§14), both off by default and free then:
+
+  * `watcher=` (an `obs.perf.CompileWatcher`): the first call of each new
+    signature is reported to `watcher.on_compile` with that call's host
+    time, read through `watcher.clock()` — the port's version of the
+    reference's per-compile report.
+  * `annotate=True`: each call runs inside a
+    `torch.profiler.record_function("serve/paged_prefill")` (or
+    `"serve/paged_decode"`) range, and each bucket launch of its paged
+    attention inside `paged_bucket_d{bound}x{count}`
+    (`kernels.paged_common.bucket_scopes`).
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ from typing import List, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..kernels.paged_common import bucket_scopes
 from ..models import decode_step_paged, prefill_paged
 from ..quant.bitplane import PimWeight
 
@@ -60,26 +73,43 @@ def _leaf_sig(leaf):
 
 class PagedStep:
     """One serve step: calls `fn` and logs each new (plans, signature)
-    once — the analog of one trace of the reference's jitted step."""
+    once — the analog of one trace of the reference's jitted step — and
+    reports it to `watcher` when one is attached."""
 
-    def __init__(self, kind: str, fn):
+    def __init__(self, kind: str, fn, watcher=None, annotate: bool = False):
         self.kind = kind
         self._fn = fn
         self._seen = set()
+        self._watcher = watcher
+        self._scope = f"serve/paged_{kind}" if annotate else None
 
     def __call__(self, *args, perms=None, plans=None):
         key = (plans, _leaf_sig((args, perms)))
-        if key not in self._seen:
-            self._seen.add(key)
-            _TRACE_LOG.append((self.kind, plans))
-        return self._fn(*args, perms=perms, plans=plans)
+        if key in self._seen:
+            return self._run(args, perms, plans)
+        self._seen.add(key)
+        _TRACE_LOG.append((self.kind, plans))
+        if self._watcher is None:
+            return self._run(args, perms, plans)
+        t0 = self._watcher.clock()
+        out = self._run(args, perms, plans)
+        self._watcher.on_compile(self.kind, plans,
+                                 self._watcher.clock() - t0)
+        return out
+
+    def _run(self, args, perms, plans):
+        if self._scope is None:
+            return self._fn(*args, perms=perms, plans=plans)
+        with torch.profiler.record_function(self._scope), bucket_scopes():
+            return self._fn(*args, perms=perms, plans=plans)
 
     def cache_size(self) -> int:
         return len(self._seen)
 
 
 def paged_prefill_step(cfg: ModelConfig, impl: str = "auto",
-                       kv_dtype: str = "bf16") -> PagedStep:
+                       kv_dtype: str = "bf16", watcher=None,
+                       annotate: bool = False) -> PagedStep:
     """(params, toks, k_pages, v_pages, block_tables, block_starts, start,
     total, last_pos, perms=..., plans=...) -> (logits, k_pages, v_pages),
     pools updated in place. `kv_dtype="int8"`: (params, toks, k_pages,
@@ -94,18 +124,19 @@ def paged_prefill_step(cfg: ModelConfig, impl: str = "auto",
                 impl=impl, bucket_plan=plans, bucket_perm=perms,
                 block_start=st, k_scales=ks, v_scales=vs,
             )
-        return PagedStep("prefill", qfn)
+        return PagedStep("prefill", qfn, watcher, annotate)
 
     def fn(p, toks, kp, vp, bt, st, strt, tot, lp, perms=None, plans=None):
         return prefill_paged(
             p, toks, kp, vp, bt, strt, tot, cfg, last_pos=lp, impl=impl,
             bucket_plan=plans, bucket_perm=perms, block_start=st,
         )
-    return PagedStep("prefill", fn)
+    return PagedStep("prefill", fn, watcher, annotate)
 
 
 def paged_decode_step(cfg: ModelConfig, impl: str = "auto",
-                      kv_dtype: str = "bf16") -> PagedStep:
+                      kv_dtype: str = "bf16", watcher=None,
+                      annotate: bool = False) -> PagedStep:
     """(params, token, k_pages, v_pages, block_tables, block_starts,
     positions, perms=..., plans=...) -> (logits, k_pages, v_pages), pools
     updated in place; the int8 variant takes and returns the scale
@@ -118,11 +149,11 @@ def paged_decode_step(cfg: ModelConfig, impl: str = "auto",
                 bucket_plan=plans, bucket_perm=perms, block_start=st,
                 k_scales=ks, v_scales=vs,
             )
-        return PagedStep("decode", qfn)
+        return PagedStep("decode", qfn, watcher, annotate)
 
     def fn(p, t, kp, vp, bt, st, pos, perms=None, plans=None):
         return decode_step_paged(
             p, t, kp, vp, bt, pos, cfg, impl=impl,
             bucket_plan=plans, bucket_perm=perms, block_start=st,
         )
-    return PagedStep("decode", fn)
+    return PagedStep("decode", fn, watcher, annotate)

@@ -13,6 +13,12 @@ returned width is the number of decode iterations run.
 `ContinuousBatcher` take the quantized parameters as they are, and every
 projection then runs on K3/K4. The dense cache is not ported yet and
 raises.
+
+`telemetry=` (an `obs.ServeTelemetry`) gets the reference's hooks in the
+reference's order: each batch row is submitted and admitted at once,
+every prefill chunk and decode step is accounted, each row's first
+token and finish are traced, and each decode step ends a tick with the
+pool gauges. Each `generate` call's rows take fresh trace uids.
 """
 
 from __future__ import annotations
@@ -61,10 +67,6 @@ class ServeConfig:
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig,
                  telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "serving telemetry is not ported yet; pass telemetry=None"
-            )
         if serve_cfg.kv_dtype != "bf16" and not serve_cfg.paged:
             raise ValueError("kv_dtype='int8' requires paged=True")
         resolve_bucket_strategy(serve_cfg.bucket_strategy)
@@ -72,12 +74,33 @@ class ServeEngine:
         self.sc = serve_cfg
         self.params = params
         self.device = resolve_device(serve_cfg.device)
+        #: observability facade; None = metrics off, and every hook site
+        #: guards on it
+        self.telemetry = telemetry
+        #: monotone uid base, so rows of successive generate() calls get
+        #: distinct trace uids
+        self._uid_base = 0
+        annotate = telemetry is not None and telemetry.profile
+        watcher = None if telemetry is None else telemetry.compile_watcher()
         self._decode_paged = paged_decode_step(
-            cfg, impl=serve_cfg.kernel_impl, kv_dtype=serve_cfg.kv_dtype
+            cfg, impl=serve_cfg.kernel_impl, kv_dtype=serve_cfg.kv_dtype,
+            watcher=watcher, annotate=annotate,
         )
         self._prefill_paged = paged_prefill_step(
-            cfg, impl=serve_cfg.kernel_impl, kv_dtype=serve_cfg.kv_dtype
+            cfg, impl=serve_cfg.kernel_impl, kv_dtype=serve_cfg.kv_dtype,
+            watcher=watcher, annotate=annotate,
         )
+
+    def _trace_admit(self, b: int, prompt_tokens: int) -> list:
+        """Open one trace per batch row: `generate` admits the whole
+        batch at once, so submit and admit coincide."""
+        uids = list(range(self._uid_base, self._uid_base + b))
+        self._uid_base += b
+        for slot, uid in enumerate(uids):
+            self.telemetry.on_submit(uid, prompt_tokens,
+                                     self.sc.max_new_tokens)
+            self.telemetry.on_admit(uid, slot)
+        return uids
 
     def quantize(self, qcfg: Optional[PimQuantConfig] = None) -> float:
         """Convert projection weights to PIM-resident bit-planes; returns
@@ -116,6 +139,8 @@ class ServeEngine:
         prompts = torch.as_tensor(prompts, dtype=torch.int32).to(self.device)
         b, t = prompts.shape
         bs = self.sc.block_size
+        tel = self.telemetry
+        uids = self._trace_admit(b, t) if tel is not None else None
         pc = PagedKVCache(
             self.cfg, n_slots=b, max_len=self.sc.max_cache_len,
             block_size=bs, kv_dtype=self.sc.kv_dtype,
@@ -137,7 +162,14 @@ class ServeEngine:
                 pc.begin_append(i, start, n)
             toks = torch.nn.functional.pad(prompts[:, start:end],
                                            (0, pad - n))
-            plans, perms = self._bucket_args(pc, np.full((b,), end))
+            eff = np.full((b,), end)
+            plans, perms = self._bucket_args(pc, eff)
+            if tel is not None:
+                tel.account_paged_launch(
+                    "prefill", plans, b, pc, eff_lengths=eff,
+                    strategy=self.sc.bucket_strategy,
+                    kernel_impl=self.sc.kernel_impl,
+                )
             pools = (pc.k_pages, pc.v_pages) + (
                 (pc.k_scales, pc.v_scales) if pc.quantized else ()
             )
@@ -147,10 +179,16 @@ class ServeEngine:
                 zeros + start, zeros + end, n - 1, perms=perms, plans=plans,
             )[0]
             pc.lengths[:] = end
+            if tel is not None:
+                for uid in uids:
+                    tel.on_prefill(uid, pad)
             start = end
         out = []
         done = np.zeros((b,), bool)
         tok = self._sample(logits[:, -1], rng)
+        if tel is not None:
+            for uid in uids:
+                tel.on_first_token(uid)
         for it in range(self.sc.max_new_tokens):
             tok = self._pad_done(tok, done)
             out.append(tok)
@@ -159,12 +197,20 @@ class ServeEngine:
                 # scratch, which absorbs later KV writes
                 pc.free_slot(int(i))
                 done[i] = True
+                if tel is not None:
+                    tel.on_finish(uids[i])
             if done.all() or it == self.sc.max_new_tokens - 1:
                 break
             for i in range(b):
                 if not done[i]:
                     pc.begin_append(i, int(pc.lengths[i]), 1)
             plans, perms = self._bucket_args(pc, pc.lengths + 1)
+            if tel is not None:
+                tel.account_paged_launch(
+                    "decode", plans, b, pc, eff_lengths=pc.lengths + 1,
+                    strategy=self.sc.bucket_strategy,
+                    kernel_impl=self.sc.kernel_impl,
+                )
             pools = (pc.k_pages, pc.v_pages) + (
                 (pc.k_scales, pc.v_scales) if pc.quantized else ()
             )
@@ -176,7 +222,18 @@ class ServeEngine:
             for i in range(b):
                 if not done[i]:
                     pc.lengths[i] += 1
+            if tel is not None:
+                tel.on_decode([uids[r] for r in np.flatnonzero(~done)])
+                tel.end_tick(
+                    0, int((~done).sum()),
+                    pool_gauges=pc.pool_gauges(),
+                    dedup=pc.cross_layer_dedup_stats(),
+                    occupancy=pc.slot_occupancy(),
+                )
             tok = self._sample(logits[:, -1], rng)
+        if tel is not None:
+            for r in np.flatnonzero(~done):
+                tel.on_finish(uids[r])  # rows that ran to the budget
         return torch.cat(out, dim=-1)
 
     def _bucket_args(self, pc: PagedKVCache, eff_lengths):

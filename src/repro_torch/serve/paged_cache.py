@@ -755,6 +755,30 @@ class PagedKVCache:
         deadlock detector compares across ticks."""
         return tuple(p.n_free for p in self.pools)
 
+    def pool_gauges(self) -> List[Dict[str, object]]:
+        """Per-group gauge sample for the telemetry layer: one dict per
+        pool, keys matching the `pool_*{group=g}` metric family.
+        `resident_page_bytes` is the group's allocated pages times its
+        layers times `page_layer_bytes` (scale rows included) — the KV
+        the group pins, not the stacked arrays' allocation, which holds
+        every layer at the largest group's size."""
+        plb = self.page_layer_bytes
+        return [
+            {
+                "gid": p.gid,
+                "free_pages": p.n_free,
+                "unreserved_pages": p.available_blocks(),
+                "allocated_pages": p.allocated_pages(),
+                "shared_refs": p.extra_refs(),
+                "cow_events": p.cow_events,
+                "pages_retired": p.pages_retired,
+                "pages_allocated_total": p.pages_allocated,
+                "resident_page_bytes":
+                    len(p.layers) * p.allocated_pages() * plb,
+            }
+            for p in self.pools
+        ]
+
     # -- bucketed dispatch inputs (DESIGN.md §11-§12) ----------------------
 
     def bucket_needs(self, eff_lengths,
@@ -827,3 +851,48 @@ class PagedKVCache:
             p.allocated_pages() for p in (anchors or self.pools)
         )
         return self.k_pages.shape[0] * logical * plb
+
+    def cross_layer_dedup_stats(self) -> Dict[str, int]:
+        """Physical-copy accounting across the layer-major pools:
+
+          allocated_pages          group-pages currently allocated
+                                   (summed over groups)
+          shared_pages             group-pages with refcount > 1
+          extra_refs               sum(refcount - 1) over groups: copies
+                                   sharing avoided materializing
+          physical_page_copies     per-layer physical copies stored
+                                   = sum_g n_layers_g * allocated_g
+          deduped_page_copies      per-layer copies sharing avoided
+                                   = sum_g n_layers_g * extra_g
+          page_layer_bytes         bytes of ONE page in ONE layer (K+V)
+          physical_bytes / deduped_bytes    the two above in bytes
+          retired_pages            window-retired pages (lifetime)
+          resident_bytes           physical_bytes (alias)
+          lockstep_equiv_bytes     the same state under lockstep page ids
+        """
+        plb = self.page_layer_bytes
+        n_layers = self.k_pages.shape[0]
+        allocated = sum(p.allocated_pages() for p in self.pools)
+        shared = sum(
+            sum(1 for r in p._ref.values() if r > 1) for p in self.pools
+        )
+        extra = sum(p.extra_refs() for p in self.pools)
+        phys = sum(
+            len(p.layers) * p.allocated_pages() for p in self.pools
+        )
+        dedup = sum(len(p.layers) * p.extra_refs() for p in self.pools)
+        return {
+            "n_layers": int(n_layers),
+            "n_groups": len(self.pools),
+            "allocated_pages": allocated,
+            "shared_pages": shared,
+            "extra_refs": extra,
+            "physical_page_copies": phys,
+            "deduped_page_copies": dedup,
+            "page_layer_bytes": plb,
+            "physical_bytes": phys * plb,
+            "deduped_bytes": dedup * plb,
+            "retired_pages": self.pages_retired,
+            "resident_bytes": phys * plb,
+            "lockstep_equiv_bytes": self.lockstep_equiv_page_bytes(),
+        }

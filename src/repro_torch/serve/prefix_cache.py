@@ -67,9 +67,25 @@ class PrefixIndex:
         self.cached_tokens_served = 0   # prompt tokens skipped via hits
         self.evicted_pages = 0
 
+    @property
+    def retained_pages(self) -> int:
+        """Total (group, page) retains the index currently holds."""
+        return sum(self.retained_by_group.values())
+
     def page_cap(self, cache: PagedKVCache) -> int:
         """Max pages the index may retain in EACH group's pool."""
         return int(self.max_retained_fraction * (cache.n_blocks - 1))
+
+    def stats(self) -> Dict[str, int]:
+        """Gauge sample for the telemetry layer (`pool_prefix_*`)."""
+        return {
+            "retained_pages": self.retained_pages,
+            "nodes": len(self),
+            "hits": self.hits,
+            "lookups": self.lookups,
+            "cached_tokens_served": self.cached_tokens_served,
+            "evicted_pages": self.evicted_pages,
+        }
 
     # -- helpers -----------------------------------------------------------
 

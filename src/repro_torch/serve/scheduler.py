@@ -25,9 +25,17 @@ straight into the page pools.
 
 `params` may hold PIM bit-plane weights (`ServeEngine.quantize`); they
 flow through unchanged, and every projection then runs on K3/K4 (or
-their plain versions under `kernel_impl="ref"`). The dense cache and
-telemetry (`telemetry=`) are not ported yet. Each tick brings its argmax
-to the host once.
+their plain versions under `kernel_impl="ref"`). The dense cache is not
+ported yet. Each tick brings its argmax to the host once.
+
+`telemetry=` (an `obs.ServeTelemetry`) receives the reference's hooks at
+the same transitions and in the same order: submit, admit, prefill and
+its launch accounting, first token, decode launch accounting, decode,
+finish, end of tick (pool, dedup, occupancy and prefix gauges) and
+deadlock. The hooks read host state only and add no host sync: first
+token, finish and end of tick are stamped after the sync the tick
+already makes, so on the card they close on finished work. With
+`telemetry=None` (the default) the drain makes no call into `obs`.
 """
 
 from __future__ import annotations
@@ -99,10 +107,6 @@ class ContinuousBatcher:
                 "the dense (paged=False) cache is not ported yet; pass "
                 "paged=True"
             )
-        if telemetry is not None:
-            raise NotImplementedError(
-                "serving telemetry is not ported yet; pass telemetry=None"
-            )
         self.cfg = cfg
         self.params = params
         self.n_slots = n_slots
@@ -113,6 +117,9 @@ class ContinuousBatcher:
         #: -1 = never stop early; >= 0 = a slot that emits this token
         #: finishes immediately and frees its pages the same tick
         self.eos_token = eos_token
+        #: observability facade; None = metrics off, and every hook site
+        #: below guards on it
+        self.telemetry = telemetry
         self.queue: Deque[Request] = collections.deque()
         self.slots: List[Optional[Request]] = [None] * n_slots
         self.tokens = torch.zeros((n_slots, 1), dtype=torch.int32,
@@ -137,11 +144,15 @@ class ContinuousBatcher:
             group_pool_slack=group_pool_slack, group_blocks=group_blocks,
             device=self.device,
         )
+        annotate = telemetry is not None and telemetry.profile
+        watcher = None if telemetry is None else telemetry.compile_watcher()
         self._decode_paged = paged_decode_step(
-            cfg, impl=kernel_impl, kv_dtype=kv_dtype
+            cfg, impl=kernel_impl, kv_dtype=kv_dtype, watcher=watcher,
+            annotate=annotate,
         )
         self._prefill_paged = paged_prefill_step(
-            cfg, impl=kernel_impl, kv_dtype=kv_dtype
+            cfg, impl=kernel_impl, kv_dtype=kv_dtype, watcher=watcher,
+            annotate=annotate,
         )
         #: block-rounded chunk width of chunked prefill (0 = single-shot)
         self.prefill_chunk = self.pcache.prefill_chunk
@@ -153,6 +164,10 @@ class ContinuousBatcher:
         """Queue `req`; its prompt is kept as host int32 token ids."""
         req.prompt = _host_tokens(req.prompt)
         self.queue.append(req)
+        if self.telemetry is not None:
+            self.telemetry.on_submit(
+                req.uid, int(req.prompt.shape[0]), req.max_new_tokens
+            )
 
     # -- prefill -----------------------------------------------------------
 
@@ -231,6 +246,8 @@ class ContinuousBatcher:
         the completed blocks back to the index."""
         pc = self.pcache
         t = int(req.prompt.shape[0])
+        if self.telemetry is not None:
+            self.telemetry.on_admit(req.uid, i, n_cached)
         if attach_plan is not None:
             pc.attach_chain(i, attach_plan)
         if self.prefix is not None:
@@ -281,6 +298,15 @@ class ContinuousBatcher:
             )[0]
         pc.lengths[i] = end
         self.prefill_tokens += pad
+        if self.telemetry is not None:
+            self.telemetry.on_prefill(req.uid, pad)
+            # one-slot launch (n_rows 1), accounted from the same pool
+            # state the plan was built from
+            self.telemetry.account_paged_launch(
+                "prefill", plans, 1, pc, eff_lengths=[end], slots=[i],
+                strategy=self.bucket_strategy,
+                kernel_impl=self._kernel_impl,
+            )
         return logits
 
     def _finish_prefill(self, i: int, req: Request, logits):
@@ -315,10 +341,14 @@ class ContinuousBatcher:
     def _start_slot(self, i: int, req: Request, logits):
         nxt = int(torch.argmax(logits[0, -1]).item())
         req.generated.append(nxt)
+        if self.telemetry is not None:
+            self.telemetry.on_first_token(req.uid)
         if req.done or self._hit_eos(nxt):
             # the prefill token completes the request: pages free now
             self.finished[req.uid] = req.generated
             self.pcache.free_slot(i)
+            if self.telemetry is not None:
+                self.telemetry.on_finish(req.uid)
             return
         self.tokens[i, 0] = nxt
         self.slots[i] = req
@@ -338,9 +368,13 @@ class ContinuousBatcher:
         if not active:
             if chunked or len(self.finished) > n_finished:
                 self.ticks += 1
+            if self.telemetry is not None:
+                self._sample_tick()
             return chunked
         nxt = self._step_paged(active)
         host = nxt.tolist()               # the tick's one host sync
+        if self.telemetry is not None:
+            self.telemetry.on_decode([self.slots[i].uid for i in active])
         for i in active:
             req = self.slots[i]
             tok = int(host[i])
@@ -350,9 +384,26 @@ class ContinuousBatcher:
                 self.finished[req.uid] = req.generated
                 self.pcache.free_slot(i)
                 self.slots[i] = None
+                if self.telemetry is not None:
+                    self.telemetry.on_finish(req.uid)
         self.tokens = nxt[:, None]
         self.ticks += 1
+        if self.telemetry is not None:
+            self._sample_tick()
         return len(active) + chunked
+
+    def _sample_tick(self):
+        """End-of-tick gauge sample (telemetry attached only): queue
+        depth, active slots, per-group pool state, dedup bytes,
+        occupancy and the prefix index."""
+        pc = self.pcache
+        self.telemetry.end_tick(
+            len(self.queue), sum(s is not None for s in self.slots),
+            pool_gauges=pc.pool_gauges(),
+            dedup=pc.cross_layer_dedup_stats(),
+            occupancy=pc.slot_occupancy(),
+            prefix=None if self.prefix is None else self.prefix.stats(),
+        )
 
     def _bucket_args(self, eff_lengths, slots=None):
         """Per-group slot→bucket packing for one launch."""
@@ -376,6 +427,12 @@ class ContinuousBatcher:
             eff = np.array(eff)
             eff[parked] = 1
         plans, perms = self._bucket_args(eff)
+        if self.telemetry is not None:
+            self.telemetry.account_paged_launch(
+                "decode", plans, self.n_slots, pc, eff_lengths=eff,
+                strategy=self.bucket_strategy,
+                kernel_impl=self._kernel_impl,
+            )
         bt = pc.device_block_tables(scratch_slots=parked)
         st = pc.device_block_starts(scratch_slots=parked)
         pos = pc.device_positions(scratch_slots=parked)
@@ -447,13 +504,21 @@ class ContinuousBatcher:
                 and len(self.queue) == queued_before
                 and self.pcache.free_state() == free_before
             ):
+                diagnostic = self._pool_diagnostic()
+                if self.telemetry is not None:
+                    # the machine-readable twin of the message below
+                    self.telemetry.on_deadlock(
+                        ticks, len(self.queue), len(self.finished),
+                        {p.gid: p.n_free for p in self.pcache.pools},
+                        diagnostic,
+                    )
                 raise RuntimeError(
                     f"run_until_drained: deadlock at tick {ticks} — no "
                     f"slot is active and none of the {len(self.queue)} "
                     f"queued requests is admissible, so no future tick "
                     f"can free pages or make progress "
                     f"({len(self.finished)} finished)"
-                    f"{self._pool_diagnostic()}"
+                    f"{diagnostic}"
                 )
         pending = len(self.queue) + sum(s is not None for s in self.slots)
         if pending:

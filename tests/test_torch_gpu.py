@@ -13,7 +13,10 @@ and in where hd^-0.5 is applied); the bucketed launch and the single
 launch are compared bit for bit. Bit-plane kernels: K5 planes equal the
 plain pack byte for byte; K3/K4 raw contractions within 1e-5 of
 max|raw| of the plain one (products of x with integer weights are exact
-in f32, only the summation order differs).
+in f32, only the summation order differs). The telemetry test holds
+the perf model's streamed-byte prediction exactly (error 0) against the
+bucketed launches the card runs, and its tokens equal to a drain
+without telemetry.
 """
 
 import dataclasses
@@ -142,6 +145,44 @@ def test_serving_on_the_card_launches_kernels_and_matches_plain(cuda_device):
         else:
             assert launched == (0, 0)
     assert out["cuda"] == out["ref"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,extra", [
+    ("qwen2-1.5b", {}),
+    ("gemma3-27b", {"prefill_chunk": 8, "group_blocks": "auto"}),
+])
+def test_telemetry_on_the_card_predicts_bucketed_launches(cuda_device, arch,
+                                                          extra):
+    """A telemetry-on drain through the CUDA kernels with pow2 plans:
+    the perf model predicts every launch's streamed bytes exactly
+    (model error 0, bucketed plans among them), each new step signature
+    reaches the watcher, and the tokens equal a telemetry-off drain's."""
+    from repro_torch.obs import ManualClock, ServeTelemetry
+    from repro_torch.serve.compiled import trace_count
+
+    dev = cuda_device
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n), dtype=np.int32)
+               for n in rng.integers(4, 40, 8)]
+    out = {}
+    for tel in (None, ServeTelemetry(clock=ManualClock())):
+        cb = ContinuousBatcher(cfg, params, n_slots=3, cache_len=56,
+                               paged=True, block_size=4, telemetry=tel,
+                               bucket_strategy="pow2", device=dev, **extra)
+        for uid, p in enumerate(prompts):
+            cb.submit(Request(uid=uid, prompt=p, max_new_tokens=6))
+        before = trace_count()
+        out[tel is None] = cb.run_until_drained()
+    perf = tel.perf.summary()
+    assert out[True] == out[False]
+    assert perf["model_error_max"] == 0.0
+    assert any(plans is not None for _, plans, _, _ in tel.perf.launch_log)
+    assert perf["phases"]["decode"]["launches"] > 0
+    assert tel.compile_watcher().total == trace_count() - before
+    assert tel.lifecycle_counts() == {"submitted": 8, "finished": 8}
 
 
 @pytest.mark.gpu

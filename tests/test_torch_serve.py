@@ -19,6 +19,11 @@
   sum of its lengths rounded up to whole blocks, which is what both
   packages are held to here.
 
+* EOS emitted at prefill (the case of the reference's
+  `test_batcher_eos_stops_slot_and_frees_pages`): the port's drain equals
+  the reference's step by step, and the freed slot is refilled the same
+  tick.
+
 Tokens are compared on the f32 smoke config: bf16 argmax near-ties flip
 across differently ordered sums.
 """
@@ -42,6 +47,7 @@ from repro.serve import ServeConfig as JServeConfig
 from repro.serve import ServeEngine as JEngine
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
+from repro_torch.obs import ServeTelemetry
 from repro_torch.serve import (
     ContinuousBatcher,
     PagedKVCache,
@@ -349,6 +355,65 @@ def test_eos_stops_slot_and_frees_pages_the_same_tick(models, trace,
     assert cb.pcache.n_free == cb.pcache.n_blocks - 1
 
 
+def _slot_states(cb):
+    pc = cb.pcache
+    return dict(
+        finished={u: list(v) for u, v in cb.finished.items()},
+        ticks=cb.ticks,
+        slots=[None if s is None else s.uid for s in cb.slots],
+        queued=[r.uid for r in cb.queue],
+        free=[list(p.free_blocks) for p in pc.pools],
+        tables=[p.block_table.tolist() for p in pc.pools],
+        lengths=pc.lengths.tolist())
+
+
+def test_eos_at_prefill_matches_reference(models):
+    """`tests/test_paged_cache.py::test_batcher_eos_stops_slot_and_frees_
+    pages`'s case (prompts of 5, 8 and 13 tokens, 3 slots, 8 new tokens),
+    with the EOS set to the token request 0 emits at prefill — which is
+    what that test's `base[0][3]` picks under JAX 0.9.0. Request 0 ends
+    at prefill; its pages free at once and the same tick's admission
+    retries slot 0. The port's drain equals the reference's after every
+    step: finished outputs, ticks, slot owners, queue, each group's free
+    list and block tables, lengths."""
+    jcfg, jp, cfg, tp = models
+    key = jax.random.PRNGKey(7)
+    prompts = [np.asarray(jax.random.randint(
+        jax.random.fold_in(key, u), (t,), 0, cfg.vocab_size)).astype(
+        np.int32) for u, t in enumerate([5, 8, 13])]
+    kw = dict(n_slots=3, cache_len=32, paged=True, block_size=4)
+    jbase = JBatcher(jcfg, jp, **kw)
+    for u, p in enumerate(prompts):
+        jbase.submit(JRequest(uid=u, prompt=jnp.asarray(p),
+                              max_new_tokens=8))
+    base = jbase.run_until_drained()
+    eos = base[0][0]
+    jb = JBatcher(jcfg, jp, eos_token=eos, **kw)
+    tb = ContinuousBatcher(cfg, tp, eos_token=eos, device="cpu", **kw)
+    for u, p in enumerate(prompts):
+        jb.submit(JRequest(uid=u, prompt=jnp.asarray(p), max_new_tokens=8))
+        tb.submit(Request(uid=u, prompt=p, max_new_tokens=8))
+    states = []
+    while jb.queue or any(s is not None for s in jb.slots):
+        jb.step()
+        tb.step()
+        states.append(_slot_states(tb))
+        assert states[-1] == _slot_states(jb), len(states)
+        tb.pcache.check_invariants()
+    assert not tb.queue and all(s is None for s in tb.slots)
+    first = states[0]
+    # request 0 finished at prefill, with its one token, in tick 1
+    assert first["finished"][0] == [eos] and first["ticks"] == 1
+    # its slot was refilled the same tick, by the next queued request
+    assert first["slots"][0] == 1 and first["queued"] == []
+    for u in (1, 2):
+        stop = base[u].index(eos) + 1 if eos in base[u] else 8
+        assert tb.finished[u] == base[u][:stop]
+    pc = tb.pcache
+    assert [len(p.free_blocks) for p in pc.pools] == [
+        p.n_blocks - 1 for p in pc.pools]
+
+
 def test_deadlock_raises_with_pool_diagnostic(models):
     _, _, cfg, tp = models
     cb = ContinuousBatcher(cfg, tp, n_slots=2, cache_len=24, paged=True,
@@ -380,12 +445,14 @@ def test_step_signatures_stay_bounded(models, trace):
 
 
 def test_unported_modes_raise(models):
+    """The dense cache raises; telemetry is ported and is taken."""
     _, _, cfg, tp = models
     with pytest.raises(NotImplementedError, match="dense"):
         ContinuousBatcher(cfg, tp, n_slots=1, cache_len=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        ContinuousBatcher(cfg, tp, n_slots=1, cache_len=8, paged=True,
-                          telemetry=object(), device="cpu")
+    tel = ServeTelemetry()
+    cb = ContinuousBatcher(cfg, tp, n_slots=1, cache_len=8, paged=True,
+                           telemetry=tel, device="cpu")
+    assert cb.telemetry is tel
     with pytest.raises(NotImplementedError, match="not ported"):
         ServeEngine(cfg, tp, ServeConfig(device="cpu")).generate(
             np.zeros((1, 4), np.int32))
