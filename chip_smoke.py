@@ -2,11 +2,11 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, and drives the
-port's main paths through `ServeEngine.quantize` and
-`ContinuousBatcher`, the entry points the launcher drives, with random
-weights from a seed: paged continuous-batching serving of qwen2-1.5b at
-full width (28 layers, d 1536, 12 heads, 2 kv-heads, d_ff 8960, vocab
-151936), with dense and with PIM bit-plane weights, then gemma3-27b at
+port's main paths through `ServeEngine.quantize`, `ServeEngine.generate`
+and `ContinuousBatcher`, the entry points the launcher drives, with
+random weights from a seed: paged and dense-cache serving of qwen2-1.5b
+at full width (28 layers, d 1536, 12 heads, 2 kv-heads, d_ff 8960, vocab
+151936), with bf16 and with PIM bit-plane weights, then gemma3-27b at
 its published width (62 layers, d 5376, 32 heads, 16 kv-heads, hd 128,
 d_ff 21504, vocab 262144; 5:1 local:global layers with a 1024-token
 window), whose paged cache splits into a global and a windowed layer
@@ -53,8 +53,7 @@ group that retires pages. Phases, one line each:
                at [8, 5376] -> 21504 and [8, 21504] -> 5376, K4 at
                [768, 5376] -> 21504
      init      qwen2-1.5b at full width, after a sync (the wait is
-               printed): the process's first meta-device shape pass timed
-               alone (and the modules it imports), then `init_lm`
+               printed): `init_lm` alone (and the modules it imports)
   6. serve     qwen2-1.5b, bf16: 8 slots, 16 requests, each a shared
                256-token system prompt plus a 64..768-token suffix, 64
                new tokens, prefix index on; the K1/K2 launch counts of
@@ -77,14 +76,31 @@ group that retires pages. Phases, one line each:
                `paged_bucket_d*x*` ranges, and every K1 / K2 kernel the
                card ran launched from inside a decode / prefill range
   7. serve     the same trace with int8 KV pools
+     dense     `ServeEngine.generate` on the dense cache (`paged=False`,
+               the launcher's default): 8 prompts of 2048 tokens (chunked
+               prefill), 64 new tokens, max_cache_len 2120; wall,
+               tokens/s, 63 decode calls, the cache's 486,277,120 bytes
+               and the peak device memory
+     dense     `ContinuousBatcher(paged=False)`: 16 requests of 2048
+               tokens, 8 slots, 64 new tokens: exactly 126 ticks, 32,768
+               prefill tokens, 1,024 tokens out, the global position 126
+               after the drain, and no metric touched
   8. serve     the --quantize path: `ServeEngine.quantize` to 8-bit,
                g = 1 PIM bit-plane weights (K5 packs every projection
                slice on the card), then the bf16-KV trace of phase 6;
                K1-K5 must each have launched in that path
+     dense     the dense `generate` with those weights: K3 (decode) and
+               K4 (prefill) must launch; the tokens' agreement with the
+               bf16 run
   9. parity    qwen2-1.5b in f32 with 4 layers: greedy tokens with the
                CUDA kernels equal those with the plain versions on the
                card, and chunked prefill (64) equals single-shot
  10. parity    phase 9 with 8-bit g = 1 bit-plane weights
+     dense parity  qwen2-1.5b in f32 with 4 layers, 4 prompts of 1600
+               tokens: dense `generate` with 8-bit g = 1 weights gives
+               the same tokens with the kernels as with the plain
+               versions, and with dense weights the same tokens as the
+               paged engine
  11. init      gemma3-27b, all 62 layers in bf16 (the qwen2 weights
                freed first): parameters, seconds, peak device memory
  12. serve     gemma3-27b: 8 slots, 16 requests, each a shared 256-token
@@ -99,6 +115,11 @@ group that retires pages. Phases, one line each:
                group, the tick peak of `pool_resident_bytes` and of
                `pool_lockstep_equiv_bytes` equal phase 12's per-tick
                peaks, the perf model's error 0 with both groups' plans
+     dense     `ServeEngine.generate` on the dense cache at 62 layers: 8
+               prompts of 1536 tokens (chunked prefill, kv blocks halved
+               to 512, local layers windowed), 32 new tokens,
+               max_cache_len 1576; the cache's 6,403,653,632 bytes and
+               the peak device memory
  14. parity    gemma3-27b in f32 with 6 layers (one whole 5:1 pattern),
                prompts of 1100..1300 tokens: kernels == plain versions
                and 512-token chunks (auto-sized groups) == single-shot
@@ -624,13 +645,17 @@ def bitplane_checks(dev):
     max|raw| of the plain contraction; `bitplane_matmul` (kernel, offset,
     scale) within the reference's tolerance of its oracle. The counts
     must show B <= 512 on K3 and B > 512 on K4. qwen2-1.5b's shapes in
-    four formats, then gemma3-27b's in 8-bit g = 1."""
+    four formats; its four projections again at the dense pim8 prefill's
+    8 x 2048 rows in the format that phase runs (8-bit g = 1); then
+    gemma3-27b's in 8-bit g = 1."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     abs_err = {"bitplane_gemv": 0.0, "bitplane_gemm": 0.0,
                "bitplane_pack": 0.0}
     for model, formats, matrices, rows in (
             ("qwen2-1.5b", BITPLANE_FORMATS, BITPLANE_MATRICES,
              GEMV_ROWS + GEMM_ROWS),
+            ("qwen2-1.5b", ((8, 1),), BITPLANE_MATRICES[:4],
+             (8 * Q2_DENSE_T,)),
             ("gemma3-27b", ((8, 1),), G3_BITPLANE_MATRICES,
              G3_BITPLANE_ROWS)):
         for n_bits, group in formats:
@@ -1132,6 +1157,219 @@ def qwen2_parity(dev, quantize=False):
 
 
 # ---------------------------------------------------------------------------
+# the dense (non-paged) cache: ServeEngine.generate and the batcher
+# ---------------------------------------------------------------------------
+
+def dense_cache_bytes(cfg, batch, cache_len) -> int:
+    """K and V of the dense cache [L, B, S, KV, hd] in the compute dtype."""
+    itemsize = 2 if cfg.dtype == "bfloat16" else 4
+    return (2 * cfg.n_layers * batch * cache_len * cfg.n_kv_heads * cfg.hd
+            * itemsize)
+
+
+def dense_generate(cfg, params, prompts, new_tokens, cache_len, dev,
+                   **sc):
+    """`ServeEngine.generate` on the dense cache, its launch counts set to
+    0 just before and read just after. Returns the tokens on the host and
+    the run's stats: decode calls counted at the engine's decode step,
+    and the wall split at a CUDA event recorded when the prefill step
+    returns (no added sync): `prefill_s` from the start to the prefill's
+    end on the device's clock, `decode_s` the rest."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    eng = ServeEngine(cfg, params, ServeConfig(
+        max_cache_len=cache_len, max_new_tokens=new_tokens, device=str(dev),
+        **sc))
+    prefill, decode, calls = eng._prefill, eng._decode, [0]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+    def prefill_then_mark(*args, **kw):
+        out = prefill(*args, **kw)
+        events[1].record()
+        return out
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return decode(*args, **kw)
+
+    eng._prefill, eng._decode = prefill_then_mark, counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    events[0].record()
+    out = eng.generate(prompts)
+    events[2].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    tokens = out.cpu().numpy()
+    b, t = prompts.shape
+    check(tokens.shape == (b, new_tokens),
+          f"dense generate: tokens {tokens.shape}, want {(b, new_tokens)}")
+    check(((tokens >= 0) & (tokens < cfg.vocab_size)).all(),
+          "dense generate: token outside the vocab")
+    check(calls[0] == new_tokens - 1,
+          f"dense generate: {calls[0]} decode calls, want {new_tokens - 1}")
+    stats = dict(layers=cfg.n_layers, batch=b, prompt_len=t,
+                 new_tokens=new_tokens, wall_s=wall,
+                 tokens_per_s=tokens.size / wall,
+                 prefill_s=events[0].elapsed_time(events[1]) / 1e3,
+                 decode_s=events[1].elapsed_time(events[2]) / 1e3,
+                 decode_calls=calls[0],
+                 dense_cache_bytes=dense_cache_bytes(cfg, b, cache_len),
+                 max_memory_allocated=torch.cuda.max_memory_allocated(),
+                 **{f"launches_{k}": v for k, v in launches.items() if v})
+    return tokens, stats, launches
+
+
+#: the qwen2 dense phases: 8 prompts of 2048 tokens (T * S = 4.19M score
+#: elements > 2^21, so prefill takes the chunked path), 64 new tokens
+Q2_DENSE_T, Q2_DENSE_NEW, Q2_DENSE_CACHE = 2048, 64, 2120
+
+
+def dense_prompts(vocab, b, t, seed):
+    return np.random.default_rng(seed).integers(0, vocab, (b, t),
+                                                dtype=np.int32)
+
+
+def qwen2_dense(cfg, params, dev):
+    """`ServeEngine.generate` with `paged=False` at full width, bf16.
+    Returns its tokens and launch counts."""
+    prompts = dense_prompts(cfg.vocab_size, 8, Q2_DENSE_T, SEED + 11)
+    tokens, stats, launches = dense_generate(
+        cfg, params, prompts, Q2_DENSE_NEW, Q2_DENSE_CACHE, dev)
+    check(stats["dense_cache_bytes"] == 486_277_120,
+          f"qwen2 dense cache bytes {stats['dense_cache_bytes']}")
+    say("dense", model=cfg.name, weights="bf16", **stats)
+    return tokens, launches
+
+
+def qwen2_dense_batcher(cfg, params, dev):
+    """`ContinuousBatcher(paged=False)`: 16 requests of 2048 tokens, 8
+    slots, 64 new tokens each. The dense batcher keeps one global write
+    position, as the reference's does: 126 ticks move it to 126. With no
+    telemetry attached the drain must not touch a metric. Returns the
+    launch counts of the drain."""
+    from repro_torch.obs import mutation_count
+    from repro_torch.serve import ContinuousBatcher, Request
+
+    prompts = dense_prompts(cfg.vocab_size, 16, Q2_DENSE_T, SEED + 12)
+    cb = ContinuousBatcher(cfg, params, n_slots=8, cache_len=Q2_DENSE_CACHE,
+                           prompt_len=Q2_DENSE_T, device=dev)
+    for uid, p in enumerate(prompts):
+        cb.submit(Request(uid=uid, prompt=p, max_new_tokens=Q2_DENSE_NEW))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    mutations = mutation_count()
+    t0 = time.perf_counter()
+    results = cb.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mutations = mutation_count() - mutations
+    launches = read_launches()
+    n_tok = sum(len(v) for v in results.values())
+    got = (cb.ticks, cb.prefill_tokens, n_tok, cb.cache["position"])
+    check(got == (126, 32_768, 1_024, 126),
+          f"dense batcher: (ticks, prefill tokens, tokens out, position) "
+          f"{got} != (126, 32768, 1024, 126)")
+    check(all(len(v) == Q2_DENSE_NEW for v in results.values()),
+          "dense batcher: a request stopped short")
+    check(mutations == 0, "dense batcher: the telemetry-off drain touched "
+                          "a metric")
+    say("dense", model=cfg.name, path="batcher", requests=len(results),
+        tokens=n_tok, ticks=cb.ticks, prefill_tokens=cb.prefill_tokens,
+        position=cb.cache["position"], wall_s=wall,
+        tokens_per_s=n_tok / wall,
+        dense_cache_bytes=dense_cache_bytes(cfg, 8, Q2_DENSE_CACHE),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        metric_mutations=mutations,
+        **{f"launches_{k}": v for k, v in launches.items() if v})
+    return launches
+
+
+def qwen2_dense_quantized(cfg, qparams, bf16_tokens, dev):
+    """The dense `generate` of `qwen2_dense` with the --quantize phase's
+    8-bit g = 1 weights: prefill (8 x 2048 rows) runs K4, decode (8 rows)
+    K3. Prints the tokens' agreement with the bf16 run."""
+    prompts = dense_prompts(cfg.vocab_size, 8, Q2_DENSE_T, SEED + 11)
+    tokens, stats, launches = dense_generate(
+        cfg, qparams, prompts, Q2_DENSE_NEW, Q2_DENSE_CACHE, dev)
+    check(launches["bitplane_gemv"] > 0 and launches["bitplane_gemm"] > 0,
+          f"qwen2 dense pim8: K3/K4 not launched: {launches}")
+    say("dense", model=cfg.name, weights="pim8",
+        agreement_with_bf16=float((tokens == bf16_tokens).mean()),
+        first_token_agreement=float((tokens[:, 0] == bf16_tokens[:, 0])
+                                    .mean()),
+        **stats)
+    return launches
+
+
+def dense_parity(dev):
+    """qwen2-1.5b in f32 with 4 layers at full width: dense `generate`
+    with 8-bit g = 1 PIM weights gives the same tokens with the kernels
+    (K3 on decode, K4 on the 4 x 1600-row prefill) as with the plain
+    versions; and with dense weights, dense `generate` gives the paged
+    engine's tokens. T = 1600: T * T > 2^21, so the dense prefill takes
+    the chunked path, with 64-token kv blocks (`_pick_block` halves 1024
+    down to 64)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), dtype="float32",
+                              n_layers=4)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED + 3),
+                     dev)
+    prompts = dense_prompts(cfg.vocab_size, 4, 1600, SEED + 13)
+    new, cache_len = 16, 1600 + 16
+    qparams = quantize_params(cfg, params)[0]
+    runs = {}
+    for impl in ("cuda", "ref"):
+        runs[impl], _, launches = dense_generate(
+            cfg, qparams, prompts, new, cache_len, dev, kernel_impl=impl)
+        fired = launches["bitplane_gemv"] > 0 and launches["bitplane_gemm"] > 0
+        check(fired if impl == "cuda" else not any(launches.values()),
+              f"dense parity {impl}: launches {launches}")
+    check((runs["cuda"] == runs["ref"]).all(),
+          "dense parity: pim8 tokens differ between the kernels and the "
+          "plain versions")
+    del qparams
+    dense, _, _ = dense_generate(cfg, params, prompts, new, cache_len, dev)
+    eng = ServeEngine(cfg, params, ServeConfig(
+        max_cache_len=cache_len, max_new_tokens=new, paged=True,
+        block_size=BS, device=str(dev)))
+    paged = eng.generate(prompts).cpu().numpy()
+    check((dense == paged).all(),
+          "dense parity: dense-cache tokens differ from paged-cache tokens")
+    say("dense parity", model=f"{cfg.name}[f32,{cfg.n_layers}L]",
+        batch=4, prompt_len=1600, new_tokens=new,
+        pim8_cuda_eq_ref=True, dense_eq_paged=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+#: the gemma3 dense phase: 8 prompts of 1536 tokens (chunked prefill,
+#: kv blocks halved to 512; local layers windowed at 1024), 32 new tokens
+G3_DENSE_T, G3_DENSE_NEW, G3_DENSE_CACHE = 1536, 32, 1576
+
+
+def gemma3_dense(cfg, params, dev):
+    """`ServeEngine.generate` on the dense cache at 62 layers and
+    published width, bf16. Returns its launch counts."""
+    torch.cuda.empty_cache()
+    prompts = dense_prompts(cfg.vocab_size, 8, G3_DENSE_T, SEED + 14)
+    _, stats, launches = dense_generate(
+        cfg, params, prompts, G3_DENSE_NEW, G3_DENSE_CACHE, dev)
+    check(stats["dense_cache_bytes"] == 6_403_653_632,
+          f"gemma3 dense cache bytes {stats['dense_cache_bytes']}")
+    say("dense", model=cfg.name, weights="bf16", **stats)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phases 11-15: gemma3-27b, two layer groups at full width
 # ---------------------------------------------------------------------------
 
@@ -1178,8 +1416,9 @@ def gemma3_serve(cfg, params, dev, kv_dtype, **kw):
 
 
 def gemma3_full_width(dev):
-    """Init at 62 layers and published width with the repaired init_lm,
-    then the bf16-KV and int8-KV drains. Returns each drain's counts."""
+    """Init at 62 layers and published width, then the bf16-KV and
+    int8-KV drains, the telemetry drain, and dense `generate`. Returns
+    each path's counts."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_lm
 
@@ -1200,6 +1439,7 @@ def gemma3_full_width(dev):
         out[kv_dtype], *off[kv_dtype] = gemma3_serve(cfg, params, dev,
                                                      kv_dtype)
     gemma3_telemetry(cfg, params, dev, *off["bf16"])
+    out["dense"] = gemma3_dense(cfg, params, dev)
     del params
     torch.cuda.empty_cache()
     return out
@@ -1352,22 +1592,14 @@ def main() -> int:
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     queued_s = time.perf_counter() - t0
-    # init_lm's shape pass on the meta device, timed alone: the first
-    # meta-device op of a process is where the init's time goes
-    from repro_torch.models.common import compute_dtype
-    from repro_torch.models.transformer import init_layer
     modules = len(sys.modules)
-    t0 = time.perf_counter()
-    init_layer(cfg, None, torch.device("meta"), compute_dtype(cfg.dtype))
-    meta_s = time.perf_counter() - t0
-    modules = len(sys.modules) - modules
     t0 = time.perf_counter()
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in _leaves(params))
     say("init", model=cfg.name, params=n_params,
         seconds=time.perf_counter() - t0, queued_before_s=queued_s,
-        first_meta_pass_s=meta_s, modules_imported_by_it=modules)
+        modules_imported_by_it=len(sys.modules) - modules)
     by_path = {}
     launches, off_results, off_stats = serve_full_width(cfg, params, dev,
                                                         "bf16")
@@ -1376,12 +1608,18 @@ def main() -> int:
     qwen2_annotations(cfg, params, dev)
     by_path["qwen2-1.5b int8 KV"] = serve_full_width(cfg, params, dev,
                                                      "int8")[0]
+    bf16_tokens, by_path["qwen2-1.5b dense bf16"] = qwen2_dense(cfg, params,
+                                                                dev)
+    by_path["qwen2-1.5b dense batcher"] = qwen2_dense_batcher(cfg, params,
+                                                              dev)
     reset_launches()
     qparams, frac, seconds = quantize_params(cfg, params)
     del params
     torch.cuda.empty_cache()
     q_launches = by_path["qwen2-1.5b pim8"] = serve_quantized(
         cfg, qparams, frac, seconds, dev)
+    by_path["qwen2-1.5b dense pim8"] = qwen2_dense_quantized(
+        cfg, qparams, bf16_tokens, dev)
     launches = dict(launches)
     for name in ("bitplane_gemv", "bitplane_gemm", "bitplane_pack"):
         launches[name] = q_launches[name]
@@ -1389,10 +1627,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     qwen2_parity(dev)
     qwen2_parity(dev, quantize=True)
+    dense_parity(dev)
 
     g3 = gemma3_full_width(dev)
     by_path["gemma3-27b bf16 KV"] = g3["bf16"]
     by_path["gemma3-27b int8 KV"] = g3["int8"]
+    by_path["gemma3-27b dense bf16"] = g3["dense"]
     gemma3_parity(dev)
     by_path["gemma3-27b[12L] pim8"] = gemma3_quantized(dev)
 

@@ -1,10 +1,16 @@
-"""Serving launcher: ``python -m repro_torch.launch.serve --paged [...]``.
+"""Serving launcher: ``python -m repro_torch.launch.serve [--paged ...]``.
 
 Counterpart of `repro.launch.serve`, with the same flags plus
 `--kernel-impl auto|cuda|ref` and `--device` (default `cuda`). Like the
 reference launcher it runs the continuous-batching scheduler over the
-arch's smoke config with random weights; prompts are ragged (4 ..
---prompt-len tokens), and with --prefix every prompt opens with a shared
+arch's smoke config with random weights.
+
+Without --paged it serves from the dense pre-allocated cache, the
+reference's default: every prompt is --prompt-len tokens, and
+--prefix, --kv-dtype int8, --prefill-chunk, --group-pool-slack and
+--group-pool auto are refused, as the reference refuses them. With
+--paged the cache is block-paged, prompts are ragged (4 .. --prompt-len
+tokens), and with --prefix every prompt opens with a shared
 --shared-prefix-len system prompt whose KV pages are prefilled once.
 
 With `--arch gemma3-27b` the stack has a global and a windowed layer
@@ -24,9 +30,6 @@ Prometheus-style snapshot. --events-out PATH streams the JSON-lines
 event log to PATH (ending in `run_end`); --profile-annotations wraps the
 serve steps and bucket launches in `torch.profiler.record_function`
 ranges. Both imply --metrics.
-
-Only the paged cache is ported: running without --paged raises "not
-ported yet".
 """
 
 from __future__ import annotations
@@ -58,8 +61,8 @@ def main(argv=None):
     ap.add_argument("--bits", type=int, default=8)
     ap.add_argument("--group", type=int, default=1, choices=[1, 2, 4])
     ap.add_argument("--paged", action="store_true",
-                    help="block-paged KV cache (required: the only cache "
-                         "the port has)")
+                    help="block-paged KV cache (default: the dense "
+                         "pre-allocated cache)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="KV page size in tokens")
     ap.add_argument("--prefix", action="store_true",
@@ -101,8 +104,16 @@ def main(argv=None):
                          "torch.profiler.record_function ranges (implies "
                          "--metrics)")
     args = ap.parse_args(argv)
-    if not args.paged:
-        ap.error("the dense cache is not ported yet: pass --paged")
+    if args.prefix and not args.paged:
+        ap.error("--prefix requires --paged (the prefix index shares "
+                 "pages of the block-paged KV cache)")
+    if args.kv_dtype != "bf16" and not args.paged:
+        ap.error("--kv-dtype int8 requires --paged (quantized pages "
+                 "live in the block-paged pools)")
+    if (args.prefill_chunk or args.group_pool_slack is not None
+            or args.group_pool != "uniform") and not args.paged:
+        ap.error("--prefill-chunk / --group-pool-slack / --group-pool "
+                 "require --paged (they shape the block-paged pools)")
     if args.group_pool == "auto" and not args.prefill_chunk:
         ap.error("--group-pool auto requires --prefill-chunk > 0")
 
@@ -111,8 +122,7 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_lm(cfg, gen, device)
     if args.quantize:
-        eng = ServeEngine(cfg, params, ServeConfig(paged=True,
-                                                   device=str(device)))
+        eng = ServeEngine(cfg, params, ServeConfig(device=str(device)))
         frac = eng.quantize(PimQuantConfig(
             n_bits=args.bits, group=args.group, impl=args.kernel_impl,
             min_features=1))
@@ -130,8 +140,9 @@ def main(argv=None):
     shared_len = args.shared_prefix_len if args.prefix else 0
     cache_len = shared_len + args.prompt_len + args.new_tokens + 8
     batcher = ContinuousBatcher(
-        cfg, params, n_slots=args.slots, cache_len=cache_len, paged=True,
-        block_size=args.block_size, prefix=args.prefix, eos_token=args.eos,
+        cfg, params, n_slots=args.slots, cache_len=cache_len,
+        prompt_len=None if args.paged else args.prompt_len,
+        paged=args.paged, block_size=args.block_size, prefix=args.prefix, eos_token=args.eos,
         kernel_impl=args.kernel_impl, bucket_strategy=args.bucket_strategy,
         window_retirement=not args.no_window_retirement,
         kv_dtype=args.kv_dtype, prefill_chunk=args.prefill_chunk,
@@ -142,7 +153,8 @@ def main(argv=None):
     rng = np.random.default_rng(1)
     shared = rng.integers(0, cfg.vocab_size, shared_len, dtype=np.int32)
     for uid in range(args.requests):
-        t = 4 + int(rng.integers(0, max(args.prompt_len - 3, 1)))
+        t = (4 + int(rng.integers(0, max(args.prompt_len - 3, 1)))
+             if args.paged else args.prompt_len)
         prompt = rng.integers(0, cfg.vocab_size, t, dtype=np.int32)
         batcher.submit(Request(uid=uid,
                                prompt=np.concatenate([shared, prompt]),
@@ -155,9 +167,33 @@ def main(argv=None):
     total_tokens = sum(len(v) for v in results.values())
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "CPU")
+    mode = "paged" if args.paged else "dense"
     print(f"served {len(results)} requests, {total_tokens} tokens "
-          f"in {dt:.2f}s ({total_tokens/dt:.1f} tok/s, paged cache, "
+          f"in {dt:.2f}s ({total_tokens/dt:.1f} tok/s, {mode} cache, "
           f"smoke config, {where})")
+    if args.paged:
+        print_pools(batcher)
+    else:
+        print(f"  prefill tokens processed: {batcher.prefill_tokens}, "
+              f"ticks: {batcher.ticks}, cache position: "
+              f"{batcher.cache['position']}")
+    if args.prefix:
+        ix = batcher.prefix
+        print(f"  prefix index: {ix.hits}/{ix.lookups} hits, "
+              f"{ix.cached_tokens_served} prompt tokens served from cache, "
+              f"{len(ix)} pages indexed")
+    for uid in sorted(results)[:3]:
+        print(f"  req {uid}: {results[uid]}")
+    if telemetry is not None:
+        print_telemetry(telemetry)
+        telemetry.close()
+        if args.events_out:
+            print(f"  events written to {args.events_out}")
+
+
+def print_pools(batcher) -> None:
+    """The paged cache's page accounting, per layer group when the stack
+    has more than one."""
     pc = batcher.pcache
     print(f"  prefill tokens processed: {batcher.prefill_tokens}, "
           f"pages allocated: {pc.pages_allocated}, COW: {pc.cow_events}, "
@@ -176,18 +212,6 @@ def main(argv=None):
         print(f"  page bytes: peak resident "
               f"{pc.peak_resident_page_bytes()}, provisioned "
               f"{pc.provisioned_page_bytes()}")
-    if args.prefix:
-        ix = batcher.prefix
-        print(f"  prefix index: {ix.hits}/{ix.lookups} hits, "
-              f"{ix.cached_tokens_served} prompt tokens served from cache, "
-              f"{len(ix)} pages indexed")
-    for uid in sorted(results)[:3]:
-        print(f"  req {uid}: {results[uid]}")
-    if telemetry is not None:
-        print_telemetry(telemetry)
-        telemetry.close()
-        if args.events_out:
-            print(f"  events written to {args.events_out}")
 
 
 def print_telemetry(telemetry: ServeTelemetry) -> None:

@@ -1,13 +1,25 @@
-"""Paged GQA attention: counterpart of `repro.models.attention` (its
-lines 29-84 and 294-509).
+"""GQA attention, dense and paged: counterpart of
+`repro.models.attention` (its lines 29-291 and 294-509).
 
-The reference's pools are immutable and each call returns new ones.
-Here the per-layer pools passed in are views of the stacked
-`[L, n_blocks, ...]` pools, and the KV append writes into them IN PLACE
+Dense path (`attention_forward`, `attention_prefill`,
+`attention_decode`): full-sequence attention over the fresh K/V, dense
+below `DENSE_SCORE_LIMIT` score elements per (batch, head) and an
+online-softmax walk over q and kv blocks above it, as in the reference
+— the two sum in different orders, so the switch is kept exactly. The
+reference computes these in jnp outside any Pallas kernel; here they are
+plain torch ops with the same f32 arithmetic, not
+`scaled_dot_product_attention`. The per-layer caches passed in are
+views of the stacked `[L, B, S, KV, hd]` cache and are written IN PLACE.
+
+Paged path: the reference's pools are immutable and each call returns
+new ones. Here the per-layer pools passed in are views of the stacked
+`[L, n_blocks, ...]` pools, and the KV append writes into them in place
 (`index_put_`); the functions still return the pools so the call shape
-matches the reference's. Every projection goes through
-`quant.pim_linear` with the step's `impl`, so PIM bit-plane weights run
-on K3/K4 (or their plain versions under `impl="ref"`).
+matches the reference's.
+
+Every projection goes through `quant.pim_linear` with the step's
+`impl`, so PIM bit-plane weights run on K3/K4 (or their plain versions
+under `impl="ref"`).
 """
 
 from __future__ import annotations
@@ -20,7 +32,7 @@ from ..kernels.paged_attention import paged_attention
 from ..kernels.paged_common import requantize_page_update
 from ..kernels.paged_prefill import paged_prefill
 from ..quant.bitplane import pim_linear
-from .common import Params, apply_rope, dense_init
+from .common import NEG_INF, Params, apply_rope, dense_init
 
 
 def _select_bucket_plan(call, bucket_plans, bucket_perms, plan_class):
@@ -69,6 +81,222 @@ def _project_qkv(params, x, n_heads, n_kv, hd, impl):
         v = v + params["bv"].to(v.dtype)
     return (q.reshape(b, t, n_heads, hd), k.reshape(b, t, n_kv, hd),
             v.reshape(b, t, n_kv, hd))
+
+
+def _gqa_core(
+    q: torch.Tensor,            # [B, T, H, hd]
+    k: torch.Tensor,            # [B, S, KV, hd]
+    v: torch.Tensor,            # [B, S, KV, hd]
+    mask: Optional[torch.Tensor],  # [B or 1, T, S] additive f32, or None
+) -> torch.Tensor:
+    b, t, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, t, kv, g, hd)
+    scale = hd ** -0.5
+    scores = torch.einsum("btkgh,bskh->bkgts", qg.float(), k.float()) * scale
+    if mask is not None:
+        scores = scores + mask[:, None, None, :, :]
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bskh->btkgh", probs, v.float())
+    return out.reshape(b, t, h * hd).to(q.dtype)
+
+
+#: q / kv block of the online-softmax walk
+Q_BLOCK = 512
+KV_BLOCK = 1024
+#: above this many score elements per (batch, head) the dense form would
+#: hold a [T, S] buffer; the walk over blocks takes over
+DENSE_SCORE_LIMIT = 1 << 21
+
+
+def _pick_block(n: int, target: int) -> int:
+    bl = min(target, n)
+    while n % bl:
+        bl //= 2
+    return max(bl, 1)
+
+
+def _chunked_gqa(
+    q: torch.Tensor,            # [B, T, H, hd]
+    k: torch.Tensor,            # [B, S, KV, hd]
+    v: torch.Tensor,
+    q_pos: torch.Tensor,        # [T]
+    kv_pos: torch.Tensor,       # [S]
+    window: Optional[int],
+    causal: bool,
+) -> torch.Tensor:
+    """Online-softmax attention, in the reference's arithmetic: kv blocks
+    of `_pick_block(S, KV_BLOCK)` walked in order, running max and sum in
+    f32, the `max(l, 1e-30)` epilogue. The kv block edges are where the
+    running sums merge, so they follow the reference exactly. A q row's
+    arithmetic does not depend on which rows share its block, so q rows
+    are taken Q_BLOCK at a time (the last group ragged) where the
+    reference takes `_pick_block(T, Q_BLOCK)` — which falls to 1 row for
+    an odd T and would make this Python loop T times longer. Each
+    block's scores are dropped before the next, so one
+    [B, KV, G, Q_BLOCK, kb] f32 block (and its exponentials) is alive
+    at a time."""
+    b, t, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    kb = _pick_block(s, KV_BLOCK)
+    scale = hd ** -0.5
+    outs = []
+    for i in range(0, t, Q_BLOCK):
+        qp = q_pos[i: i + Q_BLOCK]
+        qb = qp.shape[0]
+        qf = q[:, i: i + qb].reshape(b, qb, kvh, g, hd).float() * scale
+        acc = torch.zeros((b, kvh, g, qb, hd), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((b, kvh, g, qb), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, kvh, g, qb), dtype=torch.float32,
+                        device=q.device)
+        for j in range(0, s, kb):
+            kp = kv_pos[j: j + kb]
+            scores = torch.einsum("bqkgh,bskh->bkgqs", qf,
+                                  k[:, j: j + kb].float())
+            ok = torch.ones((qb, kb), dtype=torch.bool, device=q.device)
+            if causal:
+                ok = ok & (kp[None, :] <= qp[:, None])
+            if window is not None:
+                ok = ok & (kp[None, :] > qp[:, None] - window)
+            scores = torch.where(ok, scores, NEG_INF)
+            m_new = torch.maximum(m, scores.amax(dim=-1))
+            p = torch.exp(scores - m_new[..., None])
+            del scores
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(dim=-1)
+            acc = alpha[..., None] * acc + torch.einsum(
+                "bkgqs,bskh->bkgqh", p, v[:, j: j + kb].float())
+            m = m_new
+            del p
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, qb, h * hd))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _full_seq_attention(q, k, v, q_pos, kv_pos, window, causal):
+    """Dense or chunked by score-buffer size, as the reference picks."""
+    t, s = q.shape[1], k.shape[1]
+    if t * s <= DENSE_SCORE_LIMIT:
+        if causal:
+            ok = kv_pos[None, :] <= q_pos[:, None]
+            if window is not None:
+                ok = ok & (kv_pos[None, :] > q_pos[:, None] - window)
+            mask = torch.where(ok, 0.0, NEG_INF).float()[None]
+        else:
+            mask = None
+        return _gqa_core(q, k, v, mask)
+    return _chunked_gqa(q, k, v, q_pos, kv_pos, window, causal)
+
+
+def attention_forward(
+    params: Params,
+    x: torch.Tensor,            # [B, T, D]
+    positions: torch.Tensor,    # [T] int
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    rope_theta: float,
+    window: Optional[int] = None,  # None = full causal
+    causal: bool = True,           # False = bidirectional (encoder)
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Full-sequence attention (training / prefill logits)."""
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim, impl)
+    q = apply_rope(q, positions[None, :], rope_theta)
+    k = apply_rope(k, positions[None, :], rope_theta)
+    out = _full_seq_attention(q, k, v, positions, positions, window, causal)
+    return pim_linear(out, params["wo"], impl)
+
+
+def attention_prefill(
+    params: Params,
+    x: torch.Tensor,            # [B, T, D]
+    positions: torch.Tensor,    # [T] int
+    cache_k: torch.Tensor,      # [B, S, KV, hd] — this layer's cache
+    cache_v: torch.Tensor,
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    rope_theta: float,
+    window: Optional[int] = None,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefill: causal attention over the prompt; its KV is written into
+    rows [0, T) of the cache in place."""
+    t = x.shape[1]
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim, impl)
+    q = apply_rope(q, positions[None, :], rope_theta)
+    k = apply_rope(k, positions[None, :], rope_theta)
+    cache_k[:, :t] = k.to(cache_k.dtype)
+    cache_v[:, :t] = v.to(cache_v.dtype)
+    out = _full_seq_attention(q, k, v, positions, positions, window,
+                              causal=True)
+    return pim_linear(out, params["wo"], impl), cache_k, cache_v
+
+
+def decode_position(position: int, device) -> torch.Tensor:
+    """The RoPE position `[1, 1]` of a decode step's new token."""
+    return torch.full((1, 1), position, dtype=torch.int64, device=device)
+
+
+def decode_mask(position: int, s: int, window: Optional[int],
+                device) -> torch.Tensor:
+    """Additive decode mask `[1, 1, S]` over the cache rows: 0 where
+    `kv_pos <= position` (and `> position - window`), else NEG_INF."""
+    kv_pos = torch.arange(s, device=device)
+    ok = kv_pos <= position
+    if window is not None:
+        ok = ok & (kv_pos > position - window)
+    return torch.where(ok, 0.0, NEG_INF).float()[None, None, :]
+
+
+def attention_decode(
+    params: Params,
+    x: torch.Tensor,            # [B, 1, D]
+    position: int,              # index of the new token, shared by all rows
+    cache_k: torch.Tensor,      # [B, S, KV, hd] — this layer's cache
+    cache_v: torch.Tensor,
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    rope_theta: float,
+    window: Optional[int] = None,
+    impl: str = "auto",
+    rope_pos: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode against the cache, the paper's workload: a batch
+    of GEMVs against PIM-resident weights and a KV-cache sweep.
+
+    The new KV row is written in place at `min(max(position, 0), S - 1)`:
+    the reference writes with `dynamic_update_slice`, which clamps its
+    start index so, while RoPE and the mask (`kv_pos <= position`, and
+    `> position - window`) take the unclamped position. `position` is a
+    host int, so building the mask and the write index reads nothing
+    back from the device. A caller that runs many layers at one position
+    passes `rope_pos = decode_position(position, device)` and `mask =
+    decode_mask(position, S, window, device)`, built once per step (and
+    window), instead of once per layer."""
+    s = cache_k.shape[1]
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim, impl)
+    if rope_pos is None:
+        rope_pos = decode_position(position, x.device)
+    q = apply_rope(q, rope_pos, rope_theta)
+    k = apply_rope(k, rope_pos, rope_theta)
+    row = min(max(position, 0), s - 1)
+    cache_k[:, row] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, row] = v[:, 0].to(cache_v.dtype)
+    if mask is None:
+        mask = decode_mask(position, s, window, x.device)
+    out = _gqa_core(q, cache_k, cache_v, mask)
+    return pim_linear(out, params["wo"], impl), cache_k, cache_v
 
 
 def attention_decode_paged(

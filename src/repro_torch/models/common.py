@@ -1,4 +1,5 @@
-"""Shared model building blocks: dtype policy, device, init, norms, RoPE.
+"""Shared model building blocks: dtype policy, device, init, norms, RoPE,
+the additive mask's "minus infinity".
 
 Counterpart of `repro.models.common`. Parameters are plain nested dicts
 of tensors, with the reference's names (projection kernels ``w*``,
@@ -104,3 +105,7 @@ def apply_rope(
 
 
 ACTS = {"silu": torch.nn.functional.silu}
+
+#: the additive attention mask's value at a masked score (the
+#: reference's; finite, so a fully masked row stays finite)
+NEG_INF = -1e30

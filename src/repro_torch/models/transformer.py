@@ -1,11 +1,23 @@
-"""Decoder-only LM, paged serving entry points: counterpart of the
-attention-stack parts of `repro.models.transformer`.
+"""Decoder-only LM: counterpart of the attention-stack parts of
+`repro.models.transformer`.
+
+Entry points, as in the reference:
+
+    forward(params, tokens, cfg)                 -> (logits, aux)
+    prefill(params, tokens, cfg, cache_len)      -> (logits, cache)
+    decode_step(params, token, cache, cfg)       -> (logits, cache)
+    prefill_paged / decode_step_paged            (block-paged pools)
 
 Parameters keep the reference's tree: layer parameters stacked as
 `[L, ...]` under "layers". The reference scans the stack with
 `lax.scan`; here a Python loop walks the layers, and each layer's
-parameters and pools are views `stack[l]`, so the in-place KV writes of
-the attention layer land in the stacked pools.
+parameters, caches and pools are views `stack[l]`, so the in-place KV
+writes of the attention layer land in the stacked tensors.
+
+The dense cache is `{"position": int, "k": [L, B, S, KV, hd],
+"v": ...}` in the compute dtype. Its position is a host int, one write
+position shared by every row, so a decode step reads nothing back from
+the device to place its KV.
 """
 
 from __future__ import annotations
@@ -17,9 +29,15 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.ops import is_bucket_plan
+from ..quant.bitplane import PimWeight
 from .attention import (
+    attention_decode,
     attention_decode_paged,
+    attention_forward,
+    attention_prefill,
     attention_prefill_paged,
+    decode_mask,
+    decode_position,
     init_attention,
 )
 from .common import (
@@ -63,12 +81,37 @@ def init_layer(cfg: ModelConfig, generator, device, dtype,
     }
 
 
+def layer_shapes(cfg: ModelConfig, dtype) -> Params:
+    """`init_layer`'s tree with a `(shape, dtype)` pair at each leaf,
+    from the config alone: weights and biases in `dtype`, norm gains in
+    f32."""
+    d, hd, f32 = cfg.d_model, cfg.hd, torch.float32
+    attn = {
+        "wq": ((d, cfg.n_heads * hd), dtype),
+        "wk": ((d, cfg.n_kv_heads * hd), dtype),
+        "wv": ((d, cfg.n_kv_heads * hd), dtype),
+        "wo": ((cfg.n_heads * hd, d), dtype),
+    }
+    if cfg.qkv_bias:
+        attn.update(bq=((cfg.n_heads * hd,), dtype),
+                    bk=((cfg.n_kv_heads * hd,), dtype),
+                    bv=((cfg.n_kv_heads * hd,), dtype))
+    return {
+        "ln1": {"g": ((d,), f32)},
+        "attn": attn,
+        "ln2": {"g": ((d,), f32)},
+        "mlp": {"w_gate": ((d, cfg.d_ff), dtype),
+                "w_up": ((d, cfg.d_ff), dtype),
+                "w_down": ((cfg.d_ff, d), dtype)},
+    }
+
+
 def _empty_stack(tree: Params, n: int, device) -> Params:
-    """Uninitialised `[n, ...]` leaves shaped like `tree`'s."""
+    """Uninitialised `[n, ...]` leaves for a `layer_shapes` tree."""
     if isinstance(tree, dict):
         return {k: _empty_stack(v, n, device) for k, v in tree.items()}
-    return torch.empty((n,) + tuple(tree.shape), dtype=tree.dtype,
-                       device=device)
+    shape, dtype = tree
+    return torch.empty((n,) + shape, dtype=dtype, device=device)
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator,
@@ -87,8 +130,7 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     _check_supported(cfg)
     dev = resolve_device(device)
     dt = compute_dtype(cfg.dtype)
-    shapes = init_layer(cfg, None, torch.device("meta"), dt)
-    layers = _empty_stack(shapes, cfg.n_layers, dev)
+    layers = _empty_stack(layer_shapes(cfg, dt), cfg.n_layers, dev)
     for l in range(cfg.n_layers):
         init_layer(cfg, generator, dev, dt, out=layer_params(layers, l))
     params: Params = {
@@ -100,6 +142,16 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
         params["lm_head"] = embed_init(cfg.d_model, cfg.vocab_size,
                                        generator, dev, dt)
     return params
+
+
+def count_params(params: Params) -> int:
+    """Elements in the tree; a `PimWeight` counts its planes and scale,
+    the leaves the reference's pytree flattens it to."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, PimWeight):
+        return params.planes.numel() + params.scale.numel()
+    return params.numel()
 
 
 def layer_params(stacked: Params, l: int) -> Params:
@@ -126,6 +178,113 @@ def _head(params, x, cfg):
 
 def _window_array(cfg: ModelConfig, seq_len: int) -> List[int]:
     return list(cfg.window_schedule(seq_len))
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward and the dense pre-allocated cache
+# ---------------------------------------------------------------------------
+
+def _attn_kwargs(cfg: ModelConfig):
+    return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.hd, rope_theta=cfg.rope_theta)
+
+
+def _layer_loop(params, x, cfg, windows, attn, impl):
+    """The body of the reference's `lax.scan`s, one layer at a time:
+    `attn(l, attn_params, normed_x, window)` gives layer `l`'s attention
+    output, then the SwiGLU block. `impl` reaches every projection
+    (`pim_linear`)."""
+    for l in range(cfg.n_layers):
+        lp = layer_params(params["layers"], l)
+        x = x + attn(l, lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                     windows[l])
+        x = x + swiglu(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps),
+                       cfg.act, impl)
+    return x
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            impl: str = "auto") -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence logits [B, T, V] (training / scoring), windows from
+    `window_schedule(T)`; aux `{"moe_aux": 0.0}` (no expert layers)."""
+    _check_supported(cfg)
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+
+    def attn(l, p, h, window):
+        return attention_forward(p, h, positions, window=window, impl=impl,
+                                 **_attn_kwargs(cfg))
+
+    x = _layer_loop(params, x, cfg, _window_array(cfg, x.shape[1]), attn,
+                    impl)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(params, x, cfg), {"moe_aux": aux}
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device="cuda") -> Dict:
+    """Pre-allocated decode cache: zero K/V `[L, batch, cache_len, KV,
+    hd]` in the compute dtype and write position 0."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    dt = compute_dtype(cfg.dtype)
+    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.hd)
+    return {"position": 0,
+            "k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def _cache_len(cache: Dict, cfg: ModelConfig) -> int:
+    return cache["k"].shape[2]
+
+
+def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            cache_len: int, last_pos=None, impl: str = "auto"
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Process a [B, T] prompt into a new cache of `cache_len` rows (its
+    KV in rows [0, T), zeros after, position T) and return the logits
+    [B, 1, V] of position T-1, or of `last_pos` — clamped into [0, T-1]
+    as the reference's `dynamic_slice` clamps it. Windows come from
+    `window_schedule(cache_len)`, as in the reference."""
+    _check_supported(cfg)
+    x = _embed(params, tokens, cfg)
+    b, t, _ = x.shape
+    positions = torch.arange(t, device=x.device)
+    cache = init_cache(cfg, b, cache_len, x.device)
+
+    def attn(l, p, h, window):
+        return attention_prefill(p, h, positions, cache["k"][l],
+                                 cache["v"][l], window=window, impl=impl,
+                                 **_attn_kwargs(cfg))[0]
+
+    x = _layer_loop(params, x, cfg, _window_array(cfg, cache_len), attn,
+                    impl)
+    cache["position"] = t
+    last = t - 1 if last_pos is None else min(max(int(last_pos), 0), t - 1)
+    return _head(params, x[:, last: last + 1], cfg), cache
+
+
+def decode_step(params: Params, token: torch.Tensor, cache: Dict,
+                cfg: ModelConfig, impl: str = "auto"
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One new token per row [B, 1] at the cache's shared position: the
+    paper's GEMV workload. The K/V tensors of `cache` are written in
+    place; the returned cache holds them and position + 1. Returns
+    (logits [B, 1, V], cache)."""
+    _check_supported(cfg)
+    x = _embed(params, token, cfg)
+    pos, s = cache["position"], _cache_len(cache, cfg)
+    rope_pos = decode_position(pos, x.device)
+    windows = _window_array(cfg, s)
+    masks = {w: decode_mask(pos, s, w, x.device) for w in set(windows)}
+
+    def attn(l, p, h, window):
+        return attention_decode(p, h, pos, cache["k"][l], cache["v"][l],
+                                window=window, impl=impl, rope_pos=rope_pos,
+                                mask=masks[window], **_attn_kwargs(cfg))[0]
+
+    x = _layer_loop(params, x, cfg, windows, attn, impl)
+    return _head(params, x, cfg), dict(cache, position=pos + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -213,39 +372,31 @@ def _per_layer_paged_views(cfg, block_table, block_start, bucket_plan,
     return block_table, block_start, plans, perms, cls
 
 
-def _attn_kwargs(cfg: ModelConfig):
-    return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                head_dim=cfg.hd, rope_theta=cfg.rope_theta)
-
-
 def _run_layers(params, x, cfg, attn_fn, attn_args, k_pages, v_pages,
                 block_table, block_start, bucket_plan, bucket_perm,
                 k_scales, v_scales, impl):
-    """The layer loop shared by decode and prefill (the reference's two
-    `lax.scan` bodies): attention through `attn_fn` with each layer's
-    pools, table, window and plan variant, then the SwiGLU block. `impl`
-    reaches the attention kernels and every projection (`pim_linear`)."""
+    """The paged layer loop shared by decode and prefill: attention
+    through `attn_fn` with each layer's pools, table, window and plan
+    variant. `impl` reaches the attention kernels and every
+    projection."""
     capacity = block_table.shape[-1] * k_pages.shape[2]
-    windows = _window_array(cfg, capacity)
     bt, st, plans, perms, cls = _per_layer_paged_views(
         cfg, block_table, block_start, bucket_plan, bucket_perm, capacity
     )
     quantized = k_scales is not None
-    for l in range(cfg.n_layers):
-        lp = layer_params(params["layers"], l)
-        h = attn_fn(
-            lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), *attn_args,
-            k_pages[l], v_pages[l], bt[l].contiguous(),
-            window=windows[l], impl=impl, block_start=st[l].contiguous(),
+
+    def attn(l, p, h, window):
+        return attn_fn(
+            p, h, *attn_args, k_pages[l], v_pages[l], bt[l].contiguous(),
+            window=window, impl=impl, block_start=st[l].contiguous(),
             bucket_plans=plans, bucket_perms=perms, plan_class=cls[l],
             k_scales=k_scales[l] if quantized else None,
             v_scales=v_scales[l] if quantized else None,
             **_attn_kwargs(cfg),
         )[0]
-        x = x + h
-        x = x + swiglu(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps),
-                       cfg.act, impl)
-    return x
+
+    return _layer_loop(params, x, cfg, _window_array(cfg, capacity), attn,
+                       impl)
 
 
 def decode_step_paged(

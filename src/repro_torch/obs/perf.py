@@ -31,7 +31,7 @@ Two differences from the reference:
     rule does (`kernels.ops.resolve_impl`): plans are built exactly when
     `ops._bucketing_off` says they are not off.
   * Nothing compiles. `CompileWatcher.on_compile` is called by
-    `serve.compiled.PagedStep` on the first call of each new step
+    `serve.compiled.ServeStep` on the first call of each new step
     signature (what the reference's jit cache counts as one trace), with
     that call's host time read through `watcher.clock()`. There is no
     compiler cost analysis, so `hlo_flops` / `hlo_bytes` are 0, as the
@@ -297,7 +297,7 @@ class PerfModel:
 class CompileWatcher:
     """Step-signature introspection for the serve steps.
 
-    `serve.compiled.PagedStep` calls `on_compile` once per new (plans,
+    `serve.compiled.ServeStep` calls `on_compile` once per new (plans,
     argument signature) of a step — the reference's one XLA compile.
     Everything lands in the registry — `serve_recompiles_total{step,
     plans}`, `serve_compile_walltime_s{step}` — plus a host-side record
@@ -311,7 +311,7 @@ class CompileWatcher:
         self.compiles: List[Dict[str, object]] = []
 
     def clock(self) -> float:
-        """The registry's injected clock, in seconds: `PagedStep` times a
+        """The registry's injected clock, in seconds: `ServeStep` times a
         signature's first call through here, so a `ManualClock` registry
         makes the walltimes deterministic in tests."""
         return float(self.registry.clock())

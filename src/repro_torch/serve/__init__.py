@@ -1,4 +1,5 @@
-"""Paged continuous-batching serving: counterpart of `repro.serve`."""
+"""Serving, dense and paged, and continuous batching: counterpart of
+`repro.serve`."""
 
 from .engine import ServeConfig, ServeEngine
 from .paged_cache import SCRATCH_PAGE, PagedKVCache

@@ -1,10 +1,11 @@
-"""Step callables over the paged model entry points: counterpart of
-`repro.serve.compiled` (`jit_paged_prefill` / `jit_paged_decode`).
+"""Step callables over the model's serving entry points: counterpart of
+`repro.serve.compiled` (`jit_paged_prefill` / `jit_paged_decode` /
+`jit_dense_prefill` / `jit_dense_decode`).
 
-`ServeEngine` and `ContinuousBatcher` drive the same two steps (suffix
-prefill into the page pools, one-token paged decode); building them here
-keeps the `models.prefill_paged` / `models.decode_step_paged` call
-signatures in one place. PyTorch runs eagerly, so there is nothing to
+`ServeEngine` and `ContinuousBatcher` drive the same steps (suffix
+prefill into the page pools and one-token paged decode; prefill into a
+new dense cache and one-token dense decode); building them here keeps
+the `models` call signatures in one place. PyTorch runs eagerly, so there is nothing to
 compile: each step is a plain callable. What the reference's jit cache
 bounded — one compiled program per distinct (step kind, bucket plans,
 argument shape/dtype signature) — is kept as an observable: every new
@@ -28,9 +29,10 @@ Telemetry hooks (DESIGN.md §13-§14), both off by default and free then:
     time, read through `watcher.clock()` — the port's version of the
     reference's per-compile report.
   * `annotate=True`: each call runs inside a
-    `torch.profiler.record_function("serve/paged_prefill")` (or
-    `"serve/paged_decode"`) range, and each bucket launch of its paged
-    attention inside `paged_bucket_d{bound}x{count}`
+    `torch.profiler.record_function` range named after its step
+    (`serve/paged_prefill`, `serve/paged_decode`, `serve/dense_prefill`,
+    `serve/dense_decode`), and each bucket launch of a paged attention
+    inside `paged_bucket_d{bound}x{count}`
     (`kernels.paged_common.bucket_scopes`).
 """
 
@@ -42,7 +44,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.paged_common import bucket_scopes
-from ..models import decode_step_paged, prefill_paged
+from ..models import decode_step, decode_step_paged, prefill, prefill_paged
 from ..quant.bitplane import PimWeight
 
 #: (step kind, plans) appended once per new step signature
@@ -71,17 +73,19 @@ def _leaf_sig(leaf):
     return ("py", type(leaf).__name__)
 
 
-class PagedStep:
-    """One serve step: calls `fn` and logs each new (plans, signature)
-    once — the analog of one trace of the reference's jitted step — and
-    reports it to `watcher` when one is attached."""
+class ServeStep:
+    """One serve step of kind `kind`: calls `fn` and logs each new
+    (plans, signature) once — the analog of one trace of the reference's
+    jitted step — and reports it to `watcher` when one is attached. With
+    `annotate`, each call runs inside the profiler range `scope`."""
 
-    def __init__(self, kind: str, fn, watcher=None, annotate: bool = False):
+    def __init__(self, kind: str, scope: str, fn, watcher=None,
+                 annotate: bool = False):
         self.kind = kind
         self._fn = fn
         self._seen = set()
         self._watcher = watcher
-        self._scope = f"serve/paged_{kind}" if annotate else None
+        self._scope = scope if annotate else None
 
     def __call__(self, *args, perms=None, plans=None):
         key = (plans, _leaf_sig((args, perms)))
@@ -109,7 +113,7 @@ class PagedStep:
 
 def paged_prefill_step(cfg: ModelConfig, impl: str = "auto",
                        kv_dtype: str = "bf16", watcher=None,
-                       annotate: bool = False) -> PagedStep:
+                       annotate: bool = False) -> ServeStep:
     """(params, toks, k_pages, v_pages, block_tables, block_starts, start,
     total, last_pos, perms=..., plans=...) -> (logits, k_pages, v_pages),
     pools updated in place. `kv_dtype="int8"`: (params, toks, k_pages,
@@ -124,19 +128,20 @@ def paged_prefill_step(cfg: ModelConfig, impl: str = "auto",
                 impl=impl, bucket_plan=plans, bucket_perm=perms,
                 block_start=st, k_scales=ks, v_scales=vs,
             )
-        return PagedStep("prefill", qfn, watcher, annotate)
+        return ServeStep("prefill", "serve/paged_prefill", qfn, watcher,
+                         annotate)
 
     def fn(p, toks, kp, vp, bt, st, strt, tot, lp, perms=None, plans=None):
         return prefill_paged(
             p, toks, kp, vp, bt, strt, tot, cfg, last_pos=lp, impl=impl,
             bucket_plan=plans, bucket_perm=perms, block_start=st,
         )
-    return PagedStep("prefill", fn, watcher, annotate)
+    return ServeStep("prefill", "serve/paged_prefill", fn, watcher, annotate)
 
 
 def paged_decode_step(cfg: ModelConfig, impl: str = "auto",
                       kv_dtype: str = "bf16", watcher=None,
-                      annotate: bool = False) -> PagedStep:
+                      annotate: bool = False) -> ServeStep:
     """(params, token, k_pages, v_pages, block_tables, block_starts,
     positions, perms=..., plans=...) -> (logits, k_pages, v_pages), pools
     updated in place; the int8 variant takes and returns the scale
@@ -149,11 +154,34 @@ def paged_decode_step(cfg: ModelConfig, impl: str = "auto",
                 bucket_plan=plans, bucket_perm=perms, block_start=st,
                 k_scales=ks, v_scales=vs,
             )
-        return PagedStep("decode", qfn, watcher, annotate)
+        return ServeStep("decode", "serve/paged_decode", qfn, watcher,
+                         annotate)
 
     def fn(p, t, kp, vp, bt, st, pos, perms=None, plans=None):
         return decode_step_paged(
             p, t, kp, vp, bt, pos, cfg, impl=impl,
             bucket_plan=plans, bucket_perm=perms, block_start=st,
         )
-    return PagedStep("decode", fn, watcher, annotate)
+    return ServeStep("decode", "serve/paged_decode", fn, watcher, annotate)
+
+
+def dense_prefill_step(cfg: ModelConfig, cache_len: int, impl: str = "auto",
+                       watcher=None, annotate: bool = False) -> ServeStep:
+    """(params, toks) -> (logits, cache): the prompt batch prefilled into
+    a new dense cache of `cache_len` rows (`models.prefill`)."""
+
+    def fn(p, toks, perms=None, plans=None):
+        return prefill(p, toks, cfg, cache_len, impl=impl)
+    return ServeStep("dense_prefill", "serve/dense_prefill", fn, watcher,
+                     annotate)
+
+
+def dense_decode_step(cfg: ModelConfig, impl: str = "auto", watcher=None,
+                      annotate: bool = False) -> ServeStep:
+    """(params, token, cache) -> (logits, cache): one dense decode step
+    (`models.decode_step`), the cache's K/V written in place."""
+
+    def fn(p, t, cache, perms=None, plans=None):
+        return decode_step(p, t, cache, cfg, impl=impl)
+    return ServeStep("dense_decode", "serve/dense_decode", fn, watcher,
+                     annotate)

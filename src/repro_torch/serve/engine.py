@@ -1,24 +1,32 @@
-"""Serving engine, paged mode: counterpart of `ServeConfig` and
-`ServeEngine._generate_paged` of `repro.serve.engine`.
+"""Serving engine: counterpart of `ServeConfig` and `ServeEngine` of
+`repro.serve.engine`.
 
-`generate` runs a [B, T] prompt batch end to end: a whole-batch prefill
-straight into the page pools (chunked when `prefill_chunk > 0`), then
-one-token decode steps. `eos_token >= 0` stops a row at that token (kept
-in the output); stopped rows are padded with it, release their pages at
-once, and generation returns when every row has stopped — so the
-returned width is the number of decode iterations run.
+`generate` runs a [B, T] prompt batch end to end: a whole-batch prefill,
+then one-token decode steps.
+
+  * `paged=False` (the default): the dense pre-allocated cache of
+    `max_cache_len` rows, whose write position starts at T and is
+    shared by every row. Past `max_cache_len` the decode writes clamp to
+    the last row, as the reference's do.
+  * `paged=True`: the block-paged cache; the prefill goes straight into
+    the page pools (chunked when `prefill_chunk > 0`).
+
+`eos_token >= 0` stops a row at that token (kept in the output);
+stopped rows are padded with it (in paged mode they also release their
+pages at once), and generation returns when every row has stopped — so
+the returned width is the number of decode iterations run.
 
 `quantize(qcfg)` converts the projection weights to PIM bit-plane
 `PimWeight`s (K5 packs them on the card); `generate` and the
 `ContinuousBatcher` take the quantized parameters as they are, and every
-projection then runs on K3/K4. The dense cache is not ported yet and
-raises.
+projection then runs on K3/K4.
 
 `telemetry=` (an `obs.ServeTelemetry`) gets the reference's hooks in the
 reference's order: each batch row is submitted and admitted at once,
-every prefill chunk and decode step is accounted, each row's first
-token and finish are traced, and each decode step ends a tick with the
-pool gauges. Each `generate` call's rows take fresh trace uids.
+every prefill (each chunk, in paged mode) and decode step is accounted,
+each row's first token and finish are traced, and each decode step ends
+a tick (with the pool gauges, in paged mode). Each `generate` call's
+rows take fresh trace uids.
 """
 
 from __future__ import annotations
@@ -37,7 +45,12 @@ from ..quant.bitplane import (
     quantize_tree,
     tree_packed_fraction,
 )
-from .compiled import paged_decode_step, paged_prefill_step
+from .compiled import (
+    dense_decode_step,
+    dense_prefill_step,
+    paged_decode_step,
+    paged_prefill_step,
+)
 from .paged_cache import PagedKVCache
 
 
@@ -47,9 +60,11 @@ class ServeConfig:
     max_new_tokens: int = 32
     temperature: float = 0.0  # 0 = greedy
     eos_token: int = -1       # -1 = never stop early
-    paged: bool = False       # block-paged KV cache (the only mode ported)
+    paged: bool = False       # block-paged KV cache (per-slot positions)
     block_size: int = 16      # KV page size in tokens
-    kernel_impl: str = "auto"  # paged-attention path (ops.resolve_impl)
+    #: kernel path of the paged attention and of every bit-plane
+    #: projection (ops.resolve_impl)
+    kernel_impl: str = "auto"
     #: "pow2" bounds every paged launch at its bucket's page occupancy;
     #: "none" keeps the single full-depth launch
     bucket_strategy: str = "pow2"
@@ -82,6 +97,14 @@ class ServeEngine:
         self._uid_base = 0
         annotate = telemetry is not None and telemetry.profile
         watcher = None if telemetry is None else telemetry.compile_watcher()
+        self._prefill = dense_prefill_step(
+            cfg, serve_cfg.max_cache_len, impl=serve_cfg.kernel_impl,
+            watcher=watcher, annotate=annotate,
+        )
+        self._decode = dense_decode_step(
+            cfg, impl=serve_cfg.kernel_impl, watcher=watcher,
+            annotate=annotate,
+        )
         self._decode_paged = paged_decode_step(
             cfg, impl=serve_cfg.kernel_impl, kv_dtype=serve_cfg.kv_dtype,
             watcher=watcher, annotate=annotate,
@@ -117,11 +140,39 @@ class ServeEngine:
         """Greedy (or temperature, with `rng`) generation for a [B, T]
         prompt batch; returns [B, n] int32 tokens on the engine's device,
         n <= max_new_tokens."""
-        if not self.sc.paged:
-            raise NotImplementedError(
-                "the dense cache is not ported yet; use paged=True"
-            )
-        return self._generate_paged(prompts, rng)
+        prompts = torch.as_tensor(prompts, dtype=torch.int32).to(self.device)
+        if self.sc.paged:
+            return self._generate_paged(prompts, rng)
+        b, t = prompts.shape
+        tel = self.telemetry
+        uids = self._trace_admit(b, t) if tel is not None else None
+        logits, cache = self._prefill(self.params, prompts)
+        out = []
+        done = np.zeros((b,), bool)
+        tok = self._sample(logits[:, -1], rng)
+        if tel is not None:
+            for uid in uids:
+                tel.on_prefill(uid, t)
+                tel.on_first_token(uid)
+        for i in range(self.sc.max_new_tokens):
+            tok = self._pad_done(tok, done)
+            out.append(tok)
+            newly = ~done & self._eos_hits(tok)
+            done = done | newly
+            if tel is not None:
+                for r in np.flatnonzero(newly):
+                    tel.on_finish(uids[r])
+            if done.all() or i == self.sc.max_new_tokens - 1:
+                break  # the last token needs no follow-up decode
+            logits, cache = self._decode(self.params, tok, cache)
+            if tel is not None:
+                tel.on_decode([uids[r] for r in np.flatnonzero(~done)])
+                tel.end_tick(0, int((~done).sum()))
+            tok = self._sample(logits[:, -1], rng)
+        if tel is not None:
+            for r in np.flatnonzero(~done):
+                tel.on_finish(uids[r])  # rows that ran to the budget
+        return torch.cat(out, dim=-1)
 
     def _eos_hits(self, tok: torch.Tensor) -> np.ndarray:
         if self.sc.eos_token < 0:
@@ -136,7 +187,6 @@ class ServeEngine:
         return torch.where(mask, self.sc.eos_token, tok).to(torch.int32)
 
     def _generate_paged(self, prompts, rng):
-        prompts = torch.as_tensor(prompts, dtype=torch.int32).to(self.device)
         b, t = prompts.shape
         bs = self.sc.block_size
         tel = self.telemetry

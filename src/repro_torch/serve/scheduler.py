@@ -1,11 +1,26 @@
-"""Continuous-batching request scheduler, paged mode: counterpart of the
-paged path of `repro.serve.scheduler`.
+"""Continuous-batching request scheduler: counterpart of
+`repro.serve.scheduler`.
 
 A fixed decode batch of `n_slots`; finished sequences release their slot
-and a queued request is prefilled into it at any tick. KV lives in the
-block-paged cache (`serve.paged_cache`) with per-slot positions, so
-prompts of any length share one decode batch, and prefill writes
-straight into the page pools.
+and a queued request is prefilled into it. One decode step advances
+every slot. Two cache modes:
+
+  dense (`paged=False`, the default): the pre-allocated cache of
+  `cache_len` rows per slot with ONE global write position, as in the
+  reference. It starts at 0 and moves by one per decode tick; a request
+  prefills into a batch-1 cache whose whole row (zeros past the prompt
+  included) is copied into its slot, and its prompt position is thrown
+  away. So decode writes its KV over the prompt's rows from row 0 on and
+  attends to rows <= the global position — the reference's behaviour,
+  reproduced exactly (it is what its pinned dense-drain numbers come
+  from). Requests must share one (padded) prompt length.
+
+  paged (`paged=True`): KV lives in the block-paged cache
+  (`serve.paged_cache`) with per-slot positions, so prompts of any
+  length share one decode batch, and prefill writes straight into the
+  page pools.
+
+Paged mode only:
 
   * `prefix=True`: a radix index over full KV pages dedups shared prompt
     prefixes — a hit maps the leading pages refcounted into the slot's
@@ -25,14 +40,14 @@ straight into the page pools.
 
 `params` may hold PIM bit-plane weights (`ServeEngine.quantize`); they
 flow through unchanged, and every projection then runs on K3/K4 (or
-their plain versions under `kernel_impl="ref"`). The dense cache is not
-ported yet. Each tick brings its argmax to the host once.
+their plain versions under `kernel_impl="ref"`). Each tick brings its
+argmax to the host once.
 
 `telemetry=` (an `obs.ServeTelemetry`) receives the reference's hooks at
 the same transitions and in the same order: submit, admit, prefill and
 its launch accounting, first token, decode launch accounting, decode,
-finish, end of tick (pool, dedup, occupancy and prefix gauges) and
-deadlock. The hooks read host state only and add no host sync: first
+finish, end of tick (in paged mode with the pool, dedup, occupancy and
+prefix gauges) and deadlock. The hooks read host state only and add no host sync: first
 token, finish and end of tick are stamped after the sync the tick
 already makes, so on the card they close on finished work. With
 `telemetry=None` (the default) the drain makes no call into `obs`.
@@ -49,8 +64,14 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.ops import bucket_args_grouped, resolve_bucket_strategy
+from ..models import init_cache
 from ..models.common import resolve_device
-from .compiled import paged_decode_step, paged_prefill_step
+from .compiled import (
+    dense_decode_step,
+    dense_prefill_step,
+    paged_decode_step,
+    paged_prefill_step,
+)
 from .paged_cache import PagedKVCache
 from .prefix_cache import PrefixIndex
 
@@ -72,6 +93,15 @@ class Request:
         return len(self.generated) >= self.max_new_tokens
 
 
+def _insert_batch(cache, one, idx: int):
+    """Write the batch-1 dense cache `one` into slot `idx` of `cache`, in
+    place: the whole row, zeros past the prompt included. The position
+    stays the batcher's, as in the reference."""
+    for key, full in cache.items():
+        if key != "position":
+            full[:, idx] = one[key][:, 0]
+
+
 def _host_tokens(prompt) -> np.ndarray:
     if isinstance(prompt, torch.Tensor):
         prompt = prompt.detach().cpu().numpy()
@@ -79,12 +109,18 @@ def _host_tokens(prompt) -> np.ndarray:
 
 
 class ContinuousBatcher:
+    """Continuous batching over `n_slots` decode slots, on the dense
+    pre-allocated cache (`paged=False`, the default) or the block-paged
+    one. `prompt_len` is accepted and ignored, as in the reference: the
+    dense prefill takes each prompt's own length."""
+
     def __init__(
         self,
         cfg: ModelConfig,
         params,
         n_slots: int,
         cache_len: int,
+        prompt_len: Optional[int] = None,
         *,
         paged: bool = False,
         block_size: int = 16,
@@ -102,15 +138,21 @@ class ContinuousBatcher:
         telemetry=None,
         device="cuda",
     ):
-        if not paged:
-            raise NotImplementedError(
-                "the dense (paged=False) cache is not ported yet; pass "
-                "paged=True"
+        if prefix and not paged:
+            raise ValueError("prefix sharing requires paged=True")
+        if kv_dtype != "bf16" and not paged:
+            raise ValueError("kv_dtype='int8' requires paged=True")
+        if (prefill_chunk or group_blocks is not None) and not paged:
+            raise ValueError(
+                "prefill_chunk / group_blocks require paged=True "
+                "(chunked prefill and per-group sizing are page-pool "
+                "machinery)"
             )
         self.cfg = cfg
         self.params = params
         self.n_slots = n_slots
         self.cache_len = cache_len
+        self.paged = paged
         self.device = resolve_device(device)
         self.bucket_strategy = resolve_bucket_strategy(bucket_strategy)
         self._kernel_impl = kernel_impl
@@ -137,25 +179,38 @@ class ContinuousBatcher:
             )
             if prefix else None
         )
-        self.pcache = PagedKVCache(
-            cfg, n_slots, max_len=cache_len, block_size=block_size,
-            n_blocks=n_blocks, window_retirement=window_retirement,
-            kv_dtype=kv_dtype, prefill_chunk=prefill_chunk,
-            group_pool_slack=group_pool_slack, group_blocks=group_blocks,
-            device=self.device,
-        )
         annotate = telemetry is not None and telemetry.profile
         watcher = None if telemetry is None else telemetry.compile_watcher()
-        self._decode_paged = paged_decode_step(
-            cfg, impl=kernel_impl, kv_dtype=kv_dtype, watcher=watcher,
-            annotate=annotate,
-        )
-        self._prefill_paged = paged_prefill_step(
-            cfg, impl=kernel_impl, kv_dtype=kv_dtype, watcher=watcher,
-            annotate=annotate,
-        )
-        #: block-rounded chunk width of chunked prefill (0 = single-shot)
-        self.prefill_chunk = self.pcache.prefill_chunk
+        if paged:
+            self.pcache = PagedKVCache(
+                cfg, n_slots, max_len=cache_len, block_size=block_size,
+                n_blocks=n_blocks, window_retirement=window_retirement,
+                kv_dtype=kv_dtype, prefill_chunk=prefill_chunk,
+                group_pool_slack=group_pool_slack,
+                group_blocks=group_blocks, device=self.device,
+            )
+            self.cache = None
+            self._decode_paged = paged_decode_step(
+                cfg, impl=kernel_impl, kv_dtype=kv_dtype, watcher=watcher,
+                annotate=annotate,
+            )
+            self._prefill_paged = paged_prefill_step(
+                cfg, impl=kernel_impl, kv_dtype=kv_dtype, watcher=watcher,
+                annotate=annotate,
+            )
+            #: block-rounded chunk width of chunked prefill (0 = one shot)
+            self.prefill_chunk = self.pcache.prefill_chunk
+        else:
+            self.pcache = None
+            self.cache = init_cache(cfg, n_slots, cache_len, self.device)
+            self._decode = dense_decode_step(
+                cfg, impl=kernel_impl, watcher=watcher, annotate=annotate,
+            )
+            self._prefill_dense = dense_prefill_step(
+                cfg, cache_len, impl=kernel_impl, watcher=watcher,
+                annotate=annotate,
+            )
+            self.prefill_chunk = 0
         #: slot -> next un-prefilled prompt position of an in-flight
         #: chunked prefill; such a slot is parked out of the decode batch
         self._chunk_pos: Dict[int, int] = {}
@@ -176,6 +231,9 @@ class ContinuousBatcher:
             # a request can complete AT prefill: its pages free at once
             # and the same slot is retried within this tick
             while self.slots[i] is None and self.queue:
+                if not self.paged:
+                    self._prefill_into_dense(i, self.queue.popleft())
+                    continue
                 admitted = self._admit_paged(i)
                 if admitted is None:
                     return
@@ -237,6 +295,18 @@ class ContinuousBatcher:
                     del self.queue[qi]
                     return (req,) + got
         return None
+
+    def _prefill_into_dense(self, i: int, req: Request):
+        if self.telemetry is not None:
+            self.telemetry.on_admit(req.uid, i)
+        toks = torch.tensor(req.prompt[None, :], device=self.device)
+        logits, one = self._prefill_dense(self.params, toks)
+        _insert_batch(self.cache, one, i)
+        t = int(req.prompt.shape[0])
+        self.prefill_tokens += t
+        if self.telemetry is not None:
+            self.telemetry.on_prefill(req.uid, t)
+        self._start_slot(i, req, logits)
 
     def _prefill_into_paged(
         self, i: int, req: Request, attach_plan, n_cached: int
@@ -346,7 +416,8 @@ class ContinuousBatcher:
         if req.done or self._hit_eos(nxt):
             # the prefill token completes the request: pages free now
             self.finished[req.uid] = req.generated
-            self.pcache.free_slot(i)
+            if self.paged:
+                self.pcache.free_slot(i)
             if self.telemetry is not None:
                 self.telemetry.on_finish(req.uid)
             return
@@ -371,7 +442,12 @@ class ContinuousBatcher:
             if self.telemetry is not None:
                 self._sample_tick()
             return chunked
-        nxt = self._step_paged(active)
+        if self.paged:
+            nxt = self._step_paged(active)
+        else:
+            logits, self.cache = self._decode(self.params, self.tokens,
+                                              self.cache)
+            nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         host = nxt.tolist()               # the tick's one host sync
         if self.telemetry is not None:
             self.telemetry.on_decode([self.slots[i].uid for i in active])
@@ -382,7 +458,8 @@ class ContinuousBatcher:
             if req.done or self._hit_eos(tok):
                 # pages recycle this very tick, before the next admission
                 self.finished[req.uid] = req.generated
-                self.pcache.free_slot(i)
+                if self.paged:
+                    self.pcache.free_slot(i)
                 self.slots[i] = None
                 if self.telemetry is not None:
                     self.telemetry.on_finish(req.uid)
@@ -395,10 +472,15 @@ class ContinuousBatcher:
     def _sample_tick(self):
         """End-of-tick gauge sample (telemetry attached only): queue
         depth, active slots, per-group pool state, dedup bytes,
-        occupancy and the prefix index."""
+        occupancy and the prefix index (the last four in paged mode)."""
+        queued = len(self.queue)
+        active = sum(s is not None for s in self.slots)
+        if not self.paged:
+            self.telemetry.end_tick(queued, active)
+            return
         pc = self.pcache
         self.telemetry.end_tick(
-            len(self.queue), sum(s is not None for s in self.slots),
+            queued, active,
             pool_gauges=pc.pool_gauges(),
             dedup=pc.cross_layer_dedup_stats(),
             occupancy=pc.slot_occupancy(),
@@ -453,7 +535,10 @@ class ContinuousBatcher:
 
     def _pool_diagnostic(self) -> str:
         """Per-layer-group pool state and the head-of-queue request's
-        per-group draw deficit, for the deadlock error."""
+        per-group draw deficit, for the deadlock error ("" in dense
+        mode)."""
+        if not self.paged:
+            return ""
         pc = self.pcache
         per_group = ", ".join(
             f"g{p.gid}[{'global' if p.window is None else f'w={p.window}'}"
@@ -493,7 +578,7 @@ class ContinuousBatcher:
         while (self.queue or any(s is not None for s in self.slots)) \
                 and ticks < max_ticks:
             queued_before = len(self.queue)
-            free_before = self.pcache.free_state()
+            free_before = self.pcache.free_state() if self.paged else ()
             advanced = self.step()
             ticks += 1
             if on_tick is not None:
@@ -502,14 +587,16 @@ class ContinuousBatcher:
                 advanced == 0
                 and self.queue
                 and len(self.queue) == queued_before
-                and self.pcache.free_state() == free_before
+                and (not self.paged
+                     or self.pcache.free_state() == free_before)
             ):
                 diagnostic = self._pool_diagnostic()
                 if self.telemetry is not None:
                     # the machine-readable twin of the message below
                     self.telemetry.on_deadlock(
                         ticks, len(self.queue), len(self.finished),
-                        {p.gid: p.n_free for p in self.pcache.pools},
+                        {p.gid: p.n_free for p in self.pcache.pools}
+                        if self.paged else {},
                         diagnostic,
                     )
                 raise RuntimeError(

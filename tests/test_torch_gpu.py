@@ -16,7 +16,8 @@ max|raw| of the plain one (products of x with integer weights are exact
 in f32, only the summation order differs). The telemetry test holds
 the perf model's streamed-byte prediction exactly (error 0) against the
 bucketed launches the card runs, and its tokens equal to a drain
-without telemetry.
+without telemetry. Serving tests (paged and dense) hold the greedy f32
+tokens with the kernels equal to those with the plain versions.
 """
 
 import dataclasses
@@ -38,7 +39,12 @@ from repro_torch.kernels import (
 from repro_torch.kernels.paged_common import quantize_pages
 from repro_torch.models import init_lm
 from repro_torch.quant import PimQuantConfig, quantize_tree
-from repro_torch.serve import ContinuousBatcher, Request
+from repro_torch.serve import (
+    ContinuousBatcher,
+    Request,
+    ServeConfig,
+    ServeEngine,
+)
 
 
 @pytest.fixture
@@ -240,6 +246,40 @@ def test_quantized_serving_on_the_card_matches_plain(cuda_device):
         out[impl] = cb.run_until_drained()
         assert (bitplane_gemv.LAUNCHES > 0) == (impl == "cuda")
     assert out["cuda"] == out["ref"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bits,group", [(8, 1), (4, 2)])
+def test_dense_serving_on_the_card_matches_plain(cuda_device, n_bits, group):
+    """Dense `generate` (prefill of 2 x 300 rows > 512: K4; decode of 2
+    rows: K3) and a dense `ContinuousBatcher` drain, f32 with bit-plane
+    weights: kernels on the card give the plain versions' tokens."""
+    dev = cuda_device
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
+                              dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    qparams = quantize_tree(params, PimQuantConfig(n_bits=n_bits, group=group,
+                                                   min_features=1))
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 300), dtype=np.int32)
+    out, drained = {}, {}
+    for impl in ("cuda", "ref"):
+        bitplane_gemv.LAUNCHES = bitplane_gemm.LAUNCHES = 0
+        eng = ServeEngine(cfg, qparams, ServeConfig(
+            max_cache_len=320, max_new_tokens=8, kernel_impl=impl,
+            device=str(dev)))
+        out[impl] = eng.generate(prompts).cpu()
+        launched = (bitplane_gemv.LAUNCHES, bitplane_gemm.LAUNCHES)
+        assert (min(launched) > 0) == (impl == "cuda"), launched
+        assert max(launched) == 0 or impl == "cuda", launched
+        cb = ContinuousBatcher(cfg, qparams, n_slots=2, cache_len=48,
+                               prompt_len=16, kernel_impl=impl, device=dev)
+        for uid in range(4):
+            cb.submit(Request(uid=uid, prompt=prompts[uid % 2, :16],
+                              max_new_tokens=6))
+        drained[impl] = cb.run_until_drained()
+    assert torch.equal(out["cuda"], out["ref"])
+    assert drained["cuda"] == drained["ref"]
 
 
 def _prefill_case(gen, dev, kind, q_dtype, B, T, H, KV, hd, bs, mb):

@@ -174,6 +174,38 @@ def test_port_init_lm_shapes_and_scales():
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-27b"])
+@pytest.mark.parametrize("smoke", [True, False])
+def test_layer_shapes_equal_the_meta_device_init(arch, smoke):
+    """`layer_shapes`, which `init_lm` allocates its stack from, gives
+    `init_layer`'s tree of shapes and dtypes without running it."""
+    from repro_torch.models.common import compute_dtype
+    from repro_torch.models.transformer import init_layer, layer_shapes
+
+    cfg = get_config(arch, smoke=smoke)
+    dt = compute_dtype(cfg.dtype)
+    meta = init_layer(cfg, None, torch.device("meta"), dt)
+    want = jax.tree.map(lambda x: (tuple(x.shape), x.dtype), meta)
+    got = jax.tree.map(lambda x: x, layer_shapes(cfg, dt),
+                       is_leaf=lambda x: isinstance(x, tuple))
+    assert got == want
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_count_params_equals_reference(models, quantized):
+    from repro.models import count_params as j_count_params
+    from repro.quant.bitplane import PimQuantConfig as JQuantConfig
+    from repro.quant.bitplane import quantize_tree as j_quantize_tree
+    from repro_torch.models import count_params
+    from repro_torch.quant import PimQuantConfig, quantize_tree
+
+    _, jp, _, tp = models
+    if quantized:
+        jp = j_quantize_tree(jp, JQuantConfig(8, 1, min_features=1))
+        tp = quantize_tree(tp, PimQuantConfig(8, 1, min_features=1))
+    assert count_params(tp) == j_count_params(jp)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-27b"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_init_lm_equals_stacked_per_layer_draws(arch, dtype):
     """`init_lm` fills preallocated `[L, ...]` leaves layer by layer; it

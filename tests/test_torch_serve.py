@@ -445,17 +445,29 @@ def test_step_signatures_stay_bounded(models, trace):
 
 
 def test_unported_modes_raise(models):
-    """The dense cache raises; telemetry is ported and is taken."""
-    _, _, cfg, tp = models
-    with pytest.raises(NotImplementedError, match="dense"):
-        ContinuousBatcher(cfg, tp, n_slots=1, cache_len=8, device="cpu")
-    tel = ServeTelemetry()
-    cb = ContinuousBatcher(cfg, tp, n_slots=1, cache_len=8, paged=True,
-                           telemetry=tel, device="cpu")
-    assert cb.telemetry is tel
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServeEngine(cfg, tp, ServeConfig(device="cpu")).generate(
-            np.zeros((1, 4), np.int32))
+    """The page-pool options without `paged=True` raise the reference's
+    `ValueError`s, in both packages; the dense cache itself runs, and
+    telemetry is taken in both modes."""
+    jcfg, jp, cfg, tp = models
+    for kw in (dict(prefix=True), dict(kv_dtype="int8"),
+               dict(prefill_chunk=8), dict(group_blocks="auto")):
+        with pytest.raises(ValueError) as ref:
+            JBatcher(jcfg, jp, n_slots=1, cache_len=8, **kw)
+        with pytest.raises(ValueError) as port:
+            ContinuousBatcher(cfg, tp, n_slots=1, cache_len=8,
+                              device="cpu", **kw)
+        assert str(port.value).split(" (")[0] == \
+            str(ref.value).split(" (")[0], kw
+    with pytest.raises(ValueError, match="kv_dtype='int8' requires paged"):
+        ServeEngine(cfg, tp, ServeConfig(kv_dtype="int8", device="cpu"))
+    for paged in (False, True):
+        tel = ServeTelemetry()
+        cb = ContinuousBatcher(cfg, tp, n_slots=1, cache_len=8, paged=paged,
+                               telemetry=tel, device="cpu")
+        assert cb.telemetry is tel and cb.paged is paged
+    out = ServeEngine(cfg, tp, ServeConfig(device="cpu", max_new_tokens=2)
+                      ).generate(np.zeros((1, 4), np.int32))
+    assert out.shape == (1, 2)
 
 
 def test_entry_points_default_to_the_card(models):
