@@ -126,7 +126,18 @@ group that retires pages. Phases, one line each:
  15. serve     gemma3-27b with 12 layers through `ServeEngine.quantize`
                (K5 launched 7 x 12 times) and a drain with 1024-token
                chunks: K1-K5 must each have launched
- 16. a JSON line {"kernels": [...]} with each kernel's launches (those
+ 16. imagine  the paper's own engine: `ImagineGemv` at the full U55 array
+               (126 x 32 blocks of 16 lanes, depth 1024: a 66,060,288-byte
+               register file on the card), int8 GEMVs of 1024 x 1024 and
+               2048 x 2048 walked bit-serially: y equal to the host's
+               int64 W @ x, cycles equal to `analytic_cycles` and to the
+               reference's 10,249 and 29,187, 144 and 306 instructions,
+               no K1-K5 launch; wall (synchronised), passes, full-adder
+               steps per pass, peak device memory. Then the three Fig. 7
+               validation GEMVs (4 x 8 x 8, depth 512) on the card, and
+               Table IX's and Table VIII's values pinned to the
+               reference's
+ 17. a JSON line {"kernels": [...]} with each kernel's launches (those
      of the qwen2 paths, and per path), error, times and bound, then the
      last line {"ok": true, "device": {"platform": "gpu", ...}}
 
@@ -1543,6 +1554,102 @@ def gemma3_quantized(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the IMAGine simulator at the full U55 array
+# ---------------------------------------------------------------------------
+
+#: (M = D, cycles, instructions) of the U55 GEMVs: the reference's numpy
+#: simulator's counts at the same array
+U55_GEMVS = ((1024, 10249, 144), (2048, 29187, 306))
+U55_RF_BYTES = 126 * 32 * 16 * 1024
+
+#: the reference's rows (benchmarks/paper_tables.py) the card must give
+PAPER_ROWS = {
+    "fig7sim/gemv_8x32": "cycles=1062;analytic=1062;exact=True",
+    "fig7sim/gemv_16x64": "cycles=2116;analytic=2116;exact=True",
+    "fig7sim/gemv_4x128": "cycles=832;analytic=832;exact=True",
+    "table9/IMAGine":
+        "a=1.16;b=1.00;c=147.0;add=Standard;move=Standard;gold=True",
+    "table9/CCB-CoMeFa": "a=0.03;b=0.00;c=203.0;add=Fast;move=Fast;gold=True",
+    "table8/IMAGine": "clock=100.0%;bram=100.0%;bandwidth=100.0%;gold=True",
+    "table8/RIMA-Large": "clock=27.8%;bram=93.0%;bandwidth=25.9%;gold=False",
+}
+
+
+def imagine(dev):
+    """The bit-exact IMAGine engine on the card at the paper's U55 array,
+    then the paper-table rows. Counts of K1-K5 are set to 0 before and
+    read after: the simulator runs plain torch ops only."""
+    from repro_torch.configs import imagine_u55
+    from repro_torch.core import pim_array
+    from repro_torch.core.gemv_engine import ImagineGemv
+    from repro_torch.launch import paper_tables
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rng = np.random.default_rng(SEED)
+    eng = ImagineGemv(imagine_u55.config(), dev)
+    rf = eng.array.rf
+    check(rf.device.type == "cuda" and rf.dtype == torch.uint8
+          and rf.numel() == U55_RF_BYTES,
+          f"imagine: register file {rf.dtype} {tuple(rf.shape)} on {rf.device}")
+    steps = [0]
+    ripple = pim_array._ripple
+
+    def counted(out, a, b, carry):
+        steps[0] += a.shape[0]
+        ripple(out, a, b, carry)
+
+    pim_array._ripple = counted
+    try:
+        for m, want_cycles, want_instrs in U55_GEMVS:
+            w = rng.integers(-128, 128, size=(m, m))
+            x = rng.integers(-128, 128, size=(m,))
+            want = w @ x
+            plan = eng.plan(m, m)
+            steps[0], instrs = 0, eng.array.instr_count
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, cycles = eng.run_gemv(w, x)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            instrs = eng.array.instr_count - instrs
+            y = y.cpu().numpy()
+            check(y.dtype == np.int64 and y.shape == (m,)
+                  and np.array_equal(y, want),
+                  f"imagine {m}x{m}: y != W @ x "
+                  f"({int((y != want).sum())} of {m} differ)")
+            check(cycles == eng.analytic_cycles(m, m) == want_cycles,
+                  f"imagine {m}x{m}: {cycles} cycles, analytic "
+                  f"{eng.analytic_cycles(m, m)}, reference {want_cycles}")
+            check(instrs == want_instrs,
+                  f"imagine {m}x{m}: {instrs} instructions != {want_instrs}")
+            say("imagine", gemv=f"{m}x{m}", bits=8, passes=plan.passes,
+                e=plan.e, cycles=cycles, instructions=instrs, exact=True,
+                full_adder_steps_per_pass=steps[0] // plan.passes,
+                wall_s=wall, lanes=eng.cfg.geometry.n_pe, rf_bytes=rf.numel(),
+                peak_bytes=torch.cuda.max_memory_allocated())
+    finally:
+        pim_array._ripple = ripple
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"imagine: the simulator launched a kernel: {launches}")
+    del eng
+    t0 = time.perf_counter()
+    rows = (paper_tables.fig7_simulator_validation(dev)
+            + paper_tables.table9_curvefit() + paper_tables.table8_systems())
+    derived = {name: d for name, _, d in rows}
+    for name, want in PAPER_ROWS.items():
+        check(derived.get(name) == want,
+              f"imagine: {name} gave {derived.get(name)!r}, want {want!r}")
+    say("imagine", paper_rows=len(PAPER_ROWS), held=True,
+        fig7sim_us=",".join(f"{us:.0f}" for name, us, _ in rows
+                            if name.startswith("fig7sim/")),
+        seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1635,6 +1742,7 @@ def main() -> int:
     by_path["gemma3-27b dense bf16"] = g3["dense"]
     gemma3_parity(dev)
     by_path["gemma3-27b[12L] pim8"] = gemma3_quantized(dev)
+    imagine(dev)
 
     csrc = "src/repro_torch/kernels/csrc"
     sources = {

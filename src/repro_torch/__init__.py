@@ -7,10 +7,13 @@ twin. It imports torch, numpy and the standard library only — never
 jax and never `repro` — and keeps its own copies of the framework-free
 pieces it needs (configs).
 
-Ported so far: the paged serving path of attention decoders
-(configs -> kernels -> models -> serve -> launch), with the two paged
-attention kernels hand-written in CUDA C++ for sm_90a
-(`kernels/csrc/`). Entry points run on the card (`device="cuda"`)
-unless the caller passes `device="cpu"`, where every kernel wrapper
-takes its plain PyTorch version.
+Ported so far: the dense and paged serving paths of attention decoders
+(configs -> kernels -> models -> serve -> launch), with the five TPU
+kernels hand-written in CUDA C++ for sm_90a (`kernels/csrc/`), the
+serving telemetry (`obs/`), and the paper's own engine (`core/`: the
+IMAGine ISA, the bit-exact PIM array and GEMV engine with its register
+file on the card, the Gold Standard and latency models;
+`launch/paper_tables.py` prints the paper's tables). Entry points run
+on the card (`device="cuda"`) unless the caller passes `device="cpu"`,
+where every kernel wrapper takes its plain PyTorch version.
 """

@@ -17,6 +17,11 @@ weights in the compute dtype (bf16 at full width), the reference keeps
 f32 masters, so quantizing the port's params and quantizing the
 reference's agree only when both start from the same f32 array — which
 is what the tests do (f32 configs, params carried across here).
+
+The PIM simulator's state crosses too: `pim_array_from_reference` takes
+a reference `PimArray` (its state is numpy already) and gives the
+port's `PimArray` in the same state on a given device, so both
+simulators can start from one random register file.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from .configs.base import ModelConfig
+from .core.pim_array import ArrayGeometry, PimArray
 from .models.common import compute_dtype, resolve_device
 from .quant.bitplane import PimWeight
 
@@ -55,3 +61,19 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device,
         return t.to(device=dev, dtype=torch.float32 if name == "g" else dt)
 
     return convert(tree, "")
+
+
+def pim_array_from_reference(ref, device) -> PimArray:
+    """A port `PimArray` on `device` holding a reference array's state:
+    `rf`, `enable`, `ptr`, `n_bits`, `acc_bits`, `cycles`,
+    `instr_count` and the words already shifted out."""
+    g = ref.geom
+    arr = PimArray(ArrayGeometry(g.rows, g.cols, g.lanes, g.depth), device)
+    arr.rf.copy_(torch.from_numpy(np.array(ref.rf, dtype=np.uint8)))
+    arr.enable.copy_(torch.from_numpy(np.array(ref.enable, dtype=bool)))
+    arr.ptr, arr.n_bits, arr.acc_bits = (int(ref.ptr), int(ref.n_bits),
+                                         int(ref.acc_bits))
+    arr.cycles, arr.instr_count = int(ref.cycles), int(ref.instr_count)
+    arr.out_buffer = [torch.from_numpy(np.array(v, dtype=np.int64)).to(
+        arr.device) for v in ref.out_buffer]
+    return arr

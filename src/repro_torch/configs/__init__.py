@@ -1,8 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Lists only the architectures the port runs; each module defines
-``config()`` (published numbers) and ``smoke()`` (same family, tiny
-dims, CPU-testable) — copies of the reference's config modules.
+Lists only the architectures the port runs, and the paper's own
+accelerator (`imagine-u55`, an `ImagineConfig`, kept out of `ARCH_IDS`
+as in the reference); each module defines ``config()`` (published
+numbers) and ``smoke()`` (same family, tiny dims, CPU-testable) —
+copies of the reference's config modules.
 """
 
 from __future__ import annotations
@@ -15,9 +17,11 @@ from .base import ModelConfig
 _MODULES: Dict[str, str] = {
     "qwen2-1.5b": "qwen2_1_5b",
     "gemma3-27b": "gemma3_27b",
+    # the paper's own accelerator config (FPGA simulator side)
+    "imagine-u55": "imagine_u55",
 }
 
-ARCH_IDS: List[str] = list(_MODULES)
+ARCH_IDS: List[str] = [k for k in _MODULES if k != "imagine-u55"]
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:

@@ -1,5 +1,6 @@
-"""Roofline constants and term math: the `ChipSpec` / `RooflineTerms` /
-`roofline_terms` part of `repro.core.tpu_gold`, for the port's card.
+"""Roofline constants and term math: `repro.core.tpu_gold` for the
+port's card — `ChipSpec`, `RooflineTerms`, `roofline_terms` and the
+model-FLOP and lower-bound helpers after them.
 
 The reference's "gold standard" reads: the roofline term of the limiting
 hardware unit is the step-time lower bound, and nothing else may
@@ -31,6 +32,7 @@ TPU figure prices anything here.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict
 
 
@@ -165,3 +167,44 @@ def roofline_terms(
         bytes_per_device=bytes_per_device,
         peak_flops=chip.peak_flops_bf16,
     )
+
+
+def model_flops_train(n_params: float, tokens: float) -> float:
+    """Standard 6*N*D training FLOPs (fwd 2ND + bwd 4ND)."""
+    return 6.0 * n_params * tokens
+
+
+def model_flops_serve(n_active_params: float, tokens: float) -> float:
+    """2*N_active*D forward FLOPs for inference."""
+    return 2.0 * n_active_params * tokens
+
+
+def bitplane_bandwidth_amplification(weight_bits: int, dense_bits: int = 16) -> float:
+    """The paper's "100% of BRAM bandwidth is useful" objective, in
+    accelerator form: storing weights as packed bit-planes moves
+    `weight_bits` bits per element instead of `dense_bits`, amplifying
+    effective operand bandwidth by dense_bits/weight_bits for
+    bandwidth-bound GEMV.
+    """
+    if weight_bits <= 0:
+        raise ValueError("weight_bits must be positive")
+    return dense_bits / weight_bits
+
+
+def decode_step_lower_bound_s(
+    param_bytes_per_chip: float,
+    kv_bytes_per_chip: float,
+    chip: ChipSpec = H100_SXM,
+) -> float:
+    """Gold lower bound for one decode step: every weight + KV byte crosses
+    HBM exactly once (the GEMV is memory bound) — the analogue of the
+    paper's 'BRAM Fmax' clock: you cannot decode faster than HBM lets you
+    stream the operands."""
+    return (param_bytes_per_chip + kv_bytes_per_chip) / chip.hbm_bandwidth
+
+
+def ridge_batch_for_gemm(chip: ChipSpec = H100_SXM, bytes_per_el: int = 2) -> int:
+    """Batch (tokens) at which a weight-stationary matmul crosses from
+    memory-bound to compute-bound: B* = peak/bw * bytes_per_el / 2
+    (296 at `H100_SXM`)."""
+    return int(math.ceil(chip.flops_per_byte * bytes_per_el / 2.0))

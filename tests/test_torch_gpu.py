@@ -18,6 +18,8 @@ the perf model's streamed-byte prediction exactly (error 0) against the
 bucketed launches the card runs, and its tokens equal to a drain
 without telemetry. Serving tests (paged and dense) hold the greedy f32
 tokens with the kernels equal to those with the plain versions.
+The IMAGine simulator (plain torch ops, no kernel of its own) gives on
+the card the register file and y it gives on the CPU, bit for bit.
 """
 
 import dataclasses
@@ -26,7 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, imagine_u55
+from repro_torch.core.gemv_engine import ImagineGemv
 from repro_torch.kernels import (
     bitplane_gemm,
     bitplane_gemv,
@@ -688,3 +691,38 @@ def test_bitplane_kernels_gemma3_shapes(cuda_device, k, m, dtype):
         err = float((raw - plain[:b]).abs().max() / plain[:b].abs().max())
         assert err <= 1e-5, (k, m, dtype, b, err)
     assert torch.equal(raws[512][:8], raws[8])
+
+
+@pytest.mark.gpu
+def test_imagine_smoke_gemv_on_card_equals_cpu(cuda_device):
+    """The bit-serial walk on the card leaves the same register file,
+    y and cycles as on the CPU, over two GEMVs on one engine."""
+    rng = np.random.default_rng(0)
+    card = ImagineGemv(imagine_u55.smoke(), cuda_device)
+    host = ImagineGemv(imagine_u55.smoke(), "cpu")
+    assert card.array.rf.device.type == "cuda"
+    for m, d in [(5, 16), (8, 32)]:
+        w = rng.integers(-128, 128, size=(m, d))
+        x = rng.integers(-128, 128, size=(d,))
+        y, cycles = card.run_gemv(w, x)
+        y_host, cycles_host = host.run_gemv(w, x)
+        assert torch.equal(y.cpu(), y_host)
+        assert np.array_equal(y_host.numpy(), w @ x)
+        assert cycles == cycles_host == card.analytic_cycles(m, d)
+        assert torch.equal(card.array.rf.cpu(), host.array.rf)
+        assert card.array.instr_count == host.array.instr_count
+
+
+@pytest.mark.gpu
+def test_imagine_u55_gemv_126x512(cuda_device):
+    """One pass of the full U55 array (126 x 32 x 16 lanes, depth 1024):
+    every block row's GEMV row exact, in 856 cycles."""
+    rng = np.random.default_rng(1)
+    eng = ImagineGemv(imagine_u55.config(), cuda_device)
+    assert eng.array.rf.numel() == 66_060_288
+    w = rng.integers(-128, 128, size=(126, 512))
+    x = rng.integers(-128, 128, size=(512,))
+    y, cycles = eng.run_gemv(w, x)
+    assert np.array_equal(y.cpu().numpy(), w @ x)
+    assert cycles == eng.analytic_cycles(126, 512) == 856
+    assert eng.array.instr_count == 15

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of `src/repro_torch/`, and
-neither `chip_smoke.py` nor `chip_ab.py`, imports `jax` or the JAX
-package `repro` (importing `repro` imports JAX). Checked on the syntax
-tree, so a lazy import inside a function counts too."""
+neither `chip_smoke.py` nor `chip_ab.py`, imports `jax`, the JAX
+package `repro` (importing `repro` imports JAX) or the reference's
+`benchmarks`. Checked on the syntax tree, so a lazy import inside a
+function counts too."""
 
 import ast
 import pathlib
@@ -12,7 +13,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "chip_ab.py"
 ]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imported_roots(tree):
@@ -51,6 +52,8 @@ def test_checker_catches_forbidden_imports():
     src = ("import jax.numpy as jnp\nfrom repro.kernels import ops\n"
            "def f():\n    import importlib\n"
            "    importlib.import_module('repro.serve')\n"
-           "from repro_torch import kernels\nfrom . import ref\n")
+           "from repro_torch import kernels\nfrom . import ref\n"
+           "from benchmarks.paper_tables import table9_curvefit\n")
     roots = [r for _, r in _imported_roots(ast.parse(src))]
-    assert [r for r in roots if r in FORBIDDEN] == ["jax", "repro", "repro"]
+    assert sorted(r for r in roots if r in FORBIDDEN) == [
+        "benchmarks", "jax", "repro", "repro"]
