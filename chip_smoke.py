@@ -10,7 +10,11 @@ at full width (28 layers, d 1536, 12 heads, 2 kv-heads, d_ff 8960, vocab
 its published width (62 layers, d 5376, 32 heads, 16 kv-heads, hd 128,
 d_ff 21504, vocab 262144; 5:1 local:global layers with a 1024-token
 window), whose paged cache splits into a global and a windowed layer
-group that retires pages. Phases, one line each:
+group that retires pages, then the rest of the attention model zoo at
+published width: qwen2.5-14b and granite-20b (MQA, GQA group 48, plain
+GELU MLP) at full depth, phi3.5-moe-42b-a6.6b and llama4-scout-17b-a16e
+(mixtures of experts) cut in depth to fit the card. Phases, one line
+each:
 
   1. card      nvidia-smi name and power limit, torch and CUDA versions;
                TF32 off for matmuls and cuDNN
@@ -23,10 +27,13 @@ group that retires pages. Phases, one line each:
                shapes (H 12, KV 2, hd 128, bs 16, 8 slots, ragged
                lengths 0..2048, windows {capacity, 256}, a COW-fragmented
                table) and at gemma3's (H 32, KV 16, 212 columns, lengths
-               0..3392, windows {capacity, 1024}), walks starting at each
-               slot's first live block, for bf16, f32 and int8 pools: max
-               abs error vs the plain version <= 1e-4 on valid rows, the
-               bucketed launch bit-identical to the single launch
+               0..3392, windows {capacity, 1024}) and at granite-20b's
+               (H 48, KV 1: a GQA group of 48; 68 columns, window 256),
+               walks starting at each slot's first live block, for bf16,
+               f32 and int8 pools: max abs error vs the plain version
+               <= 1e-4 on valid rows, the bucketed launch bit-identical
+               to the single launch; then K2 at granite's q
+               [1, 512, 48, 128] from start 256, within 1e-4
   4. bitplane  K3 (GEMV), K4 (GEMM) and K5 (pack) against their plain
                versions for (n_bits, g) in {(8,1), (4,2), (8,4), (3,1)}
                and x in {bf16, f32}, on qwen2's projections
@@ -51,7 +58,10 @@ group that retires pages. Phases, one line each:
                q [8, 32, 128] over a windowed and a global walk, K2 at
                q [1, 512, 32, 128] from start 1024 with the window, K3
                at [8, 5376] -> 21504 and [8, 21504] -> 5376, K4 at
-               [768, 5376] -> 21504
+               [768, 5376] -> 21504; then K1 at granite-20b's q
+               [8, 48, 128] (KV 1), K2 at its [1, 512, 48, 128] from
+               start 256, and K3 at phi3.5-moe's expert projection
+               [4096 -> 6400] at C = 320 and C = 2 rows
      init      qwen2-1.5b at full width, after a sync (the wait is
                printed): `init_lm` alone (and the modules it imports)
   6. serve     qwen2-1.5b, bf16: 8 slots, 16 requests, each a shared
@@ -137,7 +147,28 @@ group that retires pages. Phases, one line each:
                validation GEMVs (4 x 8 x 8, depth 512) on the card, and
                Table IX's and Table VIII's values pinned to the
                reference's
- 17. a JSON line {"kernels": [...]} with each kernel's launches (those
+ 17. zoo      the rest of the attention model zoo at published width,
+               random weights from the seed, each drain 8 requests of a
+               shared 256-token prompt plus a 256..768-token suffix, 32
+               new tokens, 8 slots, block 16, prefix index, pow2
+               buckets (the `[serve]` fields, plus the MoE layers'
+               dropped fraction and load-balance loss on decode steps
+               and prefill chunks):
+               qwen2.5-14b at 48 layers (bf16 KV), granite-20b at 52
+               (bf16 and int8 KV; K1/K2 at g = 48), phi3.5-moe at 24 of
+               32 layers (bf16 KV), llama4-scout at 8 of 48 (bf16 KV);
+               then phi3.5-moe's --quantize path at 8 layers
+               (`ServeEngine.quantize`: K5 packs every attention
+               projection and expert slice, 416 launches; its drain
+               launches K1-K5, K3 once per expert projection; the
+               tree's packed fraction). Then f32 parity at published
+               width, 4 layers (qwen2.5, granite) or 2 (the MoE models):
+               greedy tokens with the kernels equal those with the plain
+               versions; chunked prefill equal to single-shot for the
+               dense two (a MoE chunk's rows compete for the experts'
+               places, so another chunking routes differently, in the
+               reference as well)
+ 18. a JSON line {"kernels": [...]} with each kernel's launches (those
      of the qwen2 paths, and per path), error, times and bound, then the
      last line {"ok": true, "device": {"platform": "gpu", ...}}
 
@@ -317,12 +348,22 @@ ATTN_CASES = (
      [1, 17, 64, 300, 777, 1024, 1500, 2048], 256),
     ("gemma3-27b", 32, 16, 212, [0, 1, 17, 1023, 1024, 1025, 2500, 3392],
      [1, 17, 64, 1023, 1100, 2048, 2500, 3392], 1024),
+    # granite-20b: MQA, a GQA group of 48 (three K1 head tiles)
+    ("granite-20b", 48, 1, 68, [0, 1, 17, 129, 300, 700, 1000, 1088],
+     [1, 17, 64, 300, 700, 1000, 1050, 1088], 256),
+    # qwen2.5-14b and llama4-scout: g = 5
+    ("qwen2.5-14b/llama4-scout", 40, 8, 68,
+     [0, 1, 17, 129, 300, 700, 1000, 1088],
+     [1, 17, 64, 300, 700, 1000, 1050, 1088], 256),
+    # phi3.5-moe: g = 4
+    ("phi3.5-moe", 32, 8, 68, [0, 1, 17, 129, 300, 700, 1000, 1088],
+     [1, 17, 64, 300, 700, 1000, 1050, 1088], 256),
 )
 
 
 def kernel_checks(dev):
-    """K1 and K2 against their plain versions at the head shapes of both
-    models' main paths, bf16, f32 and int8 pools. With the short window
+    """K1 and K2 against their plain versions at the head shapes of
+    every model's main path, bf16, f32 and int8 pools. With the short window
     each slot's walk starts at its first live block, as a windowed layer
     group's does once it has retired the blocks behind the window."""
     from repro_torch.kernels import ops, ref
@@ -1116,7 +1157,8 @@ def token_parity(dev, cfg, prompts, new_tokens, cache_len, chunk,
     """Greedy f32 tokens of one trace three ways: the CUDA kernels, the
     plain versions on the card (no kernel may launch), and chunked
     prefill (with `chunk_kw` besides) with the kernels; all three must
-    agree. Returns the kernel run's drain stats."""
+    agree. `chunk=None` leaves the chunked run out. Returns the kernel
+    run's drain stats."""
     from repro_torch.models import init_lm
 
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED + 2),
@@ -1124,11 +1166,13 @@ def token_parity(dev, cfg, prompts, new_tokens, cache_len, chunk,
     if quantize:
         params = quantize_params(cfg, params)[0]
     runs, stats = {}, None
-    for name, extra in (("kernel", dict(kernel_impl="auto")),
-                        ("plain", dict(kernel_impl="ref")),
-                        ("chunked", dict(kernel_impl="auto",
+    variants = [("kernel", dict(kernel_impl="auto")),
+                ("plain", dict(kernel_impl="ref"))]
+    if chunk is not None:
+        variants.append(("chunked", dict(kernel_impl="auto",
                                          prefill_chunk=chunk,
-                                         **(chunk_kw or {})))):
+                                         **(chunk_kw or {}))))
+    for name, extra in variants:
         runs[name], st, launches = drain(cfg, params, prompts, new_tokens, 4,
                                          cache_len, dev, prefix=True,
                                          **extra)
@@ -1145,14 +1189,15 @@ def token_parity(dev, cfg, prompts, new_tokens, cache_len, chunk,
     check(runs["kernel"] == runs["plain"],
           f"{cfg.name}: f32 tokens differ between the CUDA kernels and the "
           "plain versions")
-    check(runs["chunked"] == runs["kernel"],
+    check(chunk is None or runs["chunked"] == runs["kernel"],
           f"{cfg.name}: chunked-prefill tokens differ from single-shot")
     say("parity", model=f"{cfg.name}[f32,{cfg.n_layers}L]",
         weights="pim8" if quantize else "f32", requests=len(runs["kernel"]),
         tokens=sum(len(v) for v in runs["kernel"].values()),
         prompt_lens=f"{min(map(len, prompts))}..{max(map(len, prompts))}",
         chunk=chunk, retired_by_group=stats["retired_by_group"],
-        kernel_eq_plain=True, chunked_eq_single=True)
+        kernel_eq_plain=True,
+        chunked_eq_single=None if chunk is None else True)
     return stats
 
 
@@ -1555,6 +1600,381 @@ def gemma3_quantized(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the rest of the attention model zoo
+# ---------------------------------------------------------------------------
+
+#: the zoo drains: 8 requests of a shared 256-token prompt plus a
+#: 256..768-token suffix, 32 new tokens, 8 slots
+ZOO_SHARED, ZOO_SUFFIX, ZOO_NEW = 256, (256, 768), 32
+ZOO_CACHE_LEN = ZOO_SHARED + ZOO_SUFFIX[1] + ZOO_NEW
+#: (arch, layers run at published width — None: all —, KV dtypes); the
+#: MoE models are cut in depth to fit one card's 80 GB in bf16
+ZOO_RUNS = (("qwen2.5-14b", None, ("bf16",)),
+            ("granite-20b", None, ("bf16", "int8")),
+            ("phi3.5-moe-42b-a6.6b", 24, ("bf16",)),
+            ("llama4-scout-17b-a16e", 8, ("bf16",)))
+#: the f32 kernel-vs-plain parity depth of each model
+ZOO_PARITY_LAYERS = {"qwen2.5-14b": 4, "granite-20b": 4,
+                     "phi3.5-moe-42b-a6.6b": 2, "llama4-scout-17b-a16e": 2}
+#: granite-20b's attention: 48 query heads over one KV head (g = 48)
+GR_H, GR_KV = 48, 1
+
+
+class MoeRouting:
+    """Reads the MoE layers' routing during a drain, by wrapping
+    `models.transformer.moe_forward`: per call its dropped fraction of
+    (token, expert) assignments and its load-balance loss (E * sum f p:
+    1 for a uniform router, up to E when every token picks the same
+    experts), kept on the card until `summary`, split into decode steps
+    (one row a slot) and prefill chunks; and on the host each call's
+    rows and each expert's places C (the rows of its expert products).
+
+    The wrapper takes effect only because `transformer._ffn` looks
+    `moe_forward` up as a module global at each call; the drains check
+    that it saw the decode calls."""
+
+    def __init__(self):
+        from repro_torch.models import transformer
+        self.mod, self.inner = transformer, transformer.moe_forward
+        self.calls = {"decode": [], "prefill": []}
+        self.shapes = {"decode": [], "prefill": []}
+
+    def __enter__(self):
+        from repro_torch.models.moe import MOE_CHUNK, expert_capacity
+
+        def counted(params, x, **kw):
+            y, aux = self.inner(params, x, **kw)
+            kind = "decode" if x.shape[1] == 1 else "prefill"
+            self.calls[kind].append(torch.stack(
+                [aux["dropped_fraction"], aux["load_balance_loss"]]))
+            n = x.shape[0] * x.shape[1]
+            cap = expert_capacity(min(kw.get("chunk", MOE_CHUNK), n),
+                                  kw["top_k"], params["router"].shape[-1],
+                                  kw["capacity_factor"])
+            self.shapes[kind].append((n, cap))
+            return y, aux
+        self.mod.moe_forward = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_forward = self.inner
+
+    def summary(self) -> dict:
+        out = {}
+        for kind, vals in self.calls.items():
+            r = torch.stack(vals).float().cpu() if vals else torch.zeros(0, 2)
+            out[f"moe_{kind}_calls"] = len(vals)
+            out[f"moe_{kind}_calls_with_drops"] = int((r[:, 0] > 0).sum())
+            for j, name in enumerate(("dropped", "lb_loss")):
+                out[f"moe_{kind}_{name}_mean"] = (float(r[:, j].mean())
+                                                  if len(r) else 0.0)
+        return out
+
+
+def zoo_drain(cfg, params, dev, kv_dtype, weights="bf16", reset=True,
+              required=("paged_decode", "paged_prefill"), **extra):
+    """One zoo drain: 8 requests, 8 slots, prefix index, pow2 buckets,
+    32 new tokens. The required kernels must launch, the index must hit,
+    every pool must be whole again and no metric may move. Returns the
+    counts and the `MoeRouting` readings."""
+    prompts = serving_trace(cfg.vocab_size, 8, ZOO_SHARED, *ZOO_SUFFIX,
+                            SEED)
+    tag = f"{cfg.name}[{cfg.n_layers}L] {kv_dtype} KV {weights}"
+    with MoeRouting() as routing:
+        results, stats, launches = drain(
+            cfg, params, prompts, ZOO_NEW, 8, ZOO_CACHE_LEN, dev,
+            reset=reset, prefix=True, bucket_strategy="pow2",
+            kernel_impl="auto", kv_dtype=kv_dtype)
+    check(stats["requests"] == 8 and all(len(v) == ZOO_NEW
+                                         for v in results.values()),
+          f"{tag}: a request stopped short")
+    check(all(0 <= x < cfg.vocab_size for v in results.values() for x in v),
+          f"{tag}: token outside the vocab")
+    check(all(launches[k] > 0 for k in required),
+          f"{tag}: main path did not launch every kernel of {required}: "
+          f"{launches}")
+    check(stats["prefix_hits"] > 0, f"{tag}: no prefix hit")
+    check(stats["pools_whole"], f"{tag}: a page is still held after the "
+                                "drain")
+    check(stats["metric_mutations"] == 0,
+          f"{tag}: the telemetry-off drain touched a metric")
+    moe = routing.summary() if cfg.n_experts else {}
+    check(not cfg.n_experts or moe["moe_decode_calls"] > 0,
+          f"{tag}: no MoE layer ran")
+    say("zoo", model=cfg.name, kv_dtype=kv_dtype, weights=weights,
+        prompt_lens=f"{min(map(len, prompts))}..{max(map(len, prompts))}",
+        **extra, **moe, **stats)
+    return launches, routing
+
+
+def zoo_init(arch, layers, dev):
+    """`init_lm` of `arch` at its published width, cut to `layers`
+    (None: all); prints the parameters, their bytes, the seconds and the
+    peak device memory."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    check(all(getattr(cfg, k) == getattr(full, k) for k in (
+        "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab_size",
+        "n_experts", "top_k", "n_shared_experts")),
+          f"{arch}: cut in width")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    say("init", model=cfg.name, layers=cfg.n_layers,
+        published_layers=full.n_layers,
+        params=sum(x.numel() for x in _leaves(params)),
+        param_bytes=sum(x.numel() * x.element_size()
+                        for x in _leaves(params)),
+        seconds=time.perf_counter() - t0,
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    return cfg, params
+
+
+def zoo_full_width(dev, errs) -> dict:
+    """The four models' drains at published width (phi3.5-moe at 24 of
+    32 layers, llama4-scout at 8 of 48), then phi3.5-moe's --quantize
+    path at 8 layers, whose bit-plane checks raise `errs`. Returns each
+    path's counts."""
+    by_path = {}
+    for arch, layers, kv_dtypes in ZOO_RUNS:
+        cfg, params = zoo_init(arch, layers, dev)
+        for kv_dtype in kv_dtypes:
+            by_path[f"{arch}[{cfg.n_layers}L] {kv_dtype} KV"] = zoo_drain(
+                cfg, params, dev, kv_dtype)[0]
+        del params
+        torch.cuda.empty_cache()
+    by_path["phi3.5-moe-42b-a6.6b[8L] pim8"] = zoo_quantized(dev, errs)
+    return by_path
+
+
+def zoo_quantized(dev, errs) -> dict:
+    """phi3.5-moe's --quantize path at published width and 8 layers (the
+    dense and the packed trees must fit together): `ServeEngine.quantize`
+    packs the four attention projections and the [8, 16, 4096, 6400] /
+    [8, 16, 6400, 4096] expert stacks slice by slice with K5, then the
+    drain runs K3 per expert on every step and K4 on the attention
+    projections of prefill chunks above 512 rows. The counts are set to
+    0 before the quantize and read after the drain. Then K3-K5 are held
+    against their plain versions at the shapes this drain gave them and
+    K3 is timed at its expert shapes (`zoo_bitplane`)."""
+    from repro_torch.quant import PimWeight
+
+    cfg, params = zoo_init("phi3.5-moe-42b-a6.6b", 8, dev)
+    reset_launches()
+    qparams, frac, seconds = quantize_params(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    moe = qparams["layers"]["moe"]
+    check(all(isinstance(moe[k], PimWeight) for k in
+              ("we_gate", "we_up", "we_down"))
+          and tuple(moe["we_gate"].planes.shape[:2]) == (8, cfg.n_experts),
+          "phi3.5 pim8: the expert stacks were not packed")
+    check(moe["router"].dtype == torch.float32,
+          "phi3.5 pim8: the router left f32")
+    k5 = read_launches()["bitplane_pack"]
+    slices = (4 + 3 * cfg.n_experts) * cfg.n_layers
+    check(k5 == slices, f"phi3.5 pim8: K5 launches {k5} != {slices}")
+    launches, routing = zoo_drain(
+        cfg, qparams, dev, "bf16", weights="pim8", reset=False,
+        required=tuple(kernel_modules()), tree_packed_fraction=frac,
+        quantize_s=seconds, k5_slices=slices)
+    del qparams
+    torch.cuda.empty_cache()
+    zoo_bitplane(dev, cfg, routing, launches, errs)
+    return launches
+
+
+def zoo_bitplane(dev, cfg, routing, launches, errs):
+    """phi3.5-moe's pim8 drain's bit-plane products, at the rows it gave
+    them, 8-bit g = 1, in the tolerances of `bitplane_checks`: the
+    expert projections [4096 -> 6400] and [6400 -> 4096] at every
+    expert capacity C the drain's MoE calls had (K3), and the attention
+    projections [4096 -> 4096] (wq/wo) and [4096 -> 1024] (wk/wv) at a
+    decode step's 8 rows and at every prefill step's rows (K3 up to
+    512, K4 above). The K3 launches of the drain are split by rows: 3 E
+    expert products a MoE call, at that call's C, and the attention
+    projections' 4 a layer and step. K3 is then timed at the decode C
+    and at the largest prefill C."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    kv_width = cfg.n_kv_heads * cfg.hd
+    caps = sorted({c for kind in routing.shapes
+                   for _, c in routing.shapes[kind]})
+    step_rows = sorted({n for n, _ in routing.shapes["prefill"]})
+    by_rows = {}
+    for kind in ("decode", "prefill"):
+        for n, c in routing.shapes[kind]:
+            by_rows[c] = by_rows.get(c, 0) + 3 * e
+            if n <= 512:
+                by_rows[n] = by_rows.get(n, 0) + 4
+    check(sum(by_rows.values()) == launches["bitplane_gemv"],
+          f"phi3.5 pim8: K3 launches {launches['bitplane_gemv']} != "
+          f"{sum(by_rows.values())} counted by rows {by_rows}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    rel_err = dict.fromkeys(("bitplane_gemv", "bitplane_gemm",
+                             "matmul_bf16", "matmul_f32"), 0.0)
+    for k, m, rows in ((d, f, caps), (f, d, caps),
+                       (d, d, [8] + step_rows), (d, kv_width,
+                                                 [8] + step_rows)):
+        check_bitplane_matrix(dev, gen, 8, 1, k, m, rows, errs, rel_err)
+    say("bitplane", model="phi3.5-moe pim8 drain", format="(8,1)",
+        expert_rows=",".join(map(str, caps)),
+        attention_rows=",".join(map(str, [8] + step_rows)),
+        pack="byte-identical", gemv_rel_err=rel_err["bitplane_gemv"],
+        gemm_rel_err=rel_err["bitplane_gemm"],
+        matmul_rel_err_bf16=rel_err["matmul_bf16"],
+        matmul_rel_err_f32=rel_err["matmul_f32"],
+        k3_launches_by_rows=json.dumps(dict(sorted(by_rows.items())))
+        .replace(" ", ""))
+    dec_c = max(c for _, c in routing.shapes["decode"])
+    pre_c = max(c for _, c in routing.shapes["prefill"])
+    for rows in (pre_c, dec_c):
+        bitplane_row(dev, gen, "bitplane_gemv", rows, d, f,
+                     model=f"phi3.5-moe expert C={rows}")
+
+
+def zoo_parity(dev):
+    """Each model in f32 at published width and 2-4 layers: a drain's
+    greedy tokens with the CUDA kernels equal those with the plain
+    versions on the card; phi3.5-moe also with 8-bit g = 1 bit-plane
+    weights (K3 per expert). The dense models also hold chunked prefill
+    (64) equal to single-shot; the MoE models do not, in the reference
+    either: a chunk's rows compete for the experts' places, so another
+    chunking routes (and drops) differently."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    runs = [(arch, layers, False)
+            for arch, layers in ZOO_PARITY_LAYERS.items()]
+    runs.append(("phi3.5-moe-42b-a6.6b",
+                 ZOO_PARITY_LAYERS["phi3.5-moe-42b-a6.6b"], True))
+    for arch, layers, quantize in runs:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                                  n_layers=layers)
+        prompts = serving_trace(cfg.vocab_size, 6, 128, 16, 256, SEED + 2)
+        token_parity(dev, cfg, prompts, 16, 128 + 256 + 16,
+                     None if cfg.n_experts else 64, quantize=quantize)
+        torch.cuda.empty_cache()
+
+
+def zoo_kernel_checks(dev):
+    """K1 at granite's q [8, 48, 128] is in `kernel_checks`; here K2 at
+    its [1, 512, 48, 128] from start 256 (a 512-token chunk after a
+    256-token prefix), full and 256-token window, bf16, f32 and int8
+    pools, against the plain version on every row (all valid)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_prefill import paged_prefill_attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    rng = np.random.default_rng(SEED + 8)
+    mb, st_, t = 68, 256, 512
+    n_blocks = mb + 1
+    table = torch.tensor(rng.permutation(np.arange(1, n_blocks))[None],
+                         dtype=torch.int32, device=dev)
+    start = torch.tensor([st_], dtype=torch.int32, device=dev)
+    total = torch.tensor([st_ + t], dtype=torch.int32, device=dev)
+    err = 0.0
+    for kind in ("bf16", "f32", "int8"):
+        kp, vp, ks, vs, qdt = make_pools(gen, n_blocks, kind, dev, kv=GR_KV)
+        q = torch.randn((1, t, GR_H, HD), generator=gen, device=dev).to(qdt)
+        for window in (mb * BS, 256):
+            out = paged_prefill_attention(q, kp, vp, table, start, total,
+                                          window, k_scales=ks, v_scales=vs)
+            plain = ref.paged_prefill_ref(q, kp, vp, table, start, total,
+                                          window, k_scales=ks, v_scales=vs)
+            torch.cuda.synchronize()
+            e = float((out - plain).abs().max())
+            check(torch.isfinite(out).all() and e <= 1e-4,
+                  f"prefill granite {kind} w={window}: err {e}")
+            err = max(err, e)
+    say("kernels", model="granite-20b", heads=f"{GR_H}/{GR_KV}",
+        q=f"[1,{t},{GR_H},{HD}]", start=st_, pools="bf16,f32,int8",
+        prefill_err=err)
+    return err
+
+
+def zoo_kernel_timings(dev):
+    """K1 at granite's q [8, 48, 128] over the 8 decode slots of
+    `kernel_timings` (KV 1, bf16), K2 at its [1, 512, 48, 128] from
+    start 256, each beside SDPA over the same keys expanded to 48 heads.
+    K3 at phi3.5-moe's expert shapes is timed after its drain, at the
+    rows the drain gave it (`zoo_bitplane`)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.paged_prefill import paged_prefill_attention
+    F = torch.nn.functional
+
+    rng = np.random.default_rng(SEED + 9)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    mb, b = 68, 8
+    capacity = mb * BS
+    n_blocks = 1 + b * mb
+    kp, vp, _, _, dt = make_pools(gen, n_blocks, "bf16", dev, kv=GR_KV)
+    table = torch.tensor(
+        rng.permutation(np.arange(1, n_blocks))[: b * mb].reshape(b, mb),
+        dtype=torch.int32, device=dev)
+    item = kp.element_size()
+    lens_host = [340, 420, 560, 700, 810, 930, 1010, 1088]
+    lengths = torch.tensor(lens_host, dtype=torch.int32, device=dev)
+    q = torch.randn((b, GR_H, HD), generator=gen, device=dev).to(dt)
+    k_all, v_all = sdpa_inputs(kp, vp, table, mb, h=GR_H)
+    mask = (torch.arange(capacity, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    kv_pos = sum(lens_host)
+    nbytes = (2 * kv_pos * GR_KV * HD * item + q.numel() * item
+              + b * GR_H * HD * 4 + table.numel() * 4 + b * 4)
+    out = {}
+    r = dict(
+        **time_kernel(
+            lambda: paged_decode_attention(q, kp, vp, table, lengths,
+                                           capacity),
+            lambda: ref.paged_attention_ref(q, kp, vp, table, lengths,
+                                            capacity),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], k_all, v_all, attn_mask=mask)),
+        **bound(nbytes, 4 * HD * GR_H * kv_pos, dt),
+        shape=f"granite q[{b},{GR_H},{HD}] kv {GR_KV} lens {lens_host}")
+    say_timing("paged_decode", r)
+    out["paged_decode g48"] = r
+    del k_all, v_all
+
+    st_, t = 256, 512
+    tot = st_ + t
+    q1 = torch.randn((1, t, GR_H, HD), generator=gen, device=dev).to(dt)
+    start = torch.tensor([st_], dtype=torch.int32, device=dev)
+    total = torch.tensor([tot], dtype=torch.int32, device=dev)
+    bt1 = table[:1].contiguous()
+    k1, v1 = sdpa_inputs(kp, vp, bt1, tot // BS, h=GR_H)
+    qpos = st_ + torch.arange(t, device=dev)
+    pmask = (torch.arange(tot, device=dev)[None, :]
+             <= qpos[:, None])[None, None]
+    pairs = sum(st_ + i + 1 for i in range(t))
+    nbytes = (2 * tot * GR_KV * HD * item + q1.numel() * item
+              + q1.numel() * 4 + bt1.numel() * 4 + 8)
+    r = dict(
+        **time_kernel(
+            lambda: paged_prefill_attention(q1, kp, vp, bt1, start, total,
+                                            capacity),
+            lambda: ref.paged_prefill_ref(q1, kp, vp, bt1, start, total,
+                                          capacity),
+            lambda: F.scaled_dot_product_attention(
+                q1.transpose(1, 2), k1, v1, attn_mask=pmask)),
+        **bound(nbytes, 4 * HD * GR_H * pairs, dt),
+        shape=f"granite q[1,{t},{GR_H},{HD}] kv {GR_KV} start {st_} "
+              f"total {tot}")
+    say_timing("paged_prefill", r)
+    out["paged_prefill g48"] = r
+    del k1, v1
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 16: the IMAGine simulator at the full U55 array
 # ---------------------------------------------------------------------------
 
@@ -1688,10 +2108,13 @@ def main() -> int:
               f"{name}: no tensor-core instruction in its SASS")
 
     errs = kernel_checks(dev)
+    errs["paged_prefill"] = max(errs["paged_prefill"],
+                                zoo_kernel_checks(dev))
     errs.update(bitplane_checks(dev))
     times = kernel_timings(dev)
     gemma3_kernel_timings(dev)
     times.update(bitplane_timings(dev))
+    zoo_kernel_timings(dev)
 
     cfg = get_config("qwen2-1.5b")
     # the timings' queued work is not init's: wait for it first, and say
@@ -1743,6 +2166,8 @@ def main() -> int:
     gemma3_parity(dev)
     by_path["gemma3-27b[12L] pim8"] = gemma3_quantized(dev)
     imagine(dev)
+    by_path.update(zoo_full_width(dev, errs))
+    zoo_parity(dev)
 
     csrc = "src/repro_torch/kernels/csrc"
     sources = {

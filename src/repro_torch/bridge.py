@@ -5,13 +5,16 @@ The caller converts the JAX tree to numpy arrays (`np.asarray` on every
 leaf); this module never sees a JAX array. Layer stacks stay stacked as
 `[L, ...]`. Weights, biases and embeddings are cast once to the compute
 dtype — bit-equivalent, because every use in the reference casts them
-to the activation dtype first — while rmsnorm gains (`g`) stay f32, as
-the reference applies them in f32.
+to the activation dtype first — while rmsnorm gains (`g`) and MoE
+routers (`router`) stay f32, as the reference applies them in f32 (a
+router rounded to bf16 would route tokens differently).
 
 Quantized trees cross too: a reference `PimWeight` whose planes and
 scale the caller has turned into numpy (`jax.tree.map(np.asarray, ...)`
 keeps the object and its `n_bits`/`group`) becomes the port's
-`PimWeight`, planes kept uint8 and scales f32, bit for bit. Note what
+`PimWeight`, planes kept uint8 and scales f32, bit for bit — with its
+leading stack dims, `[L, K, M]` layer stacks and `[L, E, K, M]` MoE
+expert stacks alike. Note what
 that does and does not make equal: the port's own `init_lm` stores
 weights in the compute dtype (bf16 at full width), the reference keeps
 f32 masters, so quantizing the port's params and quantizing the
@@ -38,6 +41,8 @@ from .quant.bitplane import PimWeight
 
 #: the fields of a reference `PimWeight` (a bit-plane quantized leaf)
 _PIM_FIELDS = ("planes", "scale", "n_bits", "group")
+#: leaves the reference applies in f32: norm gains and MoE routers
+_F32_LEAVES = ("g", "router")
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device,
@@ -58,7 +63,8 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device,
                              int(node.n_bits), int(node.group))
         arr = np.asarray(node)
         t = torch.from_numpy(np.array(arr, dtype=np.float32, copy=True))
-        return t.to(device=dev, dtype=torch.float32 if name == "g" else dt)
+        return t.to(device=dev,
+                    dtype=torch.float32 if name in _F32_LEAVES else dt)
 
     return convert(tree, "")
 

@@ -17,6 +17,10 @@ from .base import ModelConfig
 _MODULES: Dict[str, str] = {
     "qwen2-1.5b": "qwen2_1_5b",
     "gemma3-27b": "gemma3_27b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "granite-20b": "granite_20b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b",
     # the paper's own accelerator config (FPGA simulator side)
     "imagine-u55": "imagine_u55",
 }

@@ -19,8 +19,19 @@
 //   * The walk is cut into ranges of 8 chunks (16 keys each; a page of bs
 //     keys is ceil(bs/16) chunks) at fixed table positions
 //     (kernels/paged_attention.py:decode_ranges, from the table's width
-//     and the page size alone). One CTA per (slot, kv-head, range): at
-//     the main path's 68-column table, 8 x 2 x 9 = 144 CTAs.
+//     and the page size alone). One CTA per (slot, kv-head, head tile,
+//     range): at the main path's 68-column table, 8 x 2 x 1 x 9 = 144
+//     CTAs.
+//   * Head tiles. The g query heads of a kv-head are cut into
+//     ceil(g / 16) tiles of 16, one CTA each (granite-20b: g = 48, three
+//     tiles). Each tile's CTA stages the range's K and V rows itself;
+//     its neighbours ask for the same rows at the same time, so the
+//     repeats come from L2, not HBM. Folding every tile in one warp
+//     instead would keep ceil(g / 16) accumulators of hd / 2 f32 per
+//     thread: 192 registers at g = 48, hd = 128, past what a thread can
+//     hold beside the fold's fragments, and twice that at hd = 256. A
+//     tile's rows see exactly the operations they saw with g <= 16, so
+//     every row's result is the one a 16-head group would give.
 //   * Inside a CTA, 4 warps walk the range's chunks independently: warp
 //     w folds the chunks whose absolute number is w mod 4. Each warp
 //     stages its chunks' K and V rows of the kv-head, in the pool's own
@@ -29,8 +40,9 @@
 //     no CTA barrier stands between two folds. The range's page ids (and
 //     int8 scales) are read once, one per lane, at the start.
 //   * A warp folds a chunk with mma.sync.m16n8k16 (tensor_core.cuh), as
-//     K2 does: the g <= 16 query heads of the kv-head are the 16 rows of
-//     one tile (rows past g are zero and fully masked), S = Q K^T over
+//     K2 does: the tile's <= 16 query heads are the 16 rows of one MMA
+//     tile (rows past the tile's heads are zero and fully masked),
+//     S = Q K^T over
 //     hd, the softmax per row in the fragments' registers (two shuffles
 //     for the max and two for the sum), then acc = alpha acc + P V with P
 //     as bf16 hi + lo. Exact operands: bf16 and int8 values are one bf16
@@ -47,7 +59,7 @@
 //     block_start) gives every valid row of the single launch bit for
 //     bit (paged_common.cuh).
 //   * Any hd <= 256 (compiled for 64, 128 or 256 columns; unused columns
-//     are zero in shared memory), bs <= 64, g <= 16.
+//     are zero in shared memory), bs <= 64, any g.
 #include <type_traits>
 
 #include "paged_common.cuh"
@@ -57,7 +69,7 @@ namespace paged {
 
 constexpr int kDecodeWarps = 4;
 constexpr int kDecodeThreads = 32 * kDecodeWarps;
-constexpr int kDecodeRows = 16;  // the MMA tile's rows: g <= 16 heads
+constexpr int kDecodeRows = 16;  // the MMA tile's rows: a head tile
 constexpr int kDecodeKeys = 16;  // keys per fold step (a chunk)
 
 template <typename QT, typename KVT, int HDP>
@@ -139,8 +151,12 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
   QT* q_s = reinterpret_cast<QT*>(smem);
   unsigned char* ring = smem + S::q_bytes;
 
-  const int row = blockIdx.x, kvh = blockIdx.y, range = blockIdx.z;
-  const int g = n_heads / n_kv;
+  const int g = n_heads / n_kv, n_tiles = (g + kDecodeRows - 1) / kDecodeRows;
+  const int row = blockIdx.x, range = blockIdx.z;
+  const int kvh = blockIdx.y / n_tiles;
+  // this CTA's heads: kvh * g + h0 .. + gt - 1 (gt <= 16)
+  const int h0 = blockIdx.y % n_tiles * kDecodeRows;
+  const int gt = min(kDecodeRows, g - h0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / 4, tig = lane % 4;
   const int cpp = (bs + kDecodeKeys - 1) / kDecodeKeys;  // chunks per page
@@ -184,18 +200,19 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
        i += kDecodeThreads)
     reinterpret_cast<int4*>(smem)[i] = make_int4(0, 0, 0, 0);
   __syncthreads();
-  // the kv-head's g query heads, rows 0 .. g - 1 of q_s (one cp.async
+  // the tile's gt query heads, rows 0 .. gt - 1 of q_s (one cp.async
   // group, the oldest of every thread)
-  const QT* q_head = q + (static_cast<size_t>(row) * n_heads + kvh * g) * hd;
+  const QT* q_head =
+      q + (static_cast<size_t>(row) * n_heads + kvh * g + h0) * hd;
   if ((hd * sizeof(QT)) % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0) {
     constexpr int E = 16 / sizeof(QT), kPieces = HDP / E;
-    for (int i = threadIdx.x; i < g * kPieces; i += kDecodeThreads) {
+    for (int i = threadIdx.x; i < gt * kPieces; i += kDecodeThreads) {
       const int u = i / kPieces, p = i % kPieces;
       if (p * E < hd)
         tc::cp_async16(q_s + u * LDQ + p * E, q_head + u * hd + p * E, 16);
     }
   } else {
-    for (int i = threadIdx.x; i < g * hd; i += kDecodeThreads) {
+    for (int i = threadIdx.x; i < gt * hd; i += kDecodeThreads) {
       const int u = i / hd, d = i - u * hd;
       q_s[u * LDQ + d] = q_head[u * hd + d];
     }
@@ -224,11 +241,11 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
   tc::cp_async_wait<kStages>();  // q has landed, for every thread ...
   __syncthreads();               // ... and is visible to all
 
-  // this thread's two rows: head grp + 8h of the group; -1 = no query
+  // this thread's two rows: head grp + 8h of the tile; -1 = no query
   // (all positions masked)
   int q_pos[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) q_pos[h] = grp + 8 * h < g ? len - 1 : -1;
+  for (int h = 0; h < 2; ++h) q_pos[h] = grp + 8 * h < gt ? len - 1 : -1;
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.0f, 0.0f};
   float acc[NT][4];
 #pragma unroll
@@ -396,13 +413,13 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
   tc::cp_async_wait<0>();
   __syncthreads();  // every warp is done with its ring
 
-  // each warp's state, rows < g: acc [hd], then m, l
+  // each warp's state, rows < gt: acc [hd], then m, l
   constexpr int LS = S::kLdState;
   float* st = reinterpret_cast<float*>(ring);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int u = grp + 8 * h;
-    if (u >= g) continue;
+    if (u >= gt) continue;
     float* r = st + (warp * kDecodeRows + u) * LS;
 #pragma unroll
     for (int nd = 0; nd < NT; ++nd) {
@@ -420,7 +437,7 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
   // merge the warps in order; one range: the output, several: this
   // range's unnormalised state
   const size_t units = static_cast<size_t>(gridDim.x) * n_heads;
-  for (int i = threadIdx.x; i < g * hd; i += kDecodeThreads) {
+  for (int i = threadIdx.x; i < gt * hd; i += kDecodeThreads) {
     const int u = i / hd, d = i - u * hd;
     float m = kNegInf;
 #pragma unroll
@@ -434,7 +451,8 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
       num += r[d] * wt;
       den += r[HDP + 1] * wt;
     }
-    const size_t unit = static_cast<size_t>(row) * n_heads + kvh * g + u;
+    const size_t unit =
+        static_cast<size_t>(row) * n_heads + kvh * g + h0 + u;
     if (n_ranges == 1) {
       out[unit * hd + d] = num / fmaxf(den, 1e-30f);
     } else {
@@ -462,7 +480,8 @@ cudaError_t launch_hdp(const void* q, const void* kp, const void* vp,
   const bool kv_vec = (hd * sizeof(KVT)) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(kp) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(vp) % 16 == 0;
-  kernel<<<dim3(B, KV, n_ranges), kDecodeThreads, smem, stream>>>(
+  const int n_tiles = (H / KV + kDecodeRows - 1) / kDecodeRows;
+  kernel<<<dim3(B, KV * n_tiles, n_ranges), kDecodeThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(kp),
       static_cast<const KVT*>(vp), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table),

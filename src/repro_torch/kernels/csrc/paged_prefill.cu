@@ -23,8 +23,11 @@
 //     the walk), 4 warps of 16 units each. A unit is one (position,
 //     head) of the kv-head's group, units ordered position-major, so the
 //     g query heads that share a kv-head share every staged page (qwen2:
-//     g = 6, a 768-token suffix is 2 x 72 tiles). The tile's queries are
-//     staged once, as stored (bf16 or f32).
+//     g = 6, a 768-token suffix is 2 x 72 tiles). Any g: a tile spans the
+//     positions of its first to its last unit (granite-20b, g = 48: 1 1/3
+//     positions a tile, so a tile may start and end inside a position's
+//     heads), and every unit masks by its own position. The tile's
+//     queries are staged once, as stored (bf16 or f32).
 //   * The walk is cut into at most 4 ranges of whole 16-key chunks at
 //     fixed table positions (kernels/paged_prefill.py:walk_ranges, from
 //     the table's width and the page size alone; 3 ranges of 23 pages

@@ -61,8 +61,9 @@ RANGE_CHUNKS = 8
 def decode_ranges(mb: int, bs: int):
     """`(count, chunks)`: the kernel splits the page walk into `count`
     ranges of `chunks` chunks (16 keys each; a page is ceil(bs/16)
-    chunks), one block per (slot, kv-head, range), and merges the
-    ranges' softmax states in order. At the main path's 68-column table
+    chunks), one block per (slot, kv-head, tile of 16 query heads,
+    range), and merges the ranges' softmax states in order. At the main
+    path's 68-column table
     that is 9 ranges, 144 blocks for 8 slots. A function of the table's
     width and the page size only, so every launch of a serving run —
     bucketed, depth-bounded or not — splits at the same table positions

@@ -37,7 +37,6 @@ INT8_QMAX = 127.0
 #: limits of the CUDA kernels (shared-memory tiles are sized from them)
 MAX_HEAD_DIM = 256
 MAX_BLOCK_SIZE = 64
-MAX_GROUP = 16
 
 #: dtype codes of the C interface (csrc/paged_common.cuh `DType`)
 DTYPE_CODES: Dict[torch.dtype, int] = {
@@ -173,7 +172,8 @@ def check_kernel_operands(
 ) -> None:
     """What both CUDA wrappers check before a launch: device, dtype,
     shape and contiguity of every operand, and the kernels' size limits
-    (hd <= 256, bs <= 64, GQA group <= 16)."""
+    (hd <= 256, bs <= 64; any GQA group: K1 cuts a kv-head's query heads
+    into tiles of 16, K2 into its tiles of 64 (position, head) units)."""
     dev = q.device
     _require(dev.type == "cuda", f"{name}: q lies on {dev}, not a CUDA device")
     tensors = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
@@ -199,8 +199,6 @@ def check_kernel_operands(
     _require(h % n_kv == 0, f"{name}: {h} heads not a multiple of {n_kv}")
     _require(hd <= MAX_HEAD_DIM, f"{name}: hd={hd} > {MAX_HEAD_DIM}")
     _require(bs <= MAX_BLOCK_SIZE, f"{name}: bs={bs} > {MAX_BLOCK_SIZE}")
-    _require(h // n_kv <= MAX_GROUP,
-             f"{name}: GQA group {h // n_kv} > {MAX_GROUP}")
     if k_scales is not None:
         for key, s in (("k_scales", k_scales), ("v_scales", v_scales)):
             _require(s.dtype == torch.float32 and

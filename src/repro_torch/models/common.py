@@ -104,7 +104,17 @@ def apply_rope(
     return out.to(x.dtype)
 
 
-ACTS = {"silu": torch.nn.functional.silu}
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The reference's `jax.nn.gelu`, whose default is the tanh
+    approximation (torch's default is the exact erf form)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+ACTS = {
+    "silu": torch.nn.functional.silu,
+    "gelu": _gelu_tanh,
+    "relu": torch.nn.functional.relu,
+}
 
 #: the additive attention mask's value at a masked score (the
 #: reference's; finite, so a fully masked row stays finite)

@@ -1,5 +1,8 @@
 """Decoder-only LM: counterpart of the attention-stack parts of
-`repro.models.transformer`.
+`repro.models.transformer` — attention layers whose FFN is a SwiGLU, a
+plain MLP (granite) or a mixture of experts (phi3.5-moe, llama4-scout).
+The recurrent blocks (mamba2, xLSTM), encoder-decoder stacks and the
+modality frontends wait for a later slice of the port.
 
 Entry points, as in the reference:
 
@@ -48,13 +51,19 @@ from .common import (
     rmsnorm,
     rmsnorm_params,
 )
-from .mlp import init_swiglu, swiglu
+from .mlp import init_mlp, init_swiglu, mlp, swiglu
+from .moe import init_moe, moe_forward
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.block_kind != "attn" or cfg.n_experts or cfg.mlp_kind != "swiglu":
+    if (cfg.block_kind != "attn" or cfg.is_encoder_decoder
+            or cfg.frontend != "none"):
         raise NotImplementedError(
-            f"{cfg.name}: only attention + SwiGLU stacks are ported yet"
+            f"{cfg.name}: block_kind {cfg.block_kind!r}, encoder-decoder "
+            f"{cfg.is_encoder_decoder}, frontend {cfg.frontend!r}: the port "
+            "runs decoder-only attention stacks; the recurrent blocks' dense "
+            "caches, encoder-decoder stacks and the modality frontends wait "
+            "for a later slice of the port"
         )
 
 
@@ -69,22 +78,36 @@ def init_layer(cfg: ModelConfig, generator, device, dtype,
     `layer_params(stacked, l)`) the draws are written into it in place."""
     def o(name):
         return None if out is None else out[name]
-    return {
+    p: Params = {
         "ln1": rmsnorm_params(cfg.d_model, device, o("ln1")),
         "attn": init_attention(
             cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.qkv_bias,
             generator, device, dtype, o("attn"),
         ),
         "ln2": rmsnorm_params(cfg.d_model, device, o("ln2")),
-        "mlp": init_swiglu(cfg.d_model, cfg.d_ff, generator, device, dtype,
-                           o("mlp")),
     }
+    if cfg.n_experts:
+        p["moe"] = init_moe(cfg.d_model, cfg.d_ff, cfg.n_experts,
+                            cfg.n_shared_experts, generator, device, dtype,
+                            o("moe"))
+    elif cfg.mlp_kind == "plain":
+        p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, generator, device, dtype,
+                            o("mlp"))
+    else:
+        p["mlp"] = init_swiglu(cfg.d_model, cfg.d_ff, generator, device,
+                               dtype, o("mlp"))
+    return p
+
+
+def _swiglu_shapes(d: int, f: int, dtype) -> Params:
+    return {"w_gate": ((d, f), dtype), "w_up": ((d, f), dtype),
+            "w_down": ((f, d), dtype)}
 
 
 def layer_shapes(cfg: ModelConfig, dtype) -> Params:
     """`init_layer`'s tree with a `(shape, dtype)` pair at each leaf,
-    from the config alone: weights and biases in `dtype`, norm gains in
-    f32."""
+    from the config alone: weights and biases in `dtype`, norm gains and
+    the MoE router in f32."""
     d, hd, f32 = cfg.d_model, cfg.hd, torch.float32
     attn = {
         "wq": ((d, cfg.n_heads * hd), dtype),
@@ -96,14 +119,24 @@ def layer_shapes(cfg: ModelConfig, dtype) -> Params:
         attn.update(bq=((cfg.n_heads * hd,), dtype),
                     bk=((cfg.n_kv_heads * hd,), dtype),
                     bv=((cfg.n_kv_heads * hd,), dtype))
-    return {
+    shapes: Params = {
         "ln1": {"g": ((d,), f32)},
         "attn": attn,
         "ln2": {"g": ((d,), f32)},
-        "mlp": {"w_gate": ((d, cfg.d_ff), dtype),
-                "w_up": ((d, cfg.d_ff), dtype),
-                "w_down": ((cfg.d_ff, d), dtype)},
     }
+    f, e = cfg.d_ff, cfg.n_experts
+    if e:
+        moe = {"router": ((d, e), f32), "we_gate": ((e, d, f), dtype),
+               "we_up": ((e, d, f), dtype), "we_down": ((e, f, d), dtype)}
+        if cfg.n_shared_experts:
+            moe["shared"] = _swiglu_shapes(d, f * cfg.n_shared_experts,
+                                           dtype)
+        shapes["moe"] = moe
+    elif cfg.mlp_kind == "plain":
+        shapes["mlp"] = {"w_up": ((d, f), dtype), "w_down": ((f, d), dtype)}
+    else:
+        shapes["mlp"] = _swiglu_shapes(d, f, dtype)
+    return shapes
 
 
 def _empty_stack(tree: Params, n: int, device) -> Params:
@@ -119,8 +152,9 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     """Random parameters with the reference's shapes and init scales
     (truncated-normal fan-in projections, N(0, 0.02) embeddings, zero
     biases, unit norm gains), drawn from `generator` — which must live
-    on `device`. Weights are stored in the compute dtype, norm gains in
-    f32 (the same once-cast `bridge.params_from_jax` applies).
+    on `device`. Weights are stored in the compute dtype, norm gains and
+    MoE routers in f32 (the same once-cast `bridge.params_from_jax`
+    applies).
 
     Each stacked `[L, ...]` leaf is allocated once and filled layer by
     layer (draws in layer order, then the embedding), so the device
@@ -189,24 +223,43 @@ def _attn_kwargs(cfg: ModelConfig):
                 head_dim=cfg.hd, rope_theta=cfg.rope_theta)
 
 
+def _ffn(lp, h, cfg, impl):
+    """One layer's FFN on the normed `h`, as the reference's
+    `_attn_block` / `_ffn` pick it: `(output, load-balance loss)`, the
+    loss None for a dense FFN."""
+    if cfg.n_experts:
+        y, aux = moe_forward(lp["moe"], h, top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor,
+                             act=cfg.act, impl=impl)
+        return y, aux["load_balance_loss"]
+    if cfg.mlp_kind == "plain":
+        return mlp(lp["mlp"], h, cfg.act, impl), None
+    return swiglu(lp["mlp"], h, cfg.act, impl), None
+
+
 def _layer_loop(params, x, cfg, windows, attn, impl):
     """The body of the reference's `lax.scan`s, one layer at a time:
     `attn(l, attn_params, normed_x, window)` gives layer `l`'s attention
-    output, then the SwiGLU block. `impl` reaches every projection
-    (`pim_linear`)."""
+    output, then the FFN. `impl` reaches every projection
+    (`pim_linear`). Returns `(x, losses)`: the MoE layers' load-balance
+    losses in layer order (empty for a dense stack)."""
+    losses = []
     for l in range(cfg.n_layers):
         lp = layer_params(params["layers"], l)
         x = x + attn(l, lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps),
                      windows[l])
-        x = x + swiglu(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps),
-                       cfg.act, impl)
-    return x
+        h, loss = _ffn(lp, rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg, impl)
+        x = x + h
+        if loss is not None:
+            losses.append(loss)
+    return x, losses
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             impl: str = "auto") -> Tuple[torch.Tensor, Dict]:
     """Full-sequence logits [B, T, V] (training / scoring), windows from
-    `window_schedule(T)`; aux `{"moe_aux": 0.0}` (no expert layers)."""
+    `window_schedule(T)`; aux `{"moe_aux": the sum of the MoE layers'
+    load-balance losses}` (0.0 for a dense stack)."""
     _check_supported(cfg)
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -215,9 +268,11 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         return attention_forward(p, h, positions, window=window, impl=impl,
                                  **_attn_kwargs(cfg))
 
-    x = _layer_loop(params, x, cfg, _window_array(cfg, x.shape[1]), attn,
-                    impl)
+    x, losses = _layer_loop(params, x, cfg, _window_array(cfg, x.shape[1]),
+                            attn, impl)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for loss in losses:
+        aux = aux + loss
     return _head(params, x, cfg), {"moe_aux": aux}
 
 
@@ -258,7 +313,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                                  **_attn_kwargs(cfg))[0]
 
     x = _layer_loop(params, x, cfg, _window_array(cfg, cache_len), attn,
-                    impl)
+                    impl)[0]
     cache["position"] = t
     last = t - 1 if last_pos is None else min(max(int(last_pos), 0), t - 1)
     return _head(params, x[:, last: last + 1], cfg), cache
@@ -283,7 +338,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict,
                                 window=window, impl=impl, rope_pos=rope_pos,
                                 mask=masks[window], **_attn_kwargs(cfg))[0]
 
-    x = _layer_loop(params, x, cfg, windows, attn, impl)
+    x = _layer_loop(params, x, cfg, windows, attn, impl)[0]
     return _head(params, x, cfg), dict(cache, position=pos + 1)
 
 
@@ -396,7 +451,7 @@ def _run_layers(params, x, cfg, attn_fn, attn_args, k_pages, v_pages,
         )[0]
 
     return _layer_loop(params, x, cfg, _window_array(cfg, capacity), attn,
-                       impl)
+                       impl)[0]
 
 
 def decode_step_paged(

@@ -20,6 +20,8 @@ without telemetry. Serving tests (paged and dense) hold the greedy f32
 tokens with the kernels equal to those with the plain versions.
 The IMAGine simulator (plain torch ops, no kernel of its own) gives on
 the card the register file and y it gives on the CPU, bit for bit.
+K1 and K2 are also held at granite-20b's GQA group of 48 (MQA), with
+the same tolerances.
 """
 
 import dataclasses
@@ -538,9 +540,12 @@ def test_bitplane_gemv_main_path_shapes(cuda_device, k, m, dtype):
     (6, 2, 96, 4, "f32"),       # hd between the compiled widths
     (2, 1, 16, 4, "bf16"),      # the smoke model's heads and pages
     (4, 2, 4, 8, "bf16"),       # rows of 8 bytes: staged by plain loads
+    (48, 1, 128, 16, "int8"),   # granite-20b: g = 48, three head tiles
+    (20, 1, 64, 16, "f32"),     # g = 20: a full and a 4-head tile
+    (40, 8, 128, 16, "bf16"),   # qwen2.5-14b / llama4-scout: g = 5
 ])
 def test_decode_kernel_ragged_shapes(cuda_device, H, KV, hd, bs, kind):
-    """Head groups of 1 to 16, head widths below and between the
+    """Head groups of 1 to 48, head widths below and between the
     compiled tile widths, pages that are not a multiple of the 16-key
     fold step and rows too short for 16-byte copies: within 1e-4 of the
     plain version on valid rows, with a full and a short window."""
@@ -655,6 +660,132 @@ def test_gemma3_prefill_bucketed_and_bounded_walks_equal_single(cuda_device,
             torch.cuda.synchronize()
             assert torch.equal(bounded[valid], one[valid]), (kind, window,
                                                              depth)
+
+
+# granite-20b's heads and pages: 48 query heads over one KV head (MQA,
+# g = 48: three 16-head tiles of K1, 1 1/3 positions a 64-unit tile of
+# K2), hd 128, 16-token pages, 68 columns (1088 tokens)
+GR_H, GR_KV, GR_HD, GR_BS, GR_MB = 48, 1, 128, 16, 68
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_granite_g48_decode_bucketed_and_bounded_walks_equal_single(
+        cuda_device, kind):
+    """K1 at g = 48 over 8 slots: within 1e-4 of the plain version on
+    valid rows, with a full and a 256-token window (walks from each
+    slot's first live block), and bucketed and depth-bounded launches
+    equal the single launch bit for bit."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(13)
+    lengths = [0, 1, 16, 17, 129, 300, 700, GR_MB * GR_BS]
+    q, tk, tv, bt, ln, sc = _decode_case(
+        gen, dev, kind, torch.bfloat16, lengths, GR_MB, H=GR_H, KV=GR_KV,
+        hd=GR_HD, bs=GR_BS)
+    lens = np.asarray(lengths)
+    valid = ln > 0
+    for window in (GR_MB * GR_BS, 256):
+        start = np.maximum(lens - window, 0) // GR_BS
+        needs = np.maximum(-(-lens // GR_BS) - start, 1)
+        blk = torch.tensor(start, dtype=torch.int32, device=dev)
+        one = paged_attention.paged_decode_attention(
+            q, tk, tv, bt, ln, window, block_start=blk, **sc)
+        plain = ref.paged_attention_ref(q, tk, tv, bt, ln, window, **sc)
+        plan, perm = ops.make_bucket_plan(lens, GR_BS, GR_MB, needs=needs)
+        assert plan is not None
+        buck = paged_attention.paged_decode_attention_bucketed(
+            q, tk, tv, bt, ln, window, plan,
+            torch.tensor(perm, dtype=torch.int64, device=dev),
+            block_start=blk, **sc)
+        torch.cuda.synchronize()
+        assert torch.isfinite(one).all()
+        err = float((one - plain).abs()[valid].max())
+        assert err <= 1e-4, (kind, window, err)
+        assert torch.equal(buck[valid], one[valid]), (kind, window, plan)
+        deepest = int(needs.max())
+        for depth in sorted({deepest, min(deepest + 9, GR_MB)}):
+            bounded = paged_attention.paged_decode_attention(
+                q, tk, tv, bt, ln, window, block_start=blk, depth=depth, **sc)
+            torch.cuda.synchronize()
+            assert torch.equal(bounded[valid], one[valid]), (kind, window,
+                                                             depth)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_granite_g48_prefill_bucketed_walk_equals_single(cuda_device, kind):
+    """K2 at g = 48: two slots' 70-token chunks (3,360 units a slot,
+    tiles that start inside a position's heads) from starts 0 and 256,
+    within 1e-4 of the plain version on valid rows with a full and a
+    40-token window; the bucketed launch equals the single one bit for
+    bit."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(14)
+    T = 70
+    q, tk, tv, bt, sc = _prefill_case(gen, dev, kind, torch.bfloat16, 2, T,
+                                      GR_H, GR_KV, GR_HD, GR_BS, GR_MB)
+    starts = np.asarray([0, 256])
+    totals = starts + np.asarray([T, 50])
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    total = torch.tensor(totals, dtype=torch.int32, device=dev)
+    valid = _valid_rows(start, total, T)
+    for window in (GR_MB * GR_BS, 40):
+        first = np.maximum(starts - window + 1, 0) // GR_BS
+        needs = np.maximum(-(-totals // GR_BS) - first, 1)
+        blk = torch.tensor(first, dtype=torch.int32, device=dev)
+        one = paged_prefill.paged_prefill_attention(
+            q, tk, tv, bt, start, total, window, block_start=blk, **sc)
+        plain = ref.paged_prefill_ref(q, tk, tv, bt, start, total, window,
+                                      **sc)
+        plan, perm = ops.make_bucket_plan(totals, GR_BS, GR_MB, needs=needs)
+        assert plan is not None
+        buck = paged_prefill.paged_prefill_attention_bucketed(
+            q, tk, tv, bt, start, total, window, plan,
+            torch.tensor(perm, dtype=torch.int64, device=dev),
+            block_start=blk, **sc)
+        torch.cuda.synchronize()
+        assert torch.isfinite(one).all()
+        err = float((one - plain).abs()[valid].max())
+        assert err <= 1e-4, (kind, window, err)
+        assert torch.equal(buck[valid], one[valid]), (kind, window, plan)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "granite-20b",
+                                  "phi3.5-moe-42b-a6.6b",
+                                  "llama4-scout-17b-a16e"])
+@pytest.mark.parametrize("quantize", [False, True])
+def test_zoo_serving_on_the_card_matches_plain(cuda_device, arch, quantize):
+    """The smoke configs of the rest of the zoo in f32, with dense and
+    with 8-bit g = 1 bit-plane weights (the MoE expert stacks packed):
+    a paged drain through the kernels gives the tokens of the drain
+    through the plain versions."""
+    dev = cuda_device
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if quantize:
+        params = quantize_tree(params, PimQuantConfig(8, 1, min_features=8))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n), dtype=np.int32)
+               for n in rng.integers(4, 30, 6)]
+    out = {}
+    for impl in ("cuda", "ref"):
+        paged_attention.LAUNCHES = paged_prefill.LAUNCHES = 0
+        bitplane_gemv.LAUNCHES = 0
+        cb = ContinuousBatcher(cfg, params, n_slots=3, cache_len=48,
+                               paged=True, block_size=4, kernel_impl=impl,
+                               device=dev)
+        for uid, p in enumerate(prompts):
+            cb.submit(Request(uid=uid, prompt=p, max_new_tokens=6))
+        out[impl] = cb.run_until_drained()
+        launched = (paged_attention.LAUNCHES, paged_prefill.LAUNCHES,
+                    bitplane_gemv.LAUNCHES)
+        if impl == "cuda":
+            assert launched[0] > 0 and launched[1] > 0
+            assert (launched[2] > 0) == quantize
+        else:
+            assert launched == (0, 0, 0)
+    assert out["cuda"] == out["ref"]
 
 
 #: gemma3-27b's projections: wk/wv, wq, wo, w_gate/w_up, w_down
