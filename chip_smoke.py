@@ -13,8 +13,11 @@ window), whose paged cache splits into a global and a windowed layer
 group that retires pages, then the rest of the attention model zoo at
 published width: qwen2.5-14b and granite-20b (MQA, GQA group 48, plain
 GELU MLP) at full depth, phi3.5-moe-42b-a6.6b and llama4-scout-17b-a16e
-(mixtures of experts) cut in depth to fit the card. Phases, one line
-each:
+(mixtures of experts) cut in depth to fit the card, and last the other
+families at published width and depth: zamba2-1.2b (Mamba2 with a
+shared attention block), xlstm-350m (mLSTM / sLSTM), whisper-medium
+(encoder-decoder over stub frames) and llava-next-34b (stub patch
+embeddings, GQA group 7). Phases, one line each:
 
   1. card      nvidia-smi name and power limit, torch and CUDA versions;
                TF32 off for matmuls and cuDNN
@@ -28,12 +31,14 @@ each:
                lengths 0..2048, windows {capacity, 256}, a COW-fragmented
                table) and at gemma3's (H 32, KV 16, 212 columns, lengths
                0..3392, windows {capacity, 1024}) and at granite-20b's
-               (H 48, KV 1: a GQA group of 48; 68 columns, window 256),
+               (H 48, KV 1: a GQA group of 48; 68 columns, window 256)
+               and llava-next-34b's (H 56, KV 8: g = 7),
                walks starting at each slot's first live block, for bf16,
                f32 and int8 pools: max abs error vs the plain version
                <= 1e-4 on valid rows, the bucketed launch bit-identical
                to the single launch; then K2 at granite's q
-               [1, 512, 48, 128] from start 256, within 1e-4
+               [1, 512, 48, 128] and llava's [1, 512, 56, 128] from
+               start 256, within 1e-4
   4. bitplane  K3 (GEMV), K4 (GEMM) and K5 (pack) against their plain
                versions for (n_bits, g) in {(8,1), (4,2), (8,4), (3,1)}
                and x in {bf16, f32}, on qwen2's projections
@@ -60,8 +65,10 @@ each:
                at [8, 5376] -> 21504 and [8, 21504] -> 5376, K4 at
                [768, 5376] -> 21504; then K1 at granite-20b's q
                [8, 48, 128] (KV 1), K2 at its [1, 512, 48, 128] from
-               start 256, and K3 at phi3.5-moe's expert projection
-               [4096 -> 6400] at C = 320 and C = 2 rows
+               start 256, the same two at llava's 56 heads over 8 KV
+               heads, K3 at zamba2's [8, 2048] -> 8352 and xlstm's
+               [8, 1024] -> 4; K3 at phi3.5-moe's expert projections is
+               timed after its drain
      init      qwen2-1.5b at full width, after a sync (the wait is
                printed): `init_lm` alone (and the modules it imports)
   6. serve     qwen2-1.5b, bf16: 8 slots, 16 requests, each a shared
@@ -168,7 +175,32 @@ each:
                dense two (a MoE chunk's rows compete for the experts'
                places, so another chunking routes differently, in the
                reference as well)
- 18. a JSON line {"kernels": [...]} with each kernel's launches (those
+ 18. families the rest of the zoo at published width, random weights
+               from the seed (the `[families]` lines carry the `[serve]` /
+               `[dense]` fields): zamba2-1.2b (38 Mamba2 layers, a shared
+               attention block after every 6th) and xlstm-350m (24
+               layers, the sLSTM at every 6th), each with dense
+               `generate` (8 x 1024 tokens, 64 new; xlstm 8 x 256, its
+               prefill being a Python loop over time), the dense batcher
+               (16 requests, 8 slots, 32 new: exactly 62 ticks and the
+               global position 62) and the --quantize path (K5 once per
+               projection slice, then `generate` launching K3 and K4;
+               xlstm's [1024 -> 4] gates on K3); whisper-medium (24 + 24
+               layers) `prefill_encdec` over 1500 stub frames and a
+               4-token prompt, 8 rows, 63 greedy `decode_step_encdec`s,
+               then the same with 8-bit weights (K4 on the encoder's
+               12,000 rows, K3 on decode); llava-next-34b at 60 layers
+               (68.8 GB of bf16 weights): `prefill` of 2880 stub patch
+               positions and 64 text tokens, 2 rows, 31 `decode_step`s,
+               then the launcher's paged drain (K1/K2 at g = 7). After
+               each pim8 run K3-K5 are held against their plain versions
+               at every [K -> M] and row count it ran. Then f32 parity at
+               published width: zamba2 and xlstm at 6 layers (the
+               teacher-forcing property of tests/test_models.py, and pim8
+               dense `generate` kernels == plain versions), whisper at 2
+               + 2 (pim8 kernels == plain), llava at 4 (K1/K2 drain ==
+               plain, chunked == single-shot)
+ 19. a JSON line {"kernels": [...]} with each kernel's launches (those
      of the qwen2 paths, and per path), error, times and bound, then the
      last line {"ok": true, "device": {"platform": "gpu", ...}}
 
@@ -210,6 +242,19 @@ def check(cond, msg: str) -> None:
 def say(phase: str, **fields) -> None:
     body = " ".join(f"{k}={v}" for k, v in fields.items())
     print(f"[{phase}] {body}", flush=True)
+
+
+class Laps:
+    """Host seconds of each phase: `lap(name)` prints the time since the
+    previous lap (or since the clock was made) as `[lap]`."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        say("lap", name=name, seconds=now - self.t)
+        self.t = now
 
 
 def call_ms(fn, warmup: int = 3, reps: int = 20) -> float:
@@ -357,6 +402,9 @@ ATTN_CASES = (
      [1, 17, 64, 300, 700, 1000, 1050, 1088], 256),
     # phi3.5-moe: g = 4
     ("phi3.5-moe", 32, 8, 68, [0, 1, 17, 129, 300, 700, 1000, 1088],
+     [1, 17, 64, 300, 700, 1000, 1050, 1088], 256),
+    # llava-next-34b: g = 7
+    ("llava-next-34b", 56, 8, 68, [0, 1, 17, 129, 300, 700, 1000, 1088],
      [1, 17, 64, 300, 700, 1000, 1050, 1088], 256),
 )
 
@@ -1217,10 +1265,13 @@ def qwen2_parity(dev, quantize=False):
 # ---------------------------------------------------------------------------
 
 def dense_cache_bytes(cfg, batch, cache_len) -> int:
-    """K and V of the dense cache [L, B, S, KV, hd] in the compute dtype."""
-    itemsize = 2 if cfg.dtype == "bfloat16" else 4
-    return (2 * cfg.n_layers * batch * cache_len * cfg.n_kv_heads * cfg.hd
-            * itemsize)
+    """The bytes of `models.init_cache` (K/V [L, B, S, KV, hd], or the
+    recurrent states and zamba2's shared-block K/V), counted on the meta
+    device."""
+    from repro_torch.models import init_cache
+    cache = init_cache(cfg, batch, cache_len, "meta")
+    return sum(v.numel() * v.element_size() for k, v in cache.items()
+               if k != "position")
 
 
 def dense_generate(cfg, params, prompts, new_tokens, cache_len, dev,
@@ -1301,20 +1352,24 @@ def qwen2_dense(cfg, params, dev):
     return tokens, launches
 
 
-def qwen2_dense_batcher(cfg, params, dev):
-    """`ContinuousBatcher(paged=False)`: 16 requests of 2048 tokens, 8
-    slots, 64 new tokens each. The dense batcher keeps one global write
-    position, as the reference's does: 126 ticks move it to 126. With no
-    telemetry attached the drain must not touch a metric. Returns the
-    launch counts of the drain."""
+def dense_batcher(cfg, params, dev, n_requests, prompt_len, n_slots,
+                  new_tokens, cache_len, seed, phase="dense"):
+    """`ContinuousBatcher(paged=False)` over `n_requests` prompts of
+    `prompt_len` tokens, twice as many as `n_slots`: two waves, each
+    prefilled at once and decoded `new_tokens - 1` ticks. The dense
+    batcher keeps one global write position, as the reference's does,
+    so the position after the drain equals the ticks, 2 (new - 1). With
+    no telemetry attached the drain must not touch a metric. The counts
+    are set to 0 just before the drain and read just after; returns
+    them."""
     from repro_torch.obs import mutation_count
     from repro_torch.serve import ContinuousBatcher, Request
 
-    prompts = dense_prompts(cfg.vocab_size, 16, Q2_DENSE_T, SEED + 12)
-    cb = ContinuousBatcher(cfg, params, n_slots=8, cache_len=Q2_DENSE_CACHE,
-                           prompt_len=Q2_DENSE_T, device=dev)
+    prompts = dense_prompts(cfg.vocab_size, n_requests, prompt_len, seed)
+    cb = ContinuousBatcher(cfg, params, n_slots=n_slots, cache_len=cache_len,
+                           prompt_len=prompt_len, device=dev)
     for uid, p in enumerate(prompts):
-        cb.submit(Request(uid=uid, prompt=p, max_new_tokens=Q2_DENSE_NEW))
+        cb.submit(Request(uid=uid, prompt=p, max_new_tokens=new_tokens))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1326,23 +1381,34 @@ def qwen2_dense_batcher(cfg, params, dev):
     mutations = mutation_count() - mutations
     launches = read_launches()
     n_tok = sum(len(v) for v in results.values())
+    ticks = 2 * (new_tokens - 1)
+    want = (ticks, n_requests * prompt_len, n_requests * new_tokens, ticks)
     got = (cb.ticks, cb.prefill_tokens, n_tok, cb.cache["position"])
-    check(got == (126, 32_768, 1_024, 126),
-          f"dense batcher: (ticks, prefill tokens, tokens out, position) "
-          f"{got} != (126, 32768, 1024, 126)")
-    check(all(len(v) == Q2_DENSE_NEW for v in results.values()),
-          "dense batcher: a request stopped short")
-    check(mutations == 0, "dense batcher: the telemetry-off drain touched "
-                          "a metric")
-    say("dense", model=cfg.name, path="batcher", requests=len(results),
-        tokens=n_tok, ticks=cb.ticks, prefill_tokens=cb.prefill_tokens,
+    check(n_requests == 2 * n_slots and got == want,
+          f"{cfg.name} dense batcher: (ticks, prefill tokens, tokens out, "
+          f"position) {got} != {want}")
+    check(all(len(v) == new_tokens for v in results.values()),
+          f"{cfg.name} dense batcher: a request stopped short")
+    check(mutations == 0, f"{cfg.name} dense batcher: the telemetry-off "
+                          "drain touched a metric")
+    say(phase, model=cfg.name, path="batcher", layers=cfg.n_layers,
+        requests=len(results), prompt_len=prompt_len, tokens=n_tok,
+        ticks=cb.ticks, prefill_tokens=cb.prefill_tokens,
         position=cb.cache["position"], wall_s=wall,
         tokens_per_s=n_tok / wall,
-        dense_cache_bytes=dense_cache_bytes(cfg, 8, Q2_DENSE_CACHE),
+        dense_cache_bytes=dense_cache_bytes(cfg, n_slots, cache_len),
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         metric_mutations=mutations,
         **{f"launches_{k}": v for k, v in launches.items() if v})
     return launches
+
+
+def qwen2_dense_batcher(cfg, params, dev):
+    """`ContinuousBatcher(paged=False)`: 16 requests of 2048 tokens, 8
+    slots, 64 new tokens each: exactly 126 ticks, the global position
+    126. Returns the launch counts of the drain."""
+    return dense_batcher(cfg, params, dev, 16, Q2_DENSE_T, 8, Q2_DENSE_NEW,
+                         Q2_DENSE_CACHE, SEED + 12)
 
 
 def qwen2_dense_quantized(cfg, qparams, bf16_tokens, dev):
@@ -1863,11 +1929,13 @@ def zoo_parity(dev):
         torch.cuda.empty_cache()
 
 
-def zoo_kernel_checks(dev):
-    """K1 at granite's q [8, 48, 128] is in `kernel_checks`; here K2 at
-    its [1, 512, 48, 128] from start 256 (a 512-token chunk after a
-    256-token prefix), full and 256-token window, bf16, f32 and int8
-    pools, against the plain version on every row (all valid)."""
+def zoo_kernel_checks(dev, h=GR_H, kv=GR_KV, model="granite-20b"):
+    """K1 at granite's q [8, 48, 128] (and llava's [8, 56, 128]) is in
+    `kernel_checks`; here K2 at the model's [1, 512, h, 128] (granite's
+    48 heads over 1 KV head by default) from start 256 (a 512-token
+    chunk after a 256-token prefix), full and 256-token window, bf16,
+    f32 and int8 pools, against the plain version on every row (all
+    valid)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_prefill import paged_prefill_attention
 
@@ -1881,8 +1949,8 @@ def zoo_kernel_checks(dev):
     total = torch.tensor([st_ + t], dtype=torch.int32, device=dev)
     err = 0.0
     for kind in ("bf16", "f32", "int8"):
-        kp, vp, ks, vs, qdt = make_pools(gen, n_blocks, kind, dev, kv=GR_KV)
-        q = torch.randn((1, t, GR_H, HD), generator=gen, device=dev).to(qdt)
+        kp, vp, ks, vs, qdt = make_pools(gen, n_blocks, kind, dev, kv=kv)
+        q = torch.randn((1, t, h, HD), generator=gen, device=dev).to(qdt)
         for window in (mb * BS, 256):
             out = paged_prefill_attention(q, kp, vp, table, start, total,
                                           window, k_scales=ks, v_scales=vs)
@@ -1891,18 +1959,20 @@ def zoo_kernel_checks(dev):
             torch.cuda.synchronize()
             e = float((out - plain).abs().max())
             check(torch.isfinite(out).all() and e <= 1e-4,
-                  f"prefill granite {kind} w={window}: err {e}")
+                  f"prefill {model} {kind} w={window}: err {e}")
             err = max(err, e)
-    say("kernels", model="granite-20b", heads=f"{GR_H}/{GR_KV}",
-        q=f"[1,{t},{GR_H},{HD}]", start=st_, pools="bf16,f32,int8",
+    say("kernels", model=model, heads=f"{h}/{kv}",
+        q=f"[1,{t},{h},{HD}]", start=st_, pools="bf16,f32,int8",
         prefill_err=err)
     return err
 
 
-def zoo_kernel_timings(dev):
-    """K1 at granite's q [8, 48, 128] over the 8 decode slots of
-    `kernel_timings` (KV 1, bf16), K2 at its [1, 512, 48, 128] from
-    start 256, each beside SDPA over the same keys expanded to 48 heads.
+def zoo_kernel_timings(dev, h=GR_H, kv=GR_KV, model="granite"):
+    """K1 at the model's q [8, h, 128] (granite's 48 heads over 1 KV head
+    by default) over the 8 decode slots of `kernel_timings` (bf16), K2
+    at its [1, 512, h, 128] from start 256, each beside SDPA over the
+    same keys expanded to h heads. Returns the rows, keyed "paged_decode
+    g{h // kv}" and "paged_prefill g{h // kv}".
     K3 at phi3.5-moe's expert shapes is timed after its drain, at the
     rows the drain gave it (`zoo_bitplane`)."""
     from repro_torch.kernels import ref
@@ -1910,25 +1980,26 @@ def zoo_kernel_timings(dev):
     from repro_torch.kernels.paged_prefill import paged_prefill_attention
     F = torch.nn.functional
 
+    g = h // kv
     rng = np.random.default_rng(SEED + 9)
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     mb, b = 68, 8
     capacity = mb * BS
     n_blocks = 1 + b * mb
-    kp, vp, _, _, dt = make_pools(gen, n_blocks, "bf16", dev, kv=GR_KV)
+    kp, vp, _, _, dt = make_pools(gen, n_blocks, "bf16", dev, kv=kv)
     table = torch.tensor(
         rng.permutation(np.arange(1, n_blocks))[: b * mb].reshape(b, mb),
         dtype=torch.int32, device=dev)
     item = kp.element_size()
     lens_host = [340, 420, 560, 700, 810, 930, 1010, 1088]
     lengths = torch.tensor(lens_host, dtype=torch.int32, device=dev)
-    q = torch.randn((b, GR_H, HD), generator=gen, device=dev).to(dt)
-    k_all, v_all = sdpa_inputs(kp, vp, table, mb, h=GR_H)
+    q = torch.randn((b, h, HD), generator=gen, device=dev).to(dt)
+    k_all, v_all = sdpa_inputs(kp, vp, table, mb, h=h)
     mask = (torch.arange(capacity, device=dev)[None, :]
             < lengths[:, None])[:, None, None, :]
     kv_pos = sum(lens_host)
-    nbytes = (2 * kv_pos * GR_KV * HD * item + q.numel() * item
-              + b * GR_H * HD * 4 + table.numel() * 4 + b * 4)
+    nbytes = (2 * kv_pos * kv * HD * item + q.numel() * item
+              + b * h * HD * 4 + table.numel() * 4 + b * 4)
     out = {}
     r = dict(
         **time_kernel(
@@ -1938,24 +2009,24 @@ def zoo_kernel_timings(dev):
                                             capacity),
             lambda: F.scaled_dot_product_attention(
                 q[:, :, None, :], k_all, v_all, attn_mask=mask)),
-        **bound(nbytes, 4 * HD * GR_H * kv_pos, dt),
-        shape=f"granite q[{b},{GR_H},{HD}] kv {GR_KV} lens {lens_host}")
+        **bound(nbytes, 4 * HD * h * kv_pos, dt),
+        shape=f"{model} q[{b},{h},{HD}] kv {kv} lens {lens_host}")
     say_timing("paged_decode", r)
-    out["paged_decode g48"] = r
+    out[f"paged_decode g{g}"] = r
     del k_all, v_all
 
     st_, t = 256, 512
     tot = st_ + t
-    q1 = torch.randn((1, t, GR_H, HD), generator=gen, device=dev).to(dt)
+    q1 = torch.randn((1, t, h, HD), generator=gen, device=dev).to(dt)
     start = torch.tensor([st_], dtype=torch.int32, device=dev)
     total = torch.tensor([tot], dtype=torch.int32, device=dev)
     bt1 = table[:1].contiguous()
-    k1, v1 = sdpa_inputs(kp, vp, bt1, tot // BS, h=GR_H)
+    k1, v1 = sdpa_inputs(kp, vp, bt1, tot // BS, h=h)
     qpos = st_ + torch.arange(t, device=dev)
     pmask = (torch.arange(tot, device=dev)[None, :]
              <= qpos[:, None])[None, None]
     pairs = sum(st_ + i + 1 for i in range(t))
-    nbytes = (2 * tot * GR_KV * HD * item + q1.numel() * item
+    nbytes = (2 * tot * kv * HD * item + q1.numel() * item
               + q1.numel() * 4 + bt1.numel() * 4 + 8)
     r = dict(
         **time_kernel(
@@ -1965,13 +2036,526 @@ def zoo_kernel_timings(dev):
                                           capacity),
             lambda: F.scaled_dot_product_attention(
                 q1.transpose(1, 2), k1, v1, attn_mask=pmask)),
-        **bound(nbytes, 4 * HD * GR_H * pairs, dt),
-        shape=f"granite q[1,{t},{GR_H},{HD}] kv {GR_KV} start {st_} "
+        **bound(nbytes, 4 * HD * h * pairs, dt),
+        shape=f"{model} q[1,{t},{h},{HD}] kv {kv} start {st_} "
               f"total {tot}")
     say_timing("paged_prefill", r)
-    out["paged_prefill g48"] = r
+    out[f"paged_prefill g{g}"] = r
     del k1, v1
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the rest of the model zoo — recurrent, encoder-decoder, vision
+# ---------------------------------------------------------------------------
+
+#: llava-next-34b's attention: 56 query heads over 8 KV heads (g = 7)
+LL_H, LL_KV = 56, 8
+#: llava's depth at published width: all 60 layers (68.8 GB in bf16)
+LL_LAYERS = None
+#: the f32 kernel-vs-plain parity depths: zamba2 and xlstm at 6 layers,
+#: one whole group each (a shared-block site; an sLSTM layer), llava at
+#: 4, whisper at 2 encoder + 2 decoder layers
+FAM_PARITY_LAYERS = {"zamba2-1.2b": 6, "xlstm-350m": 6,
+                     "llava-next-34b": 4, "whisper-medium": 2}
+#: the dense runs of the recurrent stacks: (prompts, prompt length, new
+#: tokens) of `generate`, then (requests, prompt length, slots, new
+#: tokens) of the dense batcher. xlstm's prompts are short: its prefill
+#: is a Python loop over time, ~12 torch ops a token and layer
+FAM_DENSE = {"zamba2-1.2b": ((8, 1024, 64), (16, 512, 8, 32)),
+             "xlstm-350m": ((8, 256, 64), (16, 128, 8, 32))}
+#: whisper: 1500 stub frames (its 30 s window), a 4-token decoder
+#: prompt, 8 rows, 64 new tokens, a 448-row decoder cache (its limit)
+WH_FRAMES, WH_PROMPT, WH_BATCH, WH_NEW, WH_CACHE = 1500, 4, 8, 64, 448
+#: llava's dense run: 2 rows of the 2880 stub patch positions and 64 text
+#: tokens, 32 new
+LL_BATCH, LL_TEXT, LL_NEW = 2, 64, 32
+
+
+class BitplaneShapes:
+    """Reads the bit-plane products of a path by wrapping
+    `kernels.ops.bitplane_kernel`, which `ops.bitplane_matmul` looks up
+    as a module global at each call: `rows[(kernel, K, M)]` lists the
+    row count of each launch."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.inner = ops, ops.bitplane_kernel
+        self.rows = {}
+
+    def __enter__(self):
+        def pick(b):
+            fn = self.inner(b)
+
+            def counted(x_r, planes, *, n_bits, group):
+                key = (fn.__name__, x_r.shape[2] * 8 // group,
+                       planes.shape[2])
+                self.rows.setdefault(key, []).append(b)
+                return fn(x_r, planes, n_bits=n_bits, group=group)
+            return counted
+        self.ops.bitplane_kernel = pick
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.bitplane_kernel = self.inner
+
+    def launches(self, name, m=None) -> int:
+        return sum(len(r) for (n, _, mm), r in self.rows.items()
+                   if n == name and m in (None, mm))
+
+
+def family_bitplane(dev, model, shapes, errs):
+    """K5, K3 and K4 against their plain versions at every [K -> M] the
+    model's pim8 path ran, at the row counts it gave them (K3 up to 512
+    rows, K4 above), 8-bit g = 1, in the bars of `bitplane_checks`; the
+    worst errors raise `errs`."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    rel_err = dict.fromkeys(("bitplane_gemv", "bitplane_gemm",
+                             "matmul_bf16", "matmul_f32"), 0.0)
+    by_km = {}
+    for (_, k, m), rows in shapes.rows.items():
+        by_km.setdefault((k, m), set()).update(rows)
+    for (k, m), rows in sorted(by_km.items()):
+        check_bitplane_matrix(dev, gen, 8, 1, k, m, sorted(rows), errs,
+                              rel_err)
+    say("bitplane", model=f"{model} pim8", format="(8,1)",
+        shapes=";".join(f"{k}->{m}@{','.join(map(str, sorted(r)))}"
+                        for (k, m), r in sorted(by_km.items())),
+        pack="byte-identical", gemv_rel_err=rel_err["bitplane_gemv"],
+        gemm_rel_err=rel_err["bitplane_gemm"],
+        matmul_rel_err_bf16=rel_err["matmul_bf16"],
+        matmul_rel_err_f32=rel_err["matmul_f32"])
+
+
+def quantize_counted(cfg, params, quantize):
+    """`quantize(params)` with the counts set to 0 just before: every
+    projection slice packed by K5 on the card, one launch each. Returns
+    the tree, its packed fraction, the seconds and the K5 launches."""
+    from repro_torch.quant import PimWeight, tree_packed_fraction
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = quantize(params)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k5 = read_launches()["bitplane_pack"]
+    slices = sum(w.n_stack for w in _leaves(qparams)
+                 if isinstance(w, PimWeight))
+    check(k5 == slices, f"{cfg.name} pim8: K5 launches {k5} != {slices} "
+                        "projection slices")
+    return qparams, tree_packed_fraction(qparams), seconds, k5
+
+
+def count_ops(fn) -> int:
+    """The aten ops one call of `fn` dispatches, counted under a
+    `TorchDispatchMode` (each view, copy and kernel call one op; the
+    bit-plane kernels' ctypes launches are not torch ops)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def host_cost(cfg, params, dev, t=16, b=8):
+    """The host's cost of the stack's Python loops, in bf16 at `b` rows:
+    `prefill` of t and of 2t tokens and one `decode_step` after it, each
+    timed alone (host clock to a sync, after a warm call) and then
+    counted (`count_ops`). The prefill difference gives the ops and
+    seconds a prompt token; the ratio of wall to ops, the host's time
+    per dispatched op."""
+    from repro_torch.models import decode_step, prefill
+
+    toks = torch.tensor(dense_prompts(cfg.vocab_size, b, 2 * t, SEED + 23),
+                        device=dev)
+
+    def wall(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    runs = {}
+    for n in (t, 2 * t):
+        def pre(n=n):
+            return prefill(params, toks[:, :n], cfg, 2 * t + 2)
+        runs[n] = (count_ops(pre), wall(pre))
+    cache = prefill(params, toks, cfg, 2 * t + 2)[1]
+
+    def step():
+        return decode_step(params, toks[:, :1], cache, cfg)
+    d_ops, d_wall = count_ops(step), wall(step)
+    p_ops = (runs[2 * t][0] - runs[t][0]) / t
+    p_wall = (runs[2 * t][1] - runs[t][1]) / t
+    say("families", model=cfg.name, path="host ops", batch=b,
+        prefill_tokens=f"{t},{2 * t}",
+        prefill_ops=f"{runs[t][0]},{runs[2 * t][0]}",
+        prefill_s=f"{runs[t][1]},{runs[2 * t][1]}",
+        ops_per_prompt_token=p_ops,
+        ops_per_prompt_token_and_layer=p_ops / cfg.n_layers,
+        s_per_prompt_token=p_wall,
+        prefill_us_per_op=(p_wall / p_ops * 1e6 if p_ops > 0 else None),
+        decode_ops=d_ops, decode_s=d_wall,
+        decode_us_per_op=d_wall / d_ops * 1e6)
+
+
+def recurrent_family(dev, arch, errs) -> dict:
+    """zamba2-1.2b or xlstm-350m at published width and depth: dense
+    `generate` in bf16, the dense batcher (exact ticks and global
+    position), then the --quantize path (`ServeEngine.quantize`, K5 per
+    slice) and the same `generate` with 8-bit g = 1 weights, which must
+    launch K3 (decode) and K4 (prefill) — for xlstm K3 also at its
+    [1024 -> 4] gates. K3-K5 are then held against their plain
+    versions at the shapes and rows that run gave them. Returns each
+    path's counts."""
+    (b, t, new), (nreq, bt, slots, bnew) = FAM_DENSE[arch]
+    cfg, params = zoo_init(arch, None, dev)
+    prompts = dense_prompts(cfg.vocab_size, b, t, SEED + 20)
+    tokens, stats, launches = dense_generate(cfg, params, prompts, new,
+                                             t + new, dev)
+    say("families", model=cfg.name, path="dense generate", weights="bf16",
+        **stats)
+    out = {f"{arch} dense bf16": launches}
+    host_cost(cfg, params, dev)
+    out[f"{arch} dense batcher"] = dense_batcher(
+        cfg, params, dev, nreq, bt, slots, bnew, bt + bnew, SEED + 22,
+        phase="families")
+    qparams, frac, seconds, k5 = quantize_counted(
+        cfg, params, lambda p: quantize_params(cfg, p)[0])
+    del params
+    torch.cuda.empty_cache()
+    with BitplaneShapes() as shapes:
+        qtokens, qstats, qlaunches = dense_generate(cfg, qparams, prompts,
+                                                    new, t + new, dev)
+    qlaunches["bitplane_pack"] = k5
+    check(all(qlaunches[k] > 0 for k in kernel_modules()
+              if k.startswith("bitplane")),
+          f"{arch} pim8: K3/K4/K5 not all launched: {qlaunches}")
+    gates = shapes.launches("bitplane_gemv", m=cfg.n_heads)
+    check(arch != "xlstm-350m" or gates > 0,
+          f"{arch} pim8: K3 never ran the [{cfg.d_model} -> {cfg.n_heads}] "
+          "gates")
+    say("families", model=cfg.name, path="dense generate", weights="pim8",
+        packed_fraction=frac, quantize_s=seconds, k5_slices=k5,
+        k3_launches_at_m_heads=gates,
+        agreement_with_bf16=float((qtokens == tokens).mean()),
+        first_token_agreement=float((qtokens[:, 0] == tokens[:, 0]).mean()),
+        **{k: v for k, v in qstats.items() if not k.startswith("launches")},
+        **{f"launches_{k}": v for k, v in qlaunches.items() if v})
+    out[f"{arch} dense pim8"] = qlaunches
+    del qparams
+    torch.cuda.empty_cache()
+    family_bitplane(dev, cfg.name, shapes, errs)
+    return out
+
+
+def encdec_generate(cfg, params, frames, prompt, new_tokens, cache_len,
+                    dev, impl="auto"):
+    """whisper's serving path: `prefill_encdec` over the stub frames and
+    the decoder prompt, then greedy `decode_step_encdec`s, the counts
+    set to 0 just before and read just after. Returns the tokens on the
+    host, the run's stats (the wall split at a CUDA event recorded when
+    the prefill returns) and the counts."""
+    from repro_torch.models import (decode_step_encdec, init_encdec_cache,
+                                    prefill_encdec)
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    events[0].record()
+    logits, cache = prefill_encdec(params, frames, prompt, cfg, cache_len,
+                                   impl=impl)
+    events[1].record()
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    out = [tok]
+    for _ in range(new_tokens - 1):
+        logits, cache = decode_step_encdec(params, tok, cache, cfg,
+                                           impl=impl)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        out.append(tok)
+    events[2].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    tokens = torch.cat(out, dim=1).cpu().numpy()
+    b, s = frames.shape[:2]
+    check(tokens.shape == (b, new_tokens)
+          and ((tokens >= 0) & (tokens < cfg.vocab_size)).all(),
+          f"{cfg.name}: tokens {tokens.shape} outside [0, vocab)")
+    check(cache["position"] == prompt.shape[1] + new_tokens - 1,
+          f"{cfg.name}: decoder position {cache['position']}")
+    meta = init_encdec_cache(cfg, b, cache_len, s, "meta")
+    stats = dict(layers=f"{cfg.n_encoder_layers}+{cfg.n_layers}", batch=b,
+                 enc_frames=s, prompt_len=prompt.shape[1],
+                 new_tokens=new_tokens, wall_s=wall,
+                 tokens_per_s=tokens.size / wall,
+                 prefill_s=events[0].elapsed_time(events[1]) / 1e3,
+                 decode_s=events[1].elapsed_time(events[2]) / 1e3,
+                 cache_bytes=sum(v.numel() * v.element_size()
+                                 for k, v in meta.items()
+                                 if k != "position"),
+                 max_memory_allocated=torch.cuda.max_memory_allocated(),
+                 **{f"launches_{k}": v for k, v in launches.items() if v})
+    return tokens, stats, launches
+
+
+def whisper_inputs(cfg, dev, b, frames, seed):
+    from repro_torch.models.frontend_stub import make_stub_embeddings
+    emb = make_stub_embeddings(cfg, b, frames, seed=seed, device=dev)
+    prompt = torch.tensor(dense_prompts(cfg.vocab_size, b, WH_PROMPT, seed),
+                          device=dev)
+    return emb, prompt
+
+
+def whisper_family(dev, errs) -> dict:
+    """whisper-medium's encoder-decoder at published width and depth (24
+    + 24 layers): `prefill_encdec` over 1500 stub frames and a 4-token
+    prompt, 8 rows, then 63 greedy decode steps; then the same run with
+    8-bit g = 1 bit-plane weights (`quantize_tree`, K5 per slice): K4 on
+    the encoder's 12,000 rows, K3 on decode. Returns each path's
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_encdec
+    from repro_torch.quant import PimQuantConfig, quantize_tree
+
+    cfg = get_config("whisper-medium")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_encdec(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    torch.cuda.synchronize()
+    say("init", model=cfg.name,
+        layers=f"{cfg.n_encoder_layers}+{cfg.n_layers}",
+        params=sum(x.numel() for x in _leaves(params)),
+        param_bytes=sum(x.numel() * x.element_size()
+                        for x in _leaves(params)),
+        seconds=time.perf_counter() - t0,
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    frames, prompt = whisper_inputs(cfg, dev, WH_BATCH, WH_FRAMES, SEED + 23)
+    tokens, stats, launches = encdec_generate(
+        cfg, params, frames, prompt, WH_NEW, WH_CACHE, dev)
+    say("families", model=cfg.name, path="encdec", weights="bf16", **stats)
+    out = {"whisper-medium encdec bf16": launches}
+    qparams, frac, seconds, k5 = quantize_counted(
+        cfg, params, lambda p: quantize_tree(
+            p, PimQuantConfig(n_bits=8, group=1, min_features=1)))
+    del params
+    torch.cuda.empty_cache()
+    with BitplaneShapes() as shapes:
+        qtokens, qstats, qlaunches = encdec_generate(
+            cfg, qparams, frames, prompt, WH_NEW, WH_CACHE, dev)
+    qlaunches["bitplane_pack"] = k5
+    enc_rows = WH_BATCH * WH_FRAMES
+    check(any(n == "bitplane_gemm" and enc_rows in r
+              for (n, _, _), r in shapes.rows.items())
+          and qlaunches["bitplane_gemv"] > 0,
+          f"whisper pim8: K4 at {enc_rows} rows / K3 not launched: "
+          f"{qlaunches}")
+    say("families", model=cfg.name, path="encdec", weights="pim8",
+        packed_fraction=frac, quantize_s=seconds, k5_slices=k5,
+        agreement_with_bf16=float((qtokens == tokens).mean()),
+        first_token_agreement=float((qtokens[:, 0] == tokens[:, 0]).mean()),
+        **{k: v for k, v in qstats.items() if not k.startswith("launches")},
+        **{f"launches_{k}": v for k, v in qlaunches.items() if v})
+    out["whisper-medium encdec pim8"] = qlaunches
+    del qparams
+    torch.cuda.empty_cache()
+    family_bitplane(dev, cfg.name, shapes, errs)
+    return out
+
+
+def llava_family(dev) -> dict:
+    """llava-next-34b at published width, all 60 layers (68.8 GB of bf16
+    weights): `prefill` of the 2880 stub patch positions and 64 text
+    tokens for 2 rows, then 31 greedy `decode_step`s on the dense cache;
+    then the paged drain the launcher runs (text only: the reference's
+    `prefill_paged` has no `extra_embeds`), K1 and K2 at g = 7. Returns
+    each path's counts."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.frontend_stub import make_stub_embeddings
+
+    cfg, params = zoo_init("llava-next-34b", LL_LAYERS, dev)
+    check(cfg.n_heads // cfg.n_kv_heads == LL_H // LL_KV, "llava: g != 7")
+    emb = make_stub_embeddings(cfg, LL_BATCH, cfg.frontend_tokens,
+                               seed=SEED + 24, device=dev)
+    text = torch.tensor(dense_prompts(cfg.vocab_size, LL_BATCH, LL_TEXT,
+                                      SEED + 24), device=dev)
+    t = cfg.frontend_tokens + LL_TEXT
+    cache_len = t + LL_NEW
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    events[0].record()
+    logits, cache = prefill(params, text, cfg, cache_len, extra_embeds=emb)
+    events[1].record()
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    toks = [tok]
+    for _ in range(LL_NEW - 1):
+        logits, cache = decode_step(params, tok, cache, cfg)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        toks.append(tok)
+    events[2].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    tokens = torch.cat(toks, dim=1).cpu().numpy()
+    check(cache["position"] == t + LL_NEW - 1
+          and ((tokens >= 0) & (tokens < cfg.vocab_size)).all(),
+          f"llava dense: position {cache['position']}, tokens {tokens}")
+    del cache
+    say("families", model=cfg.name, path="dense prefill+decode",
+        weights="bf16", layers=cfg.n_layers, batch=LL_BATCH,
+        stub_positions=cfg.frontend_tokens, text_tokens=LL_TEXT,
+        new_tokens=LL_NEW, wall_s=wall, tokens_per_s=tokens.size / wall,
+        prefill_s=events[0].elapsed_time(events[1]) / 1e3,
+        decode_s=events[1].elapsed_time(events[2]) / 1e3,
+        dense_cache_bytes=dense_cache_bytes(cfg, LL_BATCH, cache_len),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        **{f"launches_{k}": v for k, v in launches.items() if v})
+    out = {"llava-next-34b dense bf16": launches}
+    torch.cuda.empty_cache()
+    out[f"llava-next-34b[{cfg.n_layers}L] bf16 KV"] = zoo_drain(
+        cfg, params, dev, "bf16")[0]
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def teacher_forcing_err(cfg, params, dev) -> float:
+    """The reference's property (tests/test_models.py), at its tolerance
+    (rtol = atol = 3e-2): prefill half of 64 tokens, feed the rest one
+    by one; every step's logits equal `forward`'s at that position.
+    Returns the largest difference."""
+    from repro_torch.models import decode_step, forward, prefill
+
+    toks = torch.tensor(dense_prompts(cfg.vocab_size, 2, 64, SEED + 25),
+                        device=dev)
+    full = forward(params, toks, cfg)[0]
+    lp, cache = prefill(params, toks[:, :32], cfg, 66)
+    steps = [(lp[:, -1], full[:, 31])]
+    for i in range(32, 64):
+        ld, cache = decode_step(params, toks[:, i: i + 1], cache, cfg)
+        steps.append((ld[:, 0], full[:, i]))
+    for got, want in steps:
+        check(torch.allclose(got, want, rtol=3e-2, atol=3e-2),
+              f"{cfg.name}: teacher-forced decode differs from forward")
+    return max(float((got - want).abs().max()) for got, want in steps)
+
+
+def family_parity(dev):
+    """f32 at published width and 2-6 layers (FAM_PARITY_LAYERS): zamba2
+    and xlstm hold the teacher-forcing property, and their dense
+    `generate` with 8-bit g = 1 weights gives the same greedy tokens
+    with the kernels (K3 decode, K4 prefill) as with the plain versions;
+    whisper's encoder-decoder the same with its pim8 weights; llava's
+    paged drain with K1/K2 the same as with the plain versions, and
+    64-token chunks the same as single-shot."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_encdec, init_lm
+    from repro_torch.quant import PimQuantConfig, quantize_tree
+
+    for arch in ("zamba2-1.2b", "xlstm-350m"):
+        cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                                  n_layers=FAM_PARITY_LAYERS[arch])
+        params = init_lm(cfg, torch.Generator(device=dev).manual_seed(
+            SEED + 2), dev)
+        tf_err = teacher_forcing_err(cfg, params, dev)
+        qparams = quantize_params(cfg, params)[0]
+        del params
+        # 4 x t prefill rows above 512, so K4 runs prefill, K3 decode
+        t = 300 if arch == "zamba2-1.2b" else 160
+        prompts = dense_prompts(cfg.vocab_size, 4, t, SEED + 26)
+        runs = {}
+        for impl in ("cuda", "ref"):
+            runs[impl], _, launches = dense_generate(
+                cfg, qparams, prompts, 16, t + 16, dev, kernel_impl=impl)
+            fired = (launches["bitplane_gemv"] > 0
+                     and launches["bitplane_gemm"] > 0)
+            check(fired if impl == "cuda" else not any(launches.values()),
+                  f"{arch} parity {impl}: launches {launches}")
+        check((runs["cuda"] == runs["ref"]).all(),
+              f"{arch}: pim8 tokens differ between the kernels and the "
+              "plain versions")
+        say("parity", model=f"{cfg.name}[f32,{cfg.n_layers}L]",
+            weights="pim8", batch=4, prompt_len=t, new_tokens=16,
+            kernel_eq_plain=True, teacher_forcing_max_err=tf_err)
+        del qparams
+        torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config("whisper-medium"), dtype="float32",
+                              n_layers=2, n_encoder_layers=2)
+    params = init_encdec(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 2), dev)
+    qparams = quantize_tree(params, PimQuantConfig(8, 1, min_features=1))
+    del params
+    frames, prompt = whisper_inputs(cfg, dev, 4, WH_FRAMES, SEED + 27)
+    runs = {}
+    for impl in ("cuda", "ref"):
+        runs[impl], _, launches = encdec_generate(
+            cfg, qparams, frames, prompt, 16, 64, dev, impl=impl)
+        fired = (launches["bitplane_gemv"] > 0
+                 and launches["bitplane_gemm"] > 0)
+        check(fired if impl == "cuda" else not any(launches.values()),
+              f"whisper parity {impl}: launches {launches}")
+    check((runs["cuda"] == runs["ref"]).all(),
+          "whisper: pim8 tokens differ between the kernels and the plain "
+          "versions")
+    say("parity", model=f"{cfg.name}[f32,2+2L]", weights="pim8", batch=4,
+        enc_frames=WH_FRAMES, new_tokens=16, kernel_eq_plain=True)
+    del qparams
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config("llava-next-34b"), dtype="float32",
+                              n_layers=FAM_PARITY_LAYERS["llava-next-34b"])
+    prompts = serving_trace(cfg.vocab_size, 6, 128, 16, 256, SEED + 2)
+    token_parity(dev, cfg, prompts, 16, 128 + 256 + 16, 64)
+    torch.cuda.empty_cache()
+
+
+def family_kernel_timings(dev):
+    """K1 and K2 at llava's g = 7 (q [8, 56, 128] and [1, 512, 56, 128],
+    KV 8) beside SDPA; K3 at zamba2's `w_in` [8, 2048] -> 8352 and
+    xlstm's gates [8, 1024] -> 4 beside the dense GEMV. Returns the
+    rows."""
+    out = zoo_kernel_timings(dev, LL_H, LL_KV, "llava")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    out["bitplane_gemv zamba2 w_in"] = bitplane_row(
+        dev, gen, "bitplane_gemv", 8, 2048, 8352, model="zamba2-1.2b w_in")
+    out["bitplane_gemv xlstm gates"] = bitplane_row(
+        dev, gen, "bitplane_gemv", 8, 1024, 4, model="xlstm-350m wi/wf")
+    return out
+
+
+def families(dev, errs, laps) -> dict:
+    """The `[families]` phase: the four families' runs, then their
+    parity, each timed by `laps`. Returns each path's counts."""
+    by_path = {}
+    for arch in ("zamba2-1.2b", "xlstm-350m"):
+        by_path.update(recurrent_family(dev, arch, errs))
+        laps.lap(arch)
+    by_path.update(whisper_family(dev, errs))
+    laps.lap("whisper-medium")
+    by_path.update(llava_family(dev))
+    laps.lap("llava-next-34b")
+    family_parity(dev)
+    laps.lap("families parity")
+    return by_path
 
 
 # ---------------------------------------------------------------------------
@@ -2107,14 +2691,19 @@ def main() -> int:
         check(sass[name] == "unavailable" or sass[name] > 0,
               f"{name}: no tensor-core instruction in its SASS")
 
+    laps = Laps()
     errs = kernel_checks(dev)
     errs["paged_prefill"] = max(errs["paged_prefill"],
-                                zoo_kernel_checks(dev))
+                                zoo_kernel_checks(dev),
+                                zoo_kernel_checks(dev, LL_H, LL_KV,
+                                                  "llava-next-34b"))
     errs.update(bitplane_checks(dev))
     times = kernel_timings(dev)
     gemma3_kernel_timings(dev)
     times.update(bitplane_timings(dev))
     zoo_kernel_timings(dev)
+    family_kernel_timings(dev)
+    laps.lap("kernel checks and timings")
 
     cfg = get_config("qwen2-1.5b")
     # the timings' queued work is not init's: wait for it first, and say
@@ -2158,6 +2747,7 @@ def main() -> int:
     qwen2_parity(dev)
     qwen2_parity(dev, quantize=True)
     dense_parity(dev)
+    laps.lap("qwen2-1.5b")
 
     g3 = gemma3_full_width(dev)
     by_path["gemma3-27b bf16 KV"] = g3["bf16"]
@@ -2165,9 +2755,14 @@ def main() -> int:
     by_path["gemma3-27b dense bf16"] = g3["dense"]
     gemma3_parity(dev)
     by_path["gemma3-27b[12L] pim8"] = gemma3_quantized(dev)
+    laps.lap("gemma3-27b")
     imagine(dev)
+    laps.lap("imagine")
     by_path.update(zoo_full_width(dev, errs))
+    laps.lap("zoo")
     zoo_parity(dev)
+    laps.lap("zoo parity")
+    by_path.update(families(dev, errs, laps))
 
     csrc = "src/repro_torch/kernels/csrc"
     sources = {

@@ -5,9 +5,14 @@ The caller converts the JAX tree to numpy arrays (`np.asarray` on every
 leaf); this module never sees a JAX array. Layer stacks stay stacked as
 `[L, ...]`. Weights, biases and embeddings are cast once to the compute
 dtype — bit-equivalent, because every use in the reference casts them
-to the activation dtype first — while rmsnorm gains (`g`) and MoE
-routers (`router`) stay f32, as the reference applies them in f32 (a
-router rounded to bf16 would route tokens differently).
+to the activation dtype first — while the leaves the reference applies
+in f32 stay f32: rmsnorm gains (`g`), MoE routers (`router`; one
+rounded to bf16 would route tokens differently), Mamba2's `conv_w`,
+`conv_b`, `A_log`, `D` and `dt_bias` (decode's conv is an f32
+contraction with the raw `conv_w`), and the sLSTM's `r_gates` and
+`b_gates`. Encoder-decoder trees (`enc_layers`, `dec_layers`, `xattn`,
+`enc_norm`, `dec_norm`) and zamba2's `shared` block cross by the same
+rule.
 
 Quantized trees cross too: a reference `PimWeight` whose planes and
 scale the caller has turned into numpy (`jax.tree.map(np.asarray, ...)`
@@ -41,8 +46,10 @@ from .quant.bitplane import PimWeight
 
 #: the fields of a reference `PimWeight` (a bit-plane quantized leaf)
 _PIM_FIELDS = ("planes", "scale", "n_bits", "group")
-#: leaves the reference applies in f32: norm gains and MoE routers
-_F32_LEAVES = ("g", "router")
+#: leaves the reference keeps and applies in f32 (`b_gates` is cast at
+#: use, so either dtype is exact; f32 is kept, as the reference's)
+_F32_LEAVES = ("g", "router", "conv_w", "conv_b", "A_log", "D", "dt_bias",
+               "r_gates", "b_gates")
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device,

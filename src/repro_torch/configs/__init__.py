@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Lists only the architectures the port runs, and the paper's own
+Lists the reference's architectures in its order, and the paper's own
 accelerator (`imagine-u55`, an `ImagineConfig`, kept out of `ARCH_IDS`
 as in the reference); each module defines ``config()`` (published
 numbers) and ``smoke()`` (same family, tiny dims, CPU-testable) —
@@ -15,12 +15,16 @@ from typing import Dict, List
 from .base import ModelConfig
 
 _MODULES: Dict[str, str] = {
+    "xlstm-350m": "xlstm_350m",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b",
+    "granite-20b": "granite_20b",
     "qwen2-1.5b": "qwen2_1_5b",
     "gemma3-27b": "gemma3_27b",
     "qwen2.5-14b": "qwen2_5_14b",
-    "granite-20b": "granite_20b",
-    "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
-    "llama4-scout-17b-a16e": "llama4_scout_17b",
+    "llava-next-34b": "llava_next_34b",
+    "whisper-medium": "whisper_medium",
+    "zamba2-1.2b": "zamba2_1_2b",
     # the paper's own accelerator config (FPGA simulator side)
     "imagine-u55": "imagine_u55",
 }
@@ -30,9 +34,7 @@ ARCH_IDS: List[str] = [k for k in _MODULES if k != "imagine-u55"]
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in _MODULES:
-        raise KeyError(
-            f"unknown arch {arch!r}; the port runs: {sorted(_MODULES)}"
-        )
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f".{_MODULES[arch]}", __package__)
     return mod.smoke() if smoke else mod.config()
 

@@ -13,6 +13,11 @@ reference's default: every prompt is --prompt-len tokens, and
 tokens), and with --prefix every prompt opens with a shared
 --shared-prefix-len system prompt whose KV pages are prefilled once.
 
+Every arch of the reference's registry serves. zamba2-1.2b (Mamba2)
+and xlstm-350m (xLSTM) run on the dense cache only: --paged raises the
+reference's ValueError. whisper-medium serves its decoder-only
+`init_lm` stack, as the reference's launcher builds it.
+
 With `--arch gemma3-27b` the stack has a global and a windowed layer
 group; `--prefill-chunk` and `--group-pool auto` bound the windowed
 group's pages, and the summary prints each group's drawn and

@@ -478,3 +478,51 @@ def attention_prefill_paged(
     if k_scales is None:
         return out, k_pages, v_pages
     return out, k_pages, v_pages, k_scales, v_scales
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (the encoder-decoder's decoder)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(d_model: int, n_heads: int, head_dim: int,
+                         generator, device, dtype=torch.float32,
+                         out=None) -> Params:
+    """`out`: preallocated leaves to fill instead of new tensors."""
+    def o(name):
+        return None if out is None else out[name]
+    width = n_heads * head_dim
+    return {
+        "wq": dense_init(d_model, width, generator, device, dtype, o("wq")),
+        "wk": dense_init(d_model, width, generator, device, dtype, o("wk")),
+        "wv": dense_init(d_model, width, generator, device, dtype, o("wv")),
+        "wo": dense_init(width, d_model, generator, device, dtype, o("wo")),
+    }
+
+
+def cross_attention_kv(params: Params, enc_out: torch.Tensor, n_heads: int,
+                       hd: int, impl: str = "auto"):
+    """The encoder's K and V [B, S, H, hd], once per layer."""
+    b, s, _ = enc_out.shape
+    k = pim_linear(enc_out, params["wk"], impl).reshape(b, s, n_heads, hd)
+    v = pim_linear(enc_out, params["wv"], impl).reshape(b, s, n_heads, hd)
+    return k, v
+
+
+def cross_attention_forward(
+    params: Params,
+    x: torch.Tensor,            # [B, T, D] decoder states
+    k: torch.Tensor,            # [B, S, H, hd] precomputed encoder K
+    v: torch.Tensor,
+    n_heads: int,
+    head_dim: int,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Every decoder position attends to every encoder position: the
+    non-causal full-sequence attention, no RoPE."""
+    b, t, _ = x.shape
+    s = k.shape[1]
+    q = pim_linear(x, params["wq"], impl).reshape(b, t, n_heads, head_dim)
+    out = _full_seq_attention(q, k, v, torch.arange(t, device=x.device),
+                              torch.arange(s, device=x.device), None,
+                              causal=False)
+    return pim_linear(out, params["wo"], impl)

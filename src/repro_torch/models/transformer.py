@@ -1,26 +1,38 @@
-"""Decoder-only LM: counterpart of the attention-stack parts of
-`repro.models.transformer` — attention layers whose FFN is a SwiGLU, a
-plain MLP (granite) or a mixture of experts (phi3.5-moe, llama4-scout).
-The recurrent blocks (mamba2, xLSTM), encoder-decoder stacks and the
-modality frontends wait for a later slice of the port.
+"""The unified decoder-only LM: counterpart of `repro.models.transformer`
+— attention layers whose FFN is a SwiGLU, a plain MLP (granite) or a
+mixture of experts (phi3.5-moe, llama4-scout); Mamba2 layers with a
+weight-shared attention block after every `attn_every`-th (zamba2);
+and xLSTM layers that hold both an mLSTM and an sLSTM cell, the sLSTM
+running at every `slstm_every`-th layer (xlstm). A modality stub's
+embeddings (llava) are prepended to the text through `extra_embeds`.
 
 Entry points, as in the reference:
 
-    forward(params, tokens, cfg)                 -> (logits, aux)
-    prefill(params, tokens, cfg, cache_len)      -> (logits, cache)
+    forward(params, tokens, cfg, extra_embeds)   -> (logits, aux)
+    prefill(params, tokens, cfg, cache_len, extra_embeds, last_pos)
+                                                 -> (logits, cache)
     decode_step(params, token, cache, cfg)       -> (logits, cache)
-    prefill_paged / decode_step_paged            (block-paged pools)
+    prefill_paged / decode_step_paged            (block-paged pools,
+                                                  attention stacks only)
 
 Parameters keep the reference's tree: layer parameters stacked as
-`[L, ...]` under "layers". The reference scans the stack with
-`lax.scan`; here a Python loop walks the layers, and each layer's
-parameters, caches and pools are views `stack[l]`, so the in-place KV
-writes of the attention layer land in the stacked tensors.
+`[L, ...]` under "layers" (zamba2's shared block under "shared"). The
+reference scans the stack with `lax.scan` (and picks xLSTM's cell with
+`lax.cond`); here a Python loop walks the layers, and each layer's
+parameters, caches, states and pools are views `stack[l]`, so the
+in-place writes of a layer land in the stacked tensors.
 
-The dense cache is `{"position": int, "k": [L, B, S, KV, hd],
-"v": ...}` in the compute dtype. Its position is a host int, one write
-position shared by every row, so a decode step reads nothing back from
-the device to place its KV.
+The dense cache holds `"position"`, a host int: one write position
+shared by every row, so a decode step reads nothing back from the
+device to place its KV. Beside it, by block kind:
+  attn   "k", "v"       [L, B, S, KV, hd]  compute dtype
+  mamba  "ssm"          [L, B, H, P, N]    f32
+         "conv"         [L, B, d_conv - 1, conv_dim]  compute dtype
+         "shared_k/v"   [sites, B, S, KV, hd]  the shared block's KV
+  xlstm  "C", "n", "m"  mLSTM states, [L, B, ...] f32
+         "sc", "sn", "sm", "sh"  sLSTM states, [L, B, D] f32
+A layer whose xLSTM cell does not run leaves the other cell's state
+untouched, as the reference's `lax.cond` passes it through.
 """
 
 from __future__ import annotations
@@ -51,20 +63,37 @@ from .common import (
     rmsnorm,
     rmsnorm_params,
 )
+from .mamba2 import (
+    conv_dim,
+    init_mamba2,
+    mamba2_decode,
+    mamba2_forward,
+    mamba2_shapes,
+)
 from .mlp import init_mlp, init_swiglu, mlp, swiglu
 from .moe import init_moe, moe_forward
+from .xlstm import (
+    init_mlstm,
+    init_slstm,
+    mlstm_decode,
+    mlstm_forward,
+    mlstm_init_state,
+    mlstm_shapes,
+    slstm_decode,
+    slstm_forward,
+    slstm_init_state,
+    slstm_shapes,
+)
+
+#: the xLSTM cache's mLSTM and sLSTM state keys, and each one's name in
+#: its cell's state tree
+_MLSTM_KEYS = (("C", "C"), ("n", "n"), ("m", "m"))
+_SLSTM_KEYS = (("sc", "c"), ("sn", "n"), ("sm", "m"), ("sh", "h"))
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.block_kind != "attn" or cfg.is_encoder_decoder
-            or cfg.frontend != "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: block_kind {cfg.block_kind!r}, encoder-decoder "
-            f"{cfg.is_encoder_decoder}, frontend {cfg.frontend!r}: the port "
-            "runs decoder-only attention stacks; the recurrent blocks' dense "
-            "caches, encoder-decoder stacks and the modality frontends wait "
-            "for a later slice of the port"
-        )
+def _require_attention(cfg: ModelConfig, what: str) -> None:
+    if cfg.block_kind != "attn":
+        raise ValueError(f"{what} supports attention stacks only")
 
 
 # ---------------------------------------------------------------------------
@@ -78,24 +107,42 @@ def init_layer(cfg: ModelConfig, generator, device, dtype,
     `layer_params(stacked, l)`) the draws are written into it in place."""
     def o(name):
         return None if out is None else out[name]
+    d = cfg.d_model
+    if cfg.block_kind == "mamba":
+        return {
+            "ln1": rmsnorm_params(d, device, o("ln1")),
+            "mamba": init_mamba2(d, cfg.d_inner, cfg.ssm_heads,
+                                 cfg.ssm_state, cfg.ssm_conv, generator,
+                                 device, dtype, o("mamba")),
+        }
+    if cfg.block_kind == "xlstm":
+        return {
+            "ln1": rmsnorm_params(d, device, o("ln1")),
+            "mlstm": init_mlstm(d, cfg.n_heads, cfg.ssm_expand, generator,
+                                device, dtype, o("mlstm")),
+            "ln_s": rmsnorm_params(d, device, o("ln_s")),
+            "slstm": init_slstm(d, cfg.n_heads, generator, device, dtype,
+                                o("slstm")),
+        }
+    if cfg.block_kind != "attn":
+        raise ValueError(cfg.block_kind)
     p: Params = {
-        "ln1": rmsnorm_params(cfg.d_model, device, o("ln1")),
+        "ln1": rmsnorm_params(d, device, o("ln1")),
         "attn": init_attention(
-            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.qkv_bias,
+            d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.qkv_bias,
             generator, device, dtype, o("attn"),
         ),
-        "ln2": rmsnorm_params(cfg.d_model, device, o("ln2")),
+        "ln2": rmsnorm_params(d, device, o("ln2")),
     }
     if cfg.n_experts:
-        p["moe"] = init_moe(cfg.d_model, cfg.d_ff, cfg.n_experts,
+        p["moe"] = init_moe(d, cfg.d_ff, cfg.n_experts,
                             cfg.n_shared_experts, generator, device, dtype,
                             o("moe"))
     elif cfg.mlp_kind == "plain":
-        p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, generator, device, dtype,
-                            o("mlp"))
+        p["mlp"] = init_mlp(d, cfg.d_ff, generator, device, dtype, o("mlp"))
     else:
-        p["mlp"] = init_swiglu(cfg.d_model, cfg.d_ff, generator, device,
-                               dtype, o("mlp"))
+        p["mlp"] = init_swiglu(d, cfg.d_ff, generator, device, dtype,
+                               o("mlp"))
     return p
 
 
@@ -106,9 +153,24 @@ def _swiglu_shapes(d: int, f: int, dtype) -> Params:
 
 def layer_shapes(cfg: ModelConfig, dtype) -> Params:
     """`init_layer`'s tree with a `(shape, dtype)` pair at each leaf,
-    from the config alone: weights and biases in `dtype`, norm gains and
-    the MoE router in f32."""
+    from the config alone: weights and biases in `dtype`; in f32 the
+    norm gains, the MoE router, Mamba2's conv, `A_log`, `D` and
+    `dt_bias`, and the sLSTM's `r_gates` and `b_gates` — the leaves the
+    reference keeps and applies in f32 (`b_gates` is cast at use, so
+    either dtype would be exact)."""
     d, hd, f32 = cfg.d_model, cfg.hd, torch.float32
+    norm = {"g": ((d,), f32)}
+    if cfg.block_kind == "mamba":
+        return {"ln1": norm,
+                "mamba": mamba2_shapes(d, cfg.d_inner, cfg.ssm_heads,
+                                       cfg.ssm_state, cfg.ssm_conv, dtype)}
+    if cfg.block_kind == "xlstm":
+        return {"ln1": norm,
+                "mlstm": mlstm_shapes(d, cfg.n_heads, cfg.ssm_expand, dtype),
+                "ln_s": norm,
+                "slstm": slstm_shapes(d, cfg.n_heads, dtype)}
+    if cfg.block_kind != "attn":
+        raise ValueError(cfg.block_kind)
     attn = {
         "wq": ((d, cfg.n_heads * hd), dtype),
         "wk": ((d, cfg.n_kv_heads * hd), dtype),
@@ -119,11 +181,7 @@ def layer_shapes(cfg: ModelConfig, dtype) -> Params:
         attn.update(bq=((cfg.n_heads * hd,), dtype),
                     bk=((cfg.n_kv_heads * hd,), dtype),
                     bv=((cfg.n_kv_heads * hd,), dtype))
-    shapes: Params = {
-        "ln1": {"g": ((d,), f32)},
-        "attn": attn,
-        "ln2": {"g": ((d,), f32)},
-    }
+    shapes: Params = {"ln1": norm, "attn": attn, "ln2": norm}
     f, e = cfg.d_ff, cfg.n_experts
     if e:
         moe = {"router": ((d, e), f32), "we_gate": ((e, d, f), dtype),
@@ -139,10 +197,10 @@ def layer_shapes(cfg: ModelConfig, dtype) -> Params:
     return shapes
 
 
-def _empty_stack(tree: Params, n: int, device) -> Params:
+def empty_stack(tree: Params, n: int, device) -> Params:
     """Uninitialised `[n, ...]` leaves for a `layer_shapes` tree."""
     if isinstance(tree, dict):
-        return {k: _empty_stack(v, n, device) for k, v in tree.items()}
+        return {k: empty_stack(v, n, device) for k, v in tree.items()}
     shape, dtype = tree
     return torch.empty((n,) + shape, dtype=dtype, device=device)
 
@@ -152,19 +210,21 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     """Random parameters with the reference's shapes and init scales
     (truncated-normal fan-in projections, N(0, 0.02) embeddings, zero
     biases, unit norm gains), drawn from `generator` — which must live
-    on `device`. Weights are stored in the compute dtype, norm gains and
-    MoE routers in f32 (the same once-cast `bridge.params_from_jax`
-    applies).
+    on `device`. Weights are stored in the compute dtype, the f32 leaves
+    of `layer_shapes` in f32 (the same once-cast
+    `bridge.params_from_jax` applies). zamba2's shared attention block
+    goes under "shared". An encoder-decoder config gets the decoder-only
+    stack here, as the reference's `init_lm` gives it (`init_encdec`
+    builds the encoder-decoder).
 
     Each stacked `[L, ...]` leaf is allocated once and filled layer by
     layer (draws in layer order, then the embedding), so the device
     holds the model plus one f32 draw at a time — never a second copy
     of the layer stack."""
     cfg.validate()
-    _check_supported(cfg)
     dev = resolve_device(device)
     dt = compute_dtype(cfg.dtype)
-    layers = _empty_stack(layer_shapes(cfg, dt), cfg.n_layers, dev)
+    layers = empty_stack(layer_shapes(cfg, dt), cfg.n_layers, dev)
     for l in range(cfg.n_layers):
         init_layer(cfg, generator, dev, dt, out=layer_params(layers, l))
     params: Params = {
@@ -175,6 +235,14 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(cfg.d_model, cfg.vocab_size,
                                        generator, dev, dt)
+    if cfg.attn_every > 0:
+        params["shared"] = {
+            "ln": rmsnorm_params(cfg.d_model, dev),
+            "attn": init_attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.hd, False, generator, dev, dt),
+            "ln2": rmsnorm_params(cfg.d_model, dev),
+            "mlp": init_swiglu(cfg.d_model, cfg.d_ff, generator, dev, dt),
+        }
     return params
 
 
@@ -200,8 +268,14 @@ def layer_params(stacked: Params, l: int) -> Params:
 # embedding / head
 # ---------------------------------------------------------------------------
 
-def _embed(params, tokens, cfg):
-    return params["embed"][tokens.long()].to(compute_dtype(cfg.dtype))
+def _embed(params, tokens, cfg, extra_embeds=None):
+    """Token embeddings in the compute dtype, after the frontend stub's
+    `extra_embeds` [B, T_front, D] when given."""
+    dt = compute_dtype(cfg.dtype)
+    x = params["embed"][tokens.long()].to(dt)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(dt), x], dim=1)
+    return x
 
 
 def _head(params, x, cfg):
@@ -215,12 +289,17 @@ def _window_array(cfg: ModelConfig, seq_len: int) -> List[int]:
 
 
 # ---------------------------------------------------------------------------
-# full-sequence forward and the dense pre-allocated cache
+# layer loops
 # ---------------------------------------------------------------------------
 
 def _attn_kwargs(cfg: ModelConfig):
     return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                 head_dim=cfg.hd, rope_theta=cfg.rope_theta)
+
+
+def _ssm_kwargs(cfg: ModelConfig):
+    return dict(n_heads=cfg.ssm_heads, n_state=cfg.ssm_state,
+                d_inner=cfg.d_inner)
 
 
 def _ffn(lp, h, cfg, impl):
@@ -255,21 +334,89 @@ def _layer_loop(params, x, cfg, windows, attn, impl):
     return x, losses
 
 
+def _group_slices(cfg: ModelConfig):
+    """zamba2's groups `[(lo, hi, has_attn), ...]`: `attn_every` layers
+    each, a full group ending in the shared block; a shorter tail group
+    has none."""
+    ae, n = cfg.attn_every, cfg.n_layers
+    if ae <= 0:
+        return [(0, n, False)]
+    return [(lo, min(lo + ae, n), min(lo + ae, n) - lo == ae)
+            for lo in range(0, n, ae)]
+
+
+def _mamba_loop(params, x, cfg, block, shared_attn, impl):
+    """zamba2's stack: `block(l, mamba_params, normed_x)` gives Mamba2
+    layer `l`'s output; after each full group the weight-shared block
+    runs, its attention through `shared_attn(site, attn_params,
+    normed_x)`, site counting the shared block's calls."""
+    site = 0
+    for lo, hi, has_attn in _group_slices(cfg):
+        for l in range(lo, hi):
+            lp = layer_params(params["layers"], l)
+            x = x + block(l, lp["mamba"], rmsnorm(lp["ln1"], x, cfg.norm_eps))
+        if has_attn and "shared" in params:
+            sp = params["shared"]
+            x = x + shared_attn(site, sp["attn"],
+                                rmsnorm(sp["ln"], x, cfg.norm_eps))
+            x = x + swiglu(sp["mlp"], rmsnorm(sp["ln2"], x, cfg.norm_eps),
+                           cfg.act, impl)
+            site += 1
+    return x
+
+
+def _xlstm_loop(params, x, cfg, mlstm, slstm):
+    """xlstm's stack: the sLSTM cell where `layer_flags()["is_slstm"]`,
+    the mLSTM elsewhere, as `mlstm(l, params, normed_x)` /
+    `slstm(l, params, normed_x)` give them."""
+    for l, is_s in enumerate(cfg.layer_flags()["is_slstm"]):
+        lp = layer_params(params["layers"], l)
+        if is_s:
+            x = x + slstm(l, lp["slstm"], rmsnorm(lp["ln_s"], x,
+                                                   cfg.norm_eps))
+        else:
+            x = x + mlstm(l, lp["mlstm"], rmsnorm(lp["ln1"], x,
+                                                   cfg.norm_eps))
+    return x
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward and the dense pre-allocated cache
+# ---------------------------------------------------------------------------
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            extra_embeds: Optional[torch.Tensor] = None,
             impl: str = "auto") -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence logits [B, T, V] (training / scoring), windows from
-    `window_schedule(T)`; aux `{"moe_aux": the sum of the MoE layers'
-    load-balance losses}` (0.0 for a dense stack)."""
-    _check_supported(cfg)
-    x = _embed(params, tokens, cfg)
+    """Full-sequence logits [B, T_front + T, V] (training / scoring),
+    windows from `window_schedule(T)`; aux `{"moe_aux": the sum of the
+    MoE layers' load-balance losses}` (0.0 for a dense or recurrent
+    stack)."""
+    x = _embed(params, tokens, cfg, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
-
-    def attn(l, p, h, window):
-        return attention_forward(p, h, positions, window=window, impl=impl,
-                                 **_attn_kwargs(cfg))
-
-    x, losses = _layer_loop(params, x, cfg, _window_array(cfg, x.shape[1]),
-                            attn, impl)
+    losses = []
+    if cfg.block_kind == "attn":
+        def attn(l, p, h, window):
+            return attention_forward(p, h, positions, window=window,
+                                     impl=impl, **_attn_kwargs(cfg))
+        x, losses = _layer_loop(params, x, cfg,
+                                _window_array(cfg, x.shape[1]), attn, impl)
+    elif cfg.block_kind == "mamba":
+        x = _mamba_loop(
+            params, x, cfg,
+            lambda l, p, h: mamba2_forward(p, h, impl=impl,
+                                           **_ssm_kwargs(cfg)),
+            lambda site, p, h: attention_forward(
+                p, h, positions, impl=impl, **_attn_kwargs(cfg)),
+            impl)
+    elif cfg.block_kind == "xlstm":
+        x = _xlstm_loop(
+            params, x, cfg,
+            lambda l, p, h: mlstm_forward(p, h, n_heads=cfg.n_heads,
+                                          impl=impl),
+            lambda l, p, h: slstm_forward(p, h, n_heads=cfg.n_heads,
+                                          impl=impl))
+    else:
+        raise ValueError(cfg.block_kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for loss in losses:
         aux = aux + loss
@@ -278,42 +425,111 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device="cuda") -> Dict:
-    """Pre-allocated decode cache: zero K/V `[L, batch, cache_len, KV,
-    hd]` in the compute dtype and write position 0."""
-    _check_supported(cfg)
+    """Pre-allocated decode cache at write position 0: zero K/V `[L,
+    batch, cache_len, KV, hd]` in the compute dtype for an attention
+    stack; for zamba2 zero SSM states (f32), conv tails (compute dtype)
+    and the shared block's K/V, one `[batch, cache_len, KV, hd]` slice
+    per site; for xlstm both cells' initial states, f32, in every
+    layer."""
     dev = resolve_device(device)
     dt = compute_dtype(cfg.dtype)
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.hd)
-    return {"position": 0,
-            "k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    l = cfg.n_layers
+    cache: Dict = {"position": 0}
+    if cfg.block_kind == "attn":
+        shape = (l, batch, cache_len, cfg.n_kv_heads, cfg.hd)
+        cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
+    elif cfg.block_kind == "mamba":
+        p = cfg.d_inner // cfg.ssm_heads
+        cache["ssm"] = torch.zeros((l, batch, cfg.ssm_heads, p,
+                                    cfg.ssm_state), dtype=torch.float32,
+                                   device=dev)
+        cache["conv"] = torch.zeros(
+            (l, batch, cfg.ssm_conv - 1, conv_dim(cfg.d_inner,
+                                                  cfg.ssm_state)),
+            dtype=dt, device=dev)
+        n_sites = sum(1 for *_, has_attn in _group_slices(cfg) if has_attn)
+        if n_sites:
+            shape = (n_sites, batch, cache_len, cfg.n_kv_heads, cfg.hd)
+            cache["shared_k"] = torch.zeros(shape, dtype=dt, device=dev)
+            cache["shared_v"] = torch.zeros(shape, dtype=dt, device=dev)
+    elif cfg.block_kind == "xlstm":
+        hd = cfg.ssm_expand * cfg.d_model // cfg.n_heads
+        for keys, state in (
+                (_MLSTM_KEYS, mlstm_init_state(batch, cfg.n_heads, hd, dev)),
+                (_SLSTM_KEYS, slstm_init_state(batch, cfg.d_model, dev))):
+            for key, name in keys:
+                a = state[name]
+                cache[key] = a[None].expand((l,) + tuple(a.shape)).clone()
+    return cache
 
 
 def _cache_len(cache: Dict, cfg: ModelConfig) -> int:
-    return cache["k"].shape[2]
+    if "k" in cache:
+        return cache["k"].shape[2]
+    if "shared_k" in cache:
+        return cache["shared_k"].shape[2]
+    return 1  # a purely recurrent stack has no positional cache
+
+
+def _xlstm_cells(cache: Dict, run_m, run_s):
+    """The xLSTM layer callables of `_xlstm_loop` over `cache`: each reads
+    its layer's state of the cell that runs, calls `run_m(params, h,
+    state)` / `run_s(...)` -> `(y, new_state)` and writes the new state
+    back in place; the other cell's state stays as it was."""
+    def cell(keys, run):
+        def fn(l, p, h):
+            y, st = run(p, h, {name: cache[key][l] for key, name in keys})
+            for key, name in keys:
+                cache[key][l] = st[name]
+            return y
+        return fn
+    return cell(_MLSTM_KEYS, run_m), cell(_SLSTM_KEYS, run_s)
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-            cache_len: int, last_pos=None, impl: str = "auto"
+            cache_len: int, extra_embeds: Optional[torch.Tensor] = None,
+            last_pos=None, impl: str = "auto"
             ) -> Tuple[torch.Tensor, Dict]:
-    """Process a [B, T] prompt into a new cache of `cache_len` rows (its
-    KV in rows [0, T), zeros after, position T) and return the logits
-    [B, 1, V] of position T-1, or of `last_pos` — clamped into [0, T-1]
-    as the reference's `dynamic_slice` clamps it. Windows come from
-    `window_schedule(cache_len)`, as in the reference."""
-    _check_supported(cfg)
-    x = _embed(params, tokens, cfg)
+    """Process a [B, T] prompt (after `extra_embeds`' positions) into a
+    new cache of `cache_len` rows (its KV in rows [0, T), zeros after,
+    the recurrent states after T steps; position T) and return the
+    logits [B, 1, V] of position T-1, or of `last_pos` — clamped into
+    [0, T-1] as the reference's `dynamic_slice` clamps it. Windows come
+    from `window_schedule(cache_len)`, as in the reference."""
+    x = _embed(params, tokens, cfg, extra_embeds)
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device)
     cache = init_cache(cfg, b, cache_len, x.device)
+    if cfg.block_kind == "attn":
+        def attn(l, p, h, window):
+            return attention_prefill(p, h, positions, cache["k"][l],
+                                     cache["v"][l], window=window,
+                                     impl=impl, **_attn_kwargs(cfg))[0]
+        x = _layer_loop(params, x, cfg, _window_array(cfg, cache_len),
+                        attn, impl)[0]
+    elif cfg.block_kind == "mamba":
+        def block(l, p, h):
+            y, (cache["ssm"][l], cache["conv"][l]) = mamba2_forward(
+                p, h, return_state=True, impl=impl, **_ssm_kwargs(cfg))
+            return y
 
-    def attn(l, p, h, window):
-        return attention_prefill(p, h, positions, cache["k"][l],
-                                 cache["v"][l], window=window, impl=impl,
-                                 **_attn_kwargs(cfg))[0]
-
-    x = _layer_loop(params, x, cfg, _window_array(cfg, cache_len), attn,
-                    impl)[0]
+        def shared(site, p, h):
+            return attention_prefill(
+                p, h, positions, cache["shared_k"][site],
+                cache["shared_v"][site], impl=impl, **_attn_kwargs(cfg))[0]
+        x = _mamba_loop(params, x, cfg, block, shared, impl)
+    elif cfg.block_kind == "xlstm":
+        x = _xlstm_loop(params, x, cfg, *_xlstm_cells(
+            cache,
+            lambda p, h, st: mlstm_forward(p, h, n_heads=cfg.n_heads,
+                                           init_state=st, return_state=True,
+                                           impl=impl),
+            lambda p, h, st: slstm_forward(p, h, n_heads=cfg.n_heads,
+                                           init_state=st, return_state=True,
+                                           impl=impl)))
+    else:
+        raise ValueError(cfg.block_kind)
     cache["position"] = t
     last = t - 1 if last_pos is None else min(max(int(last_pos), 0), t - 1)
     return _head(params, x[:, last: last + 1], cfg), cache
@@ -323,22 +539,46 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict,
                 cfg: ModelConfig, impl: str = "auto"
                 ) -> Tuple[torch.Tensor, Dict]:
     """One new token per row [B, 1] at the cache's shared position: the
-    paper's GEMV workload. The K/V tensors of `cache` are written in
-    place; the returned cache holds them and position + 1. Returns
-    (logits [B, 1, V], cache)."""
-    _check_supported(cfg)
+    paper's GEMV workload. The tensors of `cache` (K/V, recurrent
+    states) are written in place; the returned cache holds them and
+    position + 1. Returns (logits [B, 1, V], cache)."""
     x = _embed(params, token, cfg)
     pos, s = cache["position"], _cache_len(cache, cfg)
     rope_pos = decode_position(pos, x.device)
-    windows = _window_array(cfg, s)
-    masks = {w: decode_mask(pos, s, w, x.device) for w in set(windows)}
+    if cfg.block_kind == "attn":
+        windows = _window_array(cfg, s)
+        masks = {w: decode_mask(pos, s, w, x.device) for w in set(windows)}
 
-    def attn(l, p, h, window):
-        return attention_decode(p, h, pos, cache["k"][l], cache["v"][l],
-                                window=window, impl=impl, rope_pos=rope_pos,
-                                mask=masks[window], **_attn_kwargs(cfg))[0]
+        def attn(l, p, h, window):
+            return attention_decode(p, h, pos, cache["k"][l], cache["v"][l],
+                                    window=window, impl=impl,
+                                    rope_pos=rope_pos, mask=masks[window],
+                                    **_attn_kwargs(cfg))[0]
+        x = _layer_loop(params, x, cfg, windows, attn, impl)[0]
+    elif cfg.block_kind == "mamba":
+        mask = decode_mask(pos, s, None, x.device)
 
-    x = _layer_loop(params, x, cfg, windows, attn, impl)[0]
+        def block(l, p, h):
+            y, cache["ssm"][l], cache["conv"][l] = mamba2_decode(
+                p, h, cache["ssm"][l], cache["conv"][l], impl=impl,
+                **_ssm_kwargs(cfg))
+            return y
+
+        def shared(site, p, h):
+            return attention_decode(
+                p, h, pos, cache["shared_k"][site], cache["shared_v"][site],
+                impl=impl, rope_pos=rope_pos, mask=mask,
+                **_attn_kwargs(cfg))[0]
+        x = _mamba_loop(params, x, cfg, block, shared, impl)
+    elif cfg.block_kind == "xlstm":
+        x = _xlstm_loop(params, x, cfg, *_xlstm_cells(
+            cache,
+            lambda p, h, st: mlstm_decode(p, h, st, n_heads=cfg.n_heads,
+                                          impl=impl),
+            lambda p, h, st: slstm_decode(p, h, st, n_heads=cfg.n_heads,
+                                          impl=impl)))
+    else:
+        raise ValueError(cfg.block_kind)
     return _head(params, x, cfg), dict(cache, position=pos + 1)
 
 
@@ -472,7 +712,7 @@ def decode_step_paged(
     """One decode step against the paged cache, per-slot positions.
     Pools (and scales) are updated in place and returned:
     `(logits [B, 1, V], k_pages, v_pages[, k_scales, v_scales])`."""
-    _check_supported(cfg)
+    _require_attention(cfg, "decode_step_paged")
     x = _embed(params, token, cfg)
     x = _run_layers(params, x, cfg, attention_decode_paged, (positions,),
                     k_pages, v_pages, block_table, block_start, bucket_plan,
@@ -505,7 +745,7 @@ def prefill_paged(
     K2's offset causal mask. `last_pos` (suffix-relative) selects which
     position's logits to return instead of T-1. Returns
     `(logits [B, 1, V], k_pages, v_pages[, k_scales, v_scales])`."""
-    _check_supported(cfg)
+    _require_attention(cfg, "prefill_paged")
     x = _embed(params, tokens, cfg)
     x = _run_layers(params, x, cfg, attention_prefill_paged, (start, total),
                     k_pages, v_pages, block_table, block_start, bucket_plan,

@@ -95,8 +95,10 @@ class Request:
 
 def _insert_batch(cache, one, idx: int):
     """Write the batch-1 dense cache `one` into slot `idx` of `cache`, in
-    place: the whole row, zeros past the prompt included. The position
-    stays the batcher's, as in the reference."""
+    place: the whole row of every entry — K/V (zeros past the prompt
+    included), recurrent states and conv tails, zamba2's shared-block
+    K/V — each with its batch on axis 1. The position stays the
+    batcher's, as in the reference."""
     for key, full in cache.items():
         if key != "position":
             full[:, idx] = one[key][:, 0]

@@ -20,8 +20,13 @@ without telemetry. Serving tests (paged and dense) hold the greedy f32
 tokens with the kernels equal to those with the plain versions.
 The IMAGine simulator (plain torch ops, no kernel of its own) gives on
 the card the register file and y it gives on the CPU, bit for bit.
-K1 and K2 are also held at granite-20b's GQA group of 48 (MQA), with
-the same tolerances.
+K1 and K2 are also held at granite-20b's GQA group of 48 (MQA) and
+llava-next-34b's 7, with the same tolerances. The other families
+(zamba2, xlstm, whisper, llava) with bit-plane weights give the same
+greedy tokens through the kernels as through the plain versions on the
+dense cache, the paged cache (whisper, llava) and whisper's
+encoder-decoder (logits within 1e-4 there), and K3/K4/K5 hold their
+bars at the families' projection shapes (M = 4 included).
 """
 
 import dataclasses
@@ -666,6 +671,8 @@ def test_gemma3_prefill_bucketed_and_bounded_walks_equal_single(cuda_device,
 # g = 48: three 16-head tiles of K1, 1 1/3 positions a 64-unit tile of
 # K2), hd 128, 16-token pages, 68 columns (1088 tokens)
 GR_H, GR_KV, GR_HD, GR_BS, GR_MB = 48, 1, 128, 16, 68
+#: llava-next-34b's: 56 query heads over 8 KV heads (g = 7)
+LL_H, LL_KV = 56, 8
 
 
 @pytest.mark.gpu
@@ -676,11 +683,23 @@ def test_granite_g48_decode_bucketed_and_bounded_walks_equal_single(
     valid rows, with a full and a 256-token window (walks from each
     slot's first live block), and bucketed and depth-bounded launches
     equal the single launch bit for bit."""
-    dev = cuda_device
-    gen = torch.Generator(device=dev).manual_seed(13)
+    _check_decode_walks(cuda_device, kind, GR_H, GR_KV, 13)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_llava_g7_decode_bucketed_and_bounded_walks_equal_single(
+        cuda_device, kind):
+    """K1 at llava-next-34b's 56 query heads over 8 KV heads (g = 7), as
+    the granite test holds it at g = 48."""
+    _check_decode_walks(cuda_device, kind, LL_H, LL_KV, 15)
+
+
+def _check_decode_walks(dev, kind, h, kv, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
     lengths = [0, 1, 16, 17, 129, 300, 700, GR_MB * GR_BS]
     q, tk, tv, bt, ln, sc = _decode_case(
-        gen, dev, kind, torch.bfloat16, lengths, GR_MB, H=GR_H, KV=GR_KV,
+        gen, dev, kind, torch.bfloat16, lengths, GR_MB, H=h, KV=kv,
         hd=GR_HD, bs=GR_BS)
     lens = np.asarray(lengths)
     valid = ln > 0
@@ -719,11 +738,22 @@ def test_granite_g48_prefill_bucketed_walk_equals_single(cuda_device, kind):
     within 1e-4 of the plain version on valid rows with a full and a
     40-token window; the bucketed launch equals the single one bit for
     bit."""
-    dev = cuda_device
-    gen = torch.Generator(device=dev).manual_seed(14)
+    _check_prefill_walks(cuda_device, kind, GR_H, GR_KV, 14)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_llava_g7_prefill_bucketed_walk_equals_single(cuda_device, kind):
+    """K2 at llava-next-34b's g = 7, as the granite test holds it at
+    g = 48."""
+    _check_prefill_walks(cuda_device, kind, LL_H, LL_KV, 16)
+
+
+def _check_prefill_walks(dev, kind, h, kv, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
     T = 70
     q, tk, tv, bt, sc = _prefill_case(gen, dev, kind, torch.bfloat16, 2, T,
-                                      GR_H, GR_KV, GR_HD, GR_BS, GR_MB)
+                                      h, kv, GR_HD, GR_BS, GR_MB)
     starts = np.asarray([0, 256])
     totals = starts + np.asarray([T, 50])
     start = torch.tensor(starts, dtype=torch.int32, device=dev)
@@ -857,3 +887,160 @@ def test_imagine_u55_gemv_126x512(cuda_device):
     assert np.array_equal(y.cpu().numpy(), w @ x)
     assert cycles == eng.analytic_cycles(126, 512) == 856
     assert eng.array.instr_count == 15
+
+
+# ---------------------------------------------------------------------------
+# the other families: zamba2, xlstm, whisper, llava
+# ---------------------------------------------------------------------------
+
+FAMILIES = ["zamba2-1.2b", "xlstm-350m", "llava-next-34b", "whisper-medium"]
+
+
+def _reset_bitplane_counts():
+    bitplane_gemv.LAUNCHES = bitplane_gemm.LAUNCHES = pack.LAUNCHES = 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_families_dense_serving_on_the_card_matches_plain(cuda_device,
+                                                          arch):
+    """The smoke configs in f32 with 8-bit g = 1 bit-plane weights (every
+    `w*` leaf packed by K5, xlstm's [D -> H] gates included): dense
+    `generate` (3 prompts of 200 tokens: K4 on prefill, K3 on decode)
+    and the dense batcher give the same tokens with the kernels as with
+    the plain versions."""
+    dev = cuda_device
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    _reset_bitplane_counts()
+    params = quantize_tree(params, PimQuantConfig(8, 1, min_features=1))
+    assert pack.LAUNCHES > 0
+    prompts = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (3, 200)).astype(np.int32)
+    out, drained = {}, {}
+    for impl in ("cuda", "ref"):
+        _reset_bitplane_counts()
+        eng = ServeEngine(cfg, params, ServeConfig(
+            max_cache_len=208, max_new_tokens=6, kernel_impl=impl,
+            device=str(dev)))
+        out[impl] = eng.generate(prompts).cpu()
+        cb = ContinuousBatcher(cfg, params, n_slots=2, cache_len=32,
+                               kernel_impl=impl, device=dev)
+        for uid, p in enumerate(prompts[:, :20]):
+            cb.submit(Request(uid=uid, prompt=p, max_new_tokens=5))
+        drained[impl] = cb.run_until_drained()
+        launched = (bitplane_gemv.LAUNCHES, bitplane_gemm.LAUNCHES)
+        if impl == "cuda":
+            assert launched[0] > 0 and launched[1] > 0
+        else:
+            assert launched == (0, 0)
+    assert torch.equal(out["cuda"], out["ref"])
+    assert drained["cuda"] == drained["ref"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-medium"])
+@pytest.mark.parametrize("quantize", [False, True])
+def test_families_paged_drain_on_the_card_matches_plain(cuda_device, arch,
+                                                        quantize):
+    """The launcher's --paged drain for the attention families: tokens
+    with K1/K2 (and K3 with bit-plane weights) equal those with the
+    plain versions."""
+    dev = cuda_device
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if quantize:
+        params = quantize_tree(params, PimQuantConfig(8, 1, min_features=1))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n), dtype=np.int32)
+               for n in rng.integers(4, 30, 6)]
+    out = {}
+    for impl in ("cuda", "ref"):
+        paged_attention.LAUNCHES = paged_prefill.LAUNCHES = 0
+        bitplane_gemv.LAUNCHES = 0
+        cb = ContinuousBatcher(cfg, params, n_slots=3, cache_len=48,
+                               paged=True, block_size=4, prefix=True,
+                               kernel_impl=impl, device=dev)
+        for uid, p in enumerate(prompts):
+            cb.submit(Request(uid=uid, prompt=p, max_new_tokens=6))
+        out[impl] = cb.run_until_drained()
+        launched = (paged_attention.LAUNCHES, paged_prefill.LAUNCHES,
+                    bitplane_gemv.LAUNCHES)
+        if impl == "cuda":
+            assert launched[0] > 0 and launched[1] > 0
+            assert (launched[2] > 0) == quantize
+        else:
+            assert launched == (0, 0, 0)
+    assert out["cuda"] == out["ref"]
+
+
+@pytest.mark.gpu
+def test_whisper_encdec_on_the_card_matches_plain(cuda_device):
+    """whisper's encoder-decoder (smoke, f32) with 8-bit g = 1 weights:
+    `prefill_encdec` over 300 stub frames (K4 on the encoder's 600 rows)
+    and 6 greedy `decode_step_encdec`s (K3) give the plain versions'
+    tokens, the logits within 1e-4."""
+    from repro_torch.models import (decode_step_encdec, init_encdec,
+                                    prefill_encdec)
+    from repro_torch.models.frontend_stub import make_stub_embeddings
+
+    dev = cuda_device
+    cfg = dataclasses.replace(get_config("whisper-medium", smoke=True),
+                              dtype="float32")
+    params = quantize_tree(
+        init_encdec(cfg, torch.Generator(device=dev).manual_seed(0), dev),
+        PimQuantConfig(8, 1, min_features=1))
+    frames = make_stub_embeddings(cfg, 2, 300, seed=1, device=dev)
+    prompt = torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32,
+                          device=dev)
+    runs = {}
+    for impl in ("cuda", "ref"):
+        _reset_bitplane_counts()
+        logits, cache = prefill_encdec(params, frames, prompt, cfg, 16,
+                                       impl=impl)
+        steps = [logits]
+        for _ in range(6):
+            tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+            logits, cache = decode_step_encdec(params, tok, cache, cfg,
+                                               impl=impl)
+            steps.append(logits)
+        runs[impl] = torch.cat(steps, dim=1)
+        launched = (bitplane_gemv.LAUNCHES, bitplane_gemm.LAUNCHES)
+        assert (launched[0] > 0 and launched[1] > 0 if impl == "cuda"
+                else launched == (0, 0))
+    torch.cuda.synchronize()
+    assert torch.equal(runs["cuda"].argmax(-1), runs["ref"].argmax(-1))
+    assert float((runs["cuda"] - runs["ref"]).abs().max()) <= 1e-4
+
+
+#: the families' projections at published width: zamba2's w_in and
+#: w_out, xlstm's gates, q/k/v and down projections, whisper's MLP
+FAMILY_MATRICES = [(2048, 8352), (4096, 2048), (1024, 4), (1024, 2048),
+                   (2048, 1024), (1024, 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,m", FAMILY_MATRICES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bitplane_kernels_family_shapes(cuda_device, k, m, dtype):
+    """K5 byte-identical to the plain pack, K3 (8 rows) and K4 (2048
+    rows) within 1e-5 of max|raw| of the plain contraction, at the
+    families' projection shapes (M = 4 included)."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(17)
+    w = torch.randn((k, m), generator=gen, device=dev)
+    w_q, scale = ref.quantize_ref(w, 8)
+    planes, got_scale = ops.quantize_and_pack(w, 8, 1, "cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(planes, ref.pack_ref(w_q, 8, 1))
+    assert torch.equal(got_scale, scale)
+    u = ref.offset_form_ref(planes, 1).float()
+    x = torch.randn((2048, k), generator=gen, device=dev).to(dtype)
+    plain = x.float() @ u
+    for b, fn in ((2048, bitplane_gemm.bitplane_gemm),
+                  (8, bitplane_gemv.bitplane_gemv)):
+        raw = fn(ref.prepare_x_ref(x[:b], 1).contiguous(), planes, n_bits=8,
+                 group=1)
+        torch.cuda.synchronize()
+        err = float((raw - plain[:b]).abs().max() / plain[:b].abs().max())
+        assert err <= 1e-5, (k, m, dtype, b, err)

@@ -37,7 +37,7 @@ from repro.models import mlp as j_mlp
 from repro.quant.bitplane import PimQuantConfig as JQuantConfig
 from repro.quant.bitplane import quantize_tree as j_quantize_tree
 from repro_torch.bridge import params_from_jax
-from repro_torch.configs import ARCH_IDS, ModelConfig, get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import (
     count_params,
     decode_step,
@@ -169,19 +169,40 @@ def test_count_params_equals_reference(models, quantized):
     assert count_params(tp) == j_count_params(jp)
 
 
+#: the reference's leaves that stay f32 in the port (beside norm gains)
+F32_LEAVES = ("g", "router", "conv_w", "conv_b", "A_log", "D", "dt_bias",
+              "r_gates", "b_gates")
+
+
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-350m",
                                   "whisper-medium", "llava-next-34b"])
-def test_unported_families_are_refused(arch):
-    """Recurrent blocks, encoder-decoder stacks and modality frontends
-    wait for a later slice: `init_lm` and `forward` refuse their
-    configs, naming what waits, and the port's registry has no entry."""
-    cfg = ModelConfig(**dataclasses.asdict(j_get_config(arch, smoke=True)))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        forward({}, torch.zeros((1, 2), dtype=torch.int32), cfg)
-    with pytest.raises(KeyError):
-        get_config(arch)
+def test_families_registered_with_the_reference_tree(arch):
+    """The recurrent, encoder-decoder and frontend families are in the
+    port's registry with `config()` and `smoke()` equal to the
+    reference's field by field; the port's own `init_lm` at the bf16
+    smoke config has the reference's tree of shapes (exact; whisper the
+    decoder-only stack the reference's `init_lm` builds), its f32 leaves
+    f32 and every other leaf bf16; and `layer_shapes` gives
+    `init_layer`'s tree of shapes and dtypes."""
+    assert arch in ARCH_IDS
+    for smoke in (False, True):
+        assert (dataclasses.asdict(get_config(arch, smoke=smoke))
+                == dataclasses.asdict(j_get_config(arch, smoke=smoke)))
+    cfg = get_config(arch, smoke=True)
+    jcfg = j_get_config(arch, smoke=True)
+    tp = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    jshapes = jax.tree.map(
+        lambda x: tuple(x.shape),
+        jax.eval_shape(lambda k: j_init_lm(k, jcfg), jax.random.PRNGKey(0)))
+    assert jax.tree.map(lambda x: tuple(x.shape), tp) == jshapes
+    for path, leaf in jax.tree_util.tree_leaves_with_path(tp):
+        name = path[-1].key
+        want = torch.float32 if name in F32_LEAVES else torch.bfloat16
+        assert leaf.dtype == want, (path, leaf.dtype)
+    meta = init_layer(cfg, None, torch.device("meta"), torch.bfloat16)
+    assert (jax.tree.map(lambda x: (tuple(x.shape), x.dtype), meta)
+            == jax.tree.map(lambda x: x, layer_shapes(cfg, torch.bfloat16),
+                            is_leaf=lambda x: isinstance(x, tuple)))
 
 
 # ---------------------------------------------------------------------------
