@@ -13,11 +13,13 @@ window), whose paged cache splits into a global and a windowed layer
 group that retires pages, then the rest of the attention model zoo at
 published width: qwen2.5-14b and granite-20b (MQA, GQA group 48, plain
 GELU MLP) at full depth, phi3.5-moe-42b-a6.6b and llama4-scout-17b-a16e
-(mixtures of experts) cut in depth to fit the card, and last the other
+(mixtures of experts) cut in depth to fit the card, then the other
 families at published width and depth: zamba2-1.2b (Mamba2 with a
 shared attention block), xlstm-350m (mLSTM / sLSTM), whisper-medium
 (encoder-decoder over stub frames) and llava-next-34b (stub patch
-embeddings, GQA group 7). Phases, one line each:
+embeddings, GQA group 7), and last training through `make_train_step`
+and `Trainer`: qwen2-1.5b at full width, and the example model with
+checkpoints and a bit-exact resume. Phases, one line each:
 
   1. card      nvidia-smi name and power limit, torch and CUDA versions;
                TF32 off for matmuls and cuDNN
@@ -200,7 +202,25 @@ embeddings, GQA group 7). Phases, one line each:
                dense `generate` kernels == plain versions), whisper at 2
                + 2 (pim8 kernels == plain), llava at 4 (K1/K2 drain ==
                plain, chunked == single-shot)
- 19. a JSON line {"kernels": [...]} with each kernel's launches (those
+ 19. train    the training path (`make_train_step`, `Trainer`; no
+               serving kernel launches in it): (a) qwen2-1.5b at
+               published width and depth (28 L, d 1536, vocab 151936),
+               remat on, f32 master weights, bf16 compute, batch 8 x 512,
+               6 steps: step seconds (median of steps 2-6, each ended by
+               a sync), tokens/s, matmul TFLOP/s, peak memory (< 60 GB),
+               loss and grad_norm, all finite; (b) one f32 step of
+               qwen2-1.5b at published width, 2 layers, batch 2 x 64, on
+               the card (TF32 off) and on the CPU from the same params:
+               params within a tenth of the lr, m and v within 1e-4 of
+               their largest value; (c) in a child process under
+               `torch.use_deterministic_algorithms(True)` and
+               CUBLAS_WORKSPACE_CONFIG=:4096:8, the example model of
+               examples/train_lm_torch.py (8 L, d 512, vocab 8192,
+               35.7M params) through `Trainer` with checkpoints in a temp
+               dir: 300 steps, loss and accuracy first to last (the loss
+               must fall), then 40 steps straight against 20 and a new
+               `Trainer` resuming to 40, params, m and v equal bit for bit
+ 20. a JSON line {"kernels": [...]} with each kernel's launches (those
      of the qwen2 paths, and per path), error, times and bound, then the
      last line {"ok": true, "device": {"platform": "gpu", ...}}
 
@@ -212,6 +232,7 @@ port's sources are not beside it.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -2654,10 +2675,290 @@ def imagine(dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 19: training
+# ---------------------------------------------------------------------------
+
+#: (a) the full-width step: qwen2-1.5b at published width and depth
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 6
+TRAIN_PEAK_LIMIT = 60e9
+#: (b) one f32 step on the card and on the CPU from the same params:
+#: qwen2-1.5b at published width cut to 2 layers, batch 2 x 64
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 2, 64
+TRAIN_PARITY_LR = 1e-3
+#: m and v within this share of their largest |value| on the CPU; params
+#: within this share of the lr (the first AdamW update is ~lr * sign(g),
+#: so an element moves by at most a part of the lr where the two
+#: devices' gradients differ in their last bits)
+TRAIN_STATE_RTOL, TRAIN_PARAM_LR_SHARE = 1e-4, 0.1
+#: (c) the example model (examples/train_lm_torch.py at its defaults)
+EXAMPLE_STEPS, EXAMPLE_SEQ, EXAMPLE_BATCH = 300, 128, 8
+RESUME_STEPS = 40
+
+
+def train_batch(cfg, step, batch, seq, dev):
+    from repro_torch.data import DataConfig, batch_at
+    tokens, targets = batch_at(DataConfig(cfg.vocab_size, seq, batch,
+                                          seed=SEED), step)
+    return {"tokens": torch.from_numpy(tokens).to(dev),
+            "targets": torch.from_numpy(targets).to(dev)}
+
+
+def train_step_flop(cfg, batch, seq) -> float:
+    """Matmul FLOP of one `make_train_step` with remat: the layers' weight
+    products 2 (forward) + 2 (recompute) + 4 (backward) per parameter
+    and token, the head's 6, and the dense attention's QK^T and PV
+    (the full [T, T] square: the einsum computes masked scores too) 4 x
+    B T^2 H hd per layer forward, x 4 with recompute and backward."""
+    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    layer = d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2 + 3 * d * f
+    tokens = batch * seq
+    attn = 4 * batch * seq * seq * cfg.n_heads * hd
+    return (8 * layer * tokens + 4 * attn) * cfg.n_layers \
+        + 6 * d * cfg.vocab_size * tokens
+
+
+def train_full_width(dev):
+    """(a) `make_train_step` on qwen2-1.5b at published width and depth,
+    remat on, f32 masters, bf16 compute, batch 8 x 512, 6 steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, init_lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+
+    cfg = get_config("qwen2-1.5b")
+    check(cfg.remat and cfg.dtype == "bfloat16", "qwen2-1.5b: remat, bf16")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                     param_dtype=torch.float32)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(all(x.dtype == torch.float32 for x in _leaves(params)),
+          "f32 masters")
+    step = make_train_step(cfg, AdamWConfig(), warmup_steps=2,
+                           total_steps=TRAIN_STEPS)
+    times, rows = [], []
+    for s in range(TRAIN_STEPS):
+        batch = train_batch(cfg, s, TRAIN_BATCH, TRAIN_SEQ, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        rows.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr",
+                                              "accuracy")})
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(bool(torch.isfinite(x).all())
+                 for tree in (params, opt.m, opt.v) for x in _leaves(tree))
+    step_s = statistics.median(times[1:])
+    flop = train_step_flop(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    say("train", run="full width", model=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, vocab=cfg.vocab_size, params=count_params(params),
+        remat=cfg.remat, masters="f32", compute=cfg.dtype,
+        batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}", steps=TRAIN_STEPS, init_s=init_s,
+        step_s=step_s, first_step_s=times[0],
+        step_s_all=",".join(f"{t:.4f}" for t in times),
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+        matmul_flop_per_step=flop, matmul_tflop_per_s=flop / step_s / 1e12,
+        max_memory_allocated=peak, allocated_before=base,
+        loss=",".join(f"{r['loss']:.5f}" for r in rows),
+        grad_norm=",".join(f"{r['grad_norm']:.5f}" for r in rows),
+        lr=",".join(f"{r['lr']:.3g}" for r in rows))
+    check(finite and all(math.isfinite(v) for r in rows for v in r.values()),
+          "full-width training step gave a non-finite value")
+    check(peak < TRAIN_PEAK_LIMIT,
+          f"full-width training peaked at {peak} B (limit {TRAIN_PEAK_LIMIT})")
+    check(int(opt.step) == TRAIN_STEPS, "optimizer step count")
+    del params, opt, m
+    torch.cuda.empty_cache()
+
+
+def train_card_vs_cpu(dev):
+    """(b) one f32 step of qwen2-1.5b at published width, 2 layers,
+    batch 2 x 64, on the card (TF32 off) and on the CPU from the same
+    params: params, m and v held within the pinned tolerances."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_items, tree_map
+    from repro_torch.train import make_train_step
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off")
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                              n_layers=TRAIN_PARITY_LAYERS, dtype="float32")
+    cpu = init_lm(cfg, torch.Generator().manual_seed(SEED), "cpu",
+                  param_dtype=torch.float32)
+    card = tree_map(lambda x: x.to(dev, copy=True), cpu)
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN_PARITY_LR),
+                           warmup_steps=0, total_steps=10)
+    out, secs = {}, {}
+    for name, params in (("card", card), ("cpu", cpu)):
+        batch = train_batch(cfg, 0, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ,
+                            params["embed"].device)
+        t0 = time.perf_counter()
+        out[name] = step(params, adamw_init(params), batch)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    (pc, sc, mc), (pp, sp, mp) = out["card"], out["cpu"]
+    errs = {}
+    for what, got, want in (("params", pc, pp), ("m", sc.m, sp.m),
+                            ("v", sc.v, sp.v)):
+        want_d = dict(tree_items(want))
+        err, scale = 0.0, 0.0
+        for path, x in tree_items(got):
+            w = want_d[path]
+            err = max(err, float((x.cpu() - w).abs().max()))
+            scale = max(scale, float(w.abs().max()))
+        errs[what] = (err, scale)
+    say("train", run="card vs cpu", model=cfg.name, layers=cfg.n_layers,
+        dtype=cfg.dtype, batch=f"{TRAIN_PARITY_BATCH}x{TRAIN_PARITY_SEQ}",
+        lr=TRAIN_PARITY_LR, card_s=secs["card"], cpu_s=secs["cpu"],
+        loss_card=float(mc["loss"]), loss_cpu=float(mp["loss"]),
+        grad_norm_card=float(mc["grad_norm"]),
+        grad_norm_cpu=float(mp["grad_norm"]),
+        params_max_abs_err=errs["params"][0],
+        m_max_abs_err=errs["m"][0], m_max_abs=errs["m"][1],
+        v_max_abs_err=errs["v"][0], v_max_abs=errs["v"][1])
+    check(abs(float(mc["loss"]) - float(mp["loss"]))
+          <= 1e-5 * abs(float(mp["loss"])), "card vs cpu: loss")
+    check(abs(float(mc["grad_norm"]) - float(mp["grad_norm"]))
+          <= 1e-4 * float(mp["grad_norm"]), "card vs cpu: grad_norm")
+    check(errs["params"][0] <= TRAIN_PARAM_LR_SHARE * TRAIN_PARITY_LR,
+          f"card vs cpu: params differ by {errs['params'][0]}")
+    for what in ("m", "v"):
+        err, scale = errs[what]
+        check(err <= TRAIN_STATE_RTOL * scale,
+              f"card vs cpu: {what} differs by {err} (max |{what}| {scale})")
+    del out, card
+    torch.cuda.empty_cache()
+
+
+def _example_module():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "train_lm_torch", ROOT / "examples" / "train_lm_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def train_example_child(directory: str, device="cuda") -> int:
+    """(c), run by `train_example` in a child process whose environment
+    sets CUBLAS_WORKSPACE_CONFIG before cuBLAS starts: the example model
+    through the port's `Trainer` under deterministic algorithms — 300
+    steps with checkpoints, then 40 steps straight against 20 and a new
+    `Trainer` resuming to 40, params and optimizer state equal bit for
+    bit."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.data import DataConfig
+    from repro_torch.models import count_params, init_lm
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_items
+    from repro_torch.train import Trainer, TrainerConfig
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    cfg = _example_module().mini_config()
+
+    def trainer(steps, sub, ckpt_every, log_every):
+        params = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev, param_dtype=torch.float32)
+        return Trainer(
+            cfg, params,
+            DataConfig(cfg.vocab_size, EXAMPLE_SEQ, EXAMPLE_BATCH),
+            os.path.join(directory, sub), opt_cfg=AdamWConfig(lr=1e-3),
+            trainer_cfg=TrainerConfig(total_steps=steps,
+                                      ckpt_every=ckpt_every,
+                                      log_every=log_every),
+            device=dev)
+
+    t0 = time.perf_counter()
+    tr = trainer(EXAMPLE_STEPS, "run", 100, 20)
+    log = tr.run()
+    wall = time.perf_counter() - t0
+    first, last = log[0], log[-1]
+    say("train", run="example", model=f"{cfg.name}-mini",
+        layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+        params=count_params(tr.params), batch=f"{EXAMPLE_BATCH}x{EXAMPLE_SEQ}",
+        steps=EXAMPLE_STEPS, wall_s=wall,
+        step_s_median=statistics.median(r["step_time_s"] for r in log[1:]),
+        loss=f"{first['loss']:.4f}->{last['loss']:.4f}",
+        accuracy=f"{first['accuracy']:.4f}->{last['accuracy']:.4f}",
+        loss_rows=",".join(f"{r['step']}:{r['loss']:.3f}" for r in log),
+        checkpoints=tr.ckpt.manifest()["steps"],
+        deterministic=torch.are_deterministic_algorithms_enabled(),
+        cublas_workspace=os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    check(last["loss"] < first["loss"], "example: the loss did not fall")
+    check(tr.ckpt.manifest()["steps"] == [100, 200, 300],
+          "example: checkpoints at 100, 200, 300")
+
+    t0 = time.perf_counter()
+    full = trainer(RESUME_STEPS, "full", 20, 10)
+    full.run()
+    trainer(RESUME_STEPS // 2, "resume", 20, 10).run()
+    resumed = trainer(RESUME_STEPS, "resume", 20, 10)
+    check(resumed.start_step == RESUME_STEPS // 2, "resume step")
+    resumed.run()
+    trees = [(a, b) for a, b in ((full.params, resumed.params),
+                                 (full.opt_state.m, resumed.opt_state.m),
+                                 (full.opt_state.v, resumed.opt_state.v))]
+    unequal = [path for a, b in trees
+               for (path, x), (_, y) in zip(tree_items(a), tree_items(b))
+               if not torch.equal(x, y)]
+    say("train", run="resume", steps=f"{RESUME_STEPS} vs "
+        f"{RESUME_STEPS // 2}+{RESUME_STEPS // 2}",
+        leaves=sum(len(list(tree_items(a))) for a, _ in trees),
+        unequal_leaves=len(unequal),
+        step=int(resumed.opt_state.step), seconds=time.perf_counter() - t0)
+    check(not unequal, f"resume: leaves differ: {unequal[:5]}")
+    check(int(full.opt_state.step) == int(resumed.opt_state.step)
+          == RESUME_STEPS, "resume: optimizer steps")
+    return 0
+
+
+def train_example(dev):
+    """(c) in a child process: CUBLAS_WORKSPACE_CONFIG must be set before
+    cuBLAS starts, and this process's cuBLAS started long ago."""
+    import tempfile
+    torch.cuda.empty_cache()
+    directory = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        r = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--train-example", directory],
+            env=env, capture_output=True, text=True, timeout=600)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    sys.stdout.write(r.stdout)
+    sys.stdout.flush()
+    check(r.returncode == 0,
+          f"training example child exited {r.returncode}: {r.stderr[-3000:]}")
+
+
+def train(dev, laps) -> None:
+    """The `[train]` phase: (a), (b) and (c), each timed by `laps`."""
+    train_full_width(dev)
+    laps.lap("train full width")
+    train_card_vs_cpu(dev)
+    laps.lap("train card vs cpu")
+    train_example(dev)
+    laps.lap("train example")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--train-example"]:
+        return train_example_child(sys.argv[2])
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -2763,6 +3064,11 @@ def main() -> int:
     zoo_parity(dev)
     laps.lap("zoo parity")
     by_path.update(families(dev, errs, laps))
+    reset_launches()
+    train(dev, laps)
+    train_launches = read_launches()
+    check(not any(train_launches.values()),
+          f"the training path launched a serving kernel: {train_launches}")
 
     csrc = "src/repro_torch/kernels/csrc"
     sources = {

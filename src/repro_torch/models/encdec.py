@@ -13,7 +13,7 @@ with the caller's `impl`.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -36,7 +36,7 @@ from .common import (
     rmsnorm_params,
 )
 from .mlp import init_mlp, mlp
-from .transformer import empty_stack, layer_params
+from .transformer import empty_stack, layer_params, remat, unstack_layers
 
 
 def _layer_shapes(cfg: ModelConfig, dtype):
@@ -58,16 +58,18 @@ def _layer_shapes(cfg: ModelConfig, dtype):
 
 
 def init_encdec(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> Params:
+                device="cuda", param_dtype: Optional[torch.dtype] = None
+                ) -> Params:
     """Random parameters with the reference's tree: `enc_layers`,
     `enc_norm`, `dec_layers` (self-attention, cross-attention `xattn`,
-    plain MLP), `dec_norm` and the tied `embed`. Weights in the compute
-    dtype, norm gains f32; drawn from `generator`, which must live on
-    `device`. As in `init_lm`, each stacked `[L, ...]` leaf is
-    allocated once and filled layer by layer (encoder layers, then
-    decoder layers, then the embedding)."""
+    plain MLP), `dec_norm` and the tied `embed`. Weights in
+    `param_dtype` (by default the compute dtype; training passes
+    `torch.float32`, as `init_lm`), norm gains f32; drawn from
+    `generator`, which must live on `device`. As in `init_lm`, each
+    stacked `[L, ...]` leaf is allocated once and filled layer by layer
+    (encoder layers, then decoder layers, then the embedding)."""
     dev = resolve_device(device)
-    dt = compute_dtype(cfg.dtype)
+    dt = compute_dtype(cfg.dtype) if param_dtype is None else param_dtype
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     enc_shapes, dec_shapes = _layer_shapes(cfg, dt)
     enc = empty_stack(enc_shapes, cfg.n_encoder_layers, dev)
@@ -106,13 +108,19 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
     bidirectional attention."""
     x = frames.to(compute_dtype(cfg.dtype))
     positions = torch.arange(x.shape[1], device=x.device)
-    for l in range(cfg.n_encoder_layers):
-        lp = layer_params(params["enc_layers"], l)
+    layers = unstack_layers(params["enc_layers"], cfg.n_encoder_layers)
+
+    def body(x, l):
+        lp = layers[l]
         x = x + attention_forward(
             lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), positions,
             causal=False, impl=impl, **_attn_kwargs(cfg))
-        x = x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps), "gelu",
-                    impl)
+        return x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps),
+                       "gelu", impl)
+
+    body = remat(cfg, body)
+    for l in range(cfg.n_encoder_layers):
+        x = body(x, l)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -142,15 +150,23 @@ def forward_encdec(params: Params, frames: torch.Tensor,
                    tokens: torch.Tensor, cfg: ModelConfig,
                    impl: str = "auto") -> Tuple[torch.Tensor, Dict]:
     """Training forward: encode the frames, decode the tokens with
-    teacher forcing. Returns (logits [B, T, V], {"moe_aux": 0.0})."""
+    teacher forcing. Returns (logits [B, T, V], {"moe_aux": 0.0}). Each
+    encoder and decoder layer body is rematerialised in the backward
+    when `cfg.remat` is set."""
     enc_out = encode(params, frames, cfg, impl)
     x = params["embed"][tokens.long()].to(compute_dtype(cfg.dtype))
     positions = torch.arange(x.shape[1], device=x.device)
-    for l in range(cfg.n_layers):
-        lp = layer_params(params["dec_layers"], l)
+    layers = unstack_layers(params["dec_layers"], cfg.n_layers)
+
+    def body(x, l):
+        lp = layers[l]
         k, v = cross_attention_kv(lp["xattn"], enc_out, cfg.n_heads, cfg.hd,
                                   impl)
-        x = _dec_block(lp, x, positions, k, v, cfg, impl)
+        return _dec_block(lp, x, positions, k, v, cfg, impl)
+
+    body = remat(cfg, body)
+    for l in range(cfg.n_layers):
+        x = body(x, l)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _dec_head(params, x, cfg), {"moe_aux": aux}
 

@@ -41,6 +41,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.ops import is_bucket_plan
@@ -206,13 +207,16 @@ def empty_stack(tree: Params, n: int, device) -> Params:
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator,
-            device="cuda") -> Params:
+            device="cuda", param_dtype: Optional[torch.dtype] = None
+            ) -> Params:
     """Random parameters with the reference's shapes and init scales
     (truncated-normal fan-in projections, N(0, 0.02) embeddings, zero
     biases, unit norm gains), drawn from `generator` — which must live
-    on `device`. Weights are stored in the compute dtype, the f32 leaves
-    of `layer_shapes` in f32 (the same once-cast
-    `bridge.params_from_jax` applies). zamba2's shared attention block
+    on `device`. Weights are stored in `param_dtype`, by default the
+    compute dtype (serving; the same once-cast `bridge.params_from_jax`
+    applies), and the f32 leaves of `layer_shapes` in f32. Training
+    passes `torch.float32`: the reference's f32 masters, each cast to
+    the compute dtype where it is used. zamba2's shared attention block
     goes under "shared". An encoder-decoder config gets the decoder-only
     stack here, as the reference's `init_lm` gives it (`init_encdec`
     builds the encoder-decoder).
@@ -223,7 +227,7 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     of the layer stack."""
     cfg.validate()
     dev = resolve_device(device)
-    dt = compute_dtype(cfg.dtype)
+    dt = compute_dtype(cfg.dtype) if param_dtype is None else param_dtype
     layers = empty_stack(layer_shapes(cfg, dt), cfg.n_layers, dev)
     for l in range(cfg.n_layers):
         init_layer(cfg, generator, dev, dt, out=layer_params(layers, l))
@@ -264,6 +268,21 @@ def layer_params(stacked: Params, l: int) -> Params:
     return stacked[l]
 
 
+def unstack_layers(stacked: Params, n: int) -> List[Params]:
+    """Every layer's parameter tree at once, as the layer loops walk
+    them: views into the stacked tensors by `torch.unbind`, whose
+    backward writes the layers' gradients into one stacked tensor —
+    indexing each layer apart (`layer_params`) would give every layer a
+    zero-filled gradient of the whole stack, summed L times. A stacked
+    `PimWeight` indexes to its layers."""
+    if isinstance(stacked, dict):
+        per = {k: unstack_layers(v, n) for k, v in stacked.items()}
+        return [{k: per[k][l] for k in per} for l in range(n)]
+    if isinstance(stacked, torch.Tensor):
+        return list(torch.unbind(stacked, 0))
+    return [stacked[l] for l in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # embedding / head
 # ---------------------------------------------------------------------------
@@ -302,6 +321,24 @@ def _ssm_kwargs(cfg: ModelConfig):
                 d_inner=cfg.d_inner)
 
 
+def remat(cfg: ModelConfig, body):
+    """A layer body `body(x, l)` under activation checkpointing when
+    `cfg.remat` is set — the reference's `jax.checkpoint` of each layer
+    body: the backward recomputes the layer from its input instead of
+    keeping its activations. It applies only where autograd records the
+    call (`x` requires grad), so serving and scoring run the plain body.
+    The values are the same either way."""
+    if not cfg.remat:
+        return body
+
+    def run(x, l):
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return body(x, l)
+        return torch.utils.checkpoint.checkpoint(
+            body, x, l, use_reentrant=False, preserve_rng_state=False)
+    return run
+
+
 def _ffn(lp, h, cfg, impl):
     """One layer's FFN on the normed `h`, as the reference's
     `_attn_block` / `_ffn` pick it: `(output, load-balance loss)`, the
@@ -320,15 +357,22 @@ def _layer_loop(params, x, cfg, windows, attn, impl):
     """The body of the reference's `lax.scan`s, one layer at a time:
     `attn(l, attn_params, normed_x, window)` gives layer `l`'s attention
     output, then the FFN. `impl` reaches every projection
-    (`pim_linear`). Returns `(x, losses)`: the MoE layers' load-balance
-    losses in layer order (empty for a dense stack)."""
-    losses = []
-    for l in range(cfg.n_layers):
-        lp = layer_params(params["layers"], l)
+    (`pim_linear`). Each layer body goes through `remat`. Returns
+    `(x, losses)`: the MoE layers' load-balance losses in layer order
+    (empty for a dense stack)."""
+    layers = unstack_layers(params["layers"], cfg.n_layers)
+
+    def body(x, l):
+        lp = layers[l]
         x = x + attn(l, lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps),
                      windows[l])
         h, loss = _ffn(lp, rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg, impl)
-        x = x + h
+        return x + h, loss
+
+    body = remat(cfg, body)
+    losses = []
+    for l in range(cfg.n_layers):
+        x, loss = body(x, l)
         if loss is not None:
             losses.append(loss)
     return x, losses
@@ -349,12 +393,20 @@ def _mamba_loop(params, x, cfg, block, shared_attn, impl):
     """zamba2's stack: `block(l, mamba_params, normed_x)` gives Mamba2
     layer `l`'s output; after each full group the weight-shared block
     runs, its attention through `shared_attn(site, attn_params,
-    normed_x)`, site counting the shared block's calls."""
+    normed_x)`, site counting the shared block's calls. Each Mamba2
+    layer body goes through `remat` (the shared block does not, as in
+    the reference)."""
+    layers = unstack_layers(params["layers"], cfg.n_layers)
+
+    def body(x, l):
+        lp = layers[l]
+        return x + block(l, lp["mamba"], rmsnorm(lp["ln1"], x, cfg.norm_eps))
+
+    body = remat(cfg, body)
     site = 0
     for lo, hi, has_attn in _group_slices(cfg):
         for l in range(lo, hi):
-            lp = layer_params(params["layers"], l)
-            x = x + block(l, lp["mamba"], rmsnorm(lp["ln1"], x, cfg.norm_eps))
+            x = body(x, l)
         if has_attn and "shared" in params:
             sp = params["shared"]
             x = x + shared_attn(site, sp["attn"],
@@ -368,15 +420,22 @@ def _mamba_loop(params, x, cfg, block, shared_attn, impl):
 def _xlstm_loop(params, x, cfg, mlstm, slstm):
     """xlstm's stack: the sLSTM cell where `layer_flags()["is_slstm"]`,
     the mLSTM elsewhere, as `mlstm(l, params, normed_x)` /
-    `slstm(l, params, normed_x)` give them."""
-    for l, is_s in enumerate(cfg.layer_flags()["is_slstm"]):
-        lp = layer_params(params["layers"], l)
-        if is_s:
-            x = x + slstm(l, lp["slstm"], rmsnorm(lp["ln_s"], x,
-                                                   cfg.norm_eps))
-        else:
-            x = x + mlstm(l, lp["mlstm"], rmsnorm(lp["ln1"], x,
-                                                   cfg.norm_eps))
+    `slstm(l, params, normed_x)` give them. Each layer body goes
+    through `remat`."""
+    flags = cfg.layer_flags()["is_slstm"]
+    layers = unstack_layers(params["layers"], cfg.n_layers)
+
+    def body(x, l):
+        lp = layers[l]
+        if flags[l]:
+            return x + slstm(l, lp["slstm"], rmsnorm(lp["ln_s"], x,
+                                                      cfg.norm_eps))
+        return x + mlstm(l, lp["mlstm"], rmsnorm(lp["ln1"], x,
+                                                  cfg.norm_eps))
+
+    body = remat(cfg, body)
+    for l in range(cfg.n_layers):
+        x = body(x, l)
     return x
 
 
@@ -390,7 +449,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     """Full-sequence logits [B, T_front + T, V] (training / scoring),
     windows from `window_schedule(T)`; aux `{"moe_aux": the sum of the
     MoE layers' load-balance losses}` (0.0 for a dense or recurrent
-    stack)."""
+    stack). Each layer body is rematerialised in the backward when
+    `cfg.remat` is set (`remat`)."""
     x = _embed(params, tokens, cfg, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     losses = []

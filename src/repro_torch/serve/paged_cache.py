@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..kernels.paged_common import requantize_page_update
 from ..models import init_paged_pool, layer_attn_groups
 from ..models.common import resolve_device
 
@@ -476,6 +477,18 @@ class PagedKVCache:
         return min(p.n_free for p in self.pools)
 
     @property
+    def free_blocks(self) -> Deque[int]:
+        return self.pools[0].free_blocks
+
+    @property
+    def _ref(self) -> Dict[int, int]:
+        return self.pools[0]._ref
+
+    @property
+    def block_table(self) -> np.ndarray:
+        return self.pools[0].block_table
+
+    @property
     def pages_allocated(self) -> int:
         return sum(p.pages_allocated for p in self.pools)
 
@@ -493,6 +506,9 @@ class PagedKVCache:
 
     def refcount(self, page: int, group: int = 0) -> int:
         return self.pools[group].refcount(page)
+
+    def is_shared(self, page: int, group: int = 0) -> bool:
+        return self.pools[group].refcount(page) > 1
 
     def retain(self, page: int, group: int = 0) -> None:
         self.pools[group].retain(page)
@@ -530,6 +546,14 @@ class PagedKVCache:
     def available_blocks(self) -> int:
         """Unpromised free blocks in the most-pressured group."""
         return min(p.available_blocks() for p in self.pools)
+
+    def can_fit(self, n_tokens: int) -> bool:
+        return all(
+            p.available_blocks() >= self.draws_for(
+                n_tokens, live_bound=p.live_bound
+            )
+            for p in self.pools
+        )
 
     def draws_for(self, n_tokens: int, n_shared: int = 0,
                   n_cow: int = 0,
@@ -601,6 +625,21 @@ class PagedKVCache:
 
     # -- slot lifecycle ----------------------------------------------------
 
+    def alloc_slot(self, slot: int, n_tokens: int) -> None:
+        """Reserve pages so `slot` can hold `n_tokens`; starts the slot
+        empty (length 0 — the caller writes KV then sets the length)."""
+        for p in self.pools:
+            assert not p._owned[slot], f"slot {slot} already allocated"
+        self.ensure_capacity(slot, n_tokens)
+
+    def ensure_capacity(self, slot: int, n_tokens: int) -> None:
+        """Grow every group's block list to cover `n_tokens` positions
+        (earliest query = the slot's current length, so no block is
+        skipped for a fresh slot)."""
+        q_min = int(self.lengths[slot])
+        for p in self.pools:
+            p.grow(slot, q_min, n_tokens)
+
     def plan_attach(self, block_pages: List[Dict[int, int]],
                     n_cached: int) -> Optional[Dict[int, Tuple[int, List[int]]]]:
         """Window-aware per-group attach plan for a prefix hit
@@ -647,6 +686,16 @@ class PagedKVCache:
             j0, pages = plan[p.gid]
             p.attach(slot, j0, pages)
 
+    def attach_shared(self, slot: int, pages: Sequence[int]) -> None:
+        """Single-group convenience: map `pages` as the leading blocks of
+        `slot` in EVERY group — callers with one global group see the
+        single-pool behavior exactly."""
+        if len(pages) > self.max_blocks_per_slot:
+            raise ValueError(f"slot {slot}: {len(pages)} shared pages "
+                             f"exceed max {self.max_blocks_per_slot}")
+        for p in self.pools:
+            p.attach(slot, 0, list(pages))
+
     def free_slot(self, slot: int) -> None:
         """Drop the slot's reference on each of its pages in every group;
         exclusively owned pages recycle, shared ones live on."""
@@ -684,6 +733,89 @@ class PagedKVCache:
             for j in range(first, min(last + 1, len(p._owned[slot]))):
                 if p._owned[slot][j] is not None:
                     p.make_writable(self, slot, j)
+
+    def append_position(self, slot: int) -> None:
+        """Account one decoded token (the KV write itself happens inside
+        decode_step_paged); grows/retires/COWs as needed — the write
+        target must be exclusively owned BEFORE the device write."""
+        self.begin_append(slot, int(self.lengths[slot]), 1)
+        self.lengths[slot] += 1
+
+    # -- KV data movement --------------------------------------------------
+
+    def write_suffix(self, slot: int, k: torch.Tensor, v: torch.Tensor,
+                     start: int, n_tokens: int) -> None:
+        """Write `n_tokens` KV rows into `slot`'s pages at logical
+        positions [start, start + n_tokens), in place — the host-side
+        suffix writer (the paged prefill entry point writes in its
+        attention instead).
+
+        `start` must be page-aligned unless it targets the slot's last
+        shared page (the full-prefix-hit recompute, which COWs first).
+        k/v: [L, S, KV, hd] with the first `n_tokens` rows valid; each
+        layer group writes its own layer rows through its own table.
+        Sets the slot length to `start + n_tokens`.
+
+        Quantized pools: the touched pages requantize through
+        `kernels.paged_common.requantize_page_update` — existing head
+        rows of a partially filled first page survive the round-trip in
+        the float domain, and the per-page scales update in the same
+        step."""
+        bs = self.block_size
+        self.begin_append(slot, start, n_tokens)
+        end = start + n_tokens
+        first = start // bs
+        n_pages = -(-end // bs) - first
+        lead = start - first * bs            # rows kept from the first page
+        pad = n_pages * bs - lead - n_tokens
+        _, _, kvh, hd = k.shape
+        for p in self.pools:
+            owned = p._owned[slot]
+            pages = [owned[j] for j in range(first, first + n_pages)]
+            assert all(pg is not None for pg in pages), (p.gid, slot)
+            lg = self.group_layer_index(p.gid)
+            pages_t = torch.tensor(pages, dtype=torch.int64,
+                                   device=self.device)
+            idx = (lg[:, None], pages_t[None, :])
+            nl = lg.shape[0]
+            k_g = k.to(self.device)[lg]
+            v_g = v.to(self.device)[lg]
+
+            def window(src, head):
+                """[nl, n_pages, bs, KV, hd]: `head`'s first `lead` rows,
+                then the new rows, then zeros."""
+                parts = [head[:, :lead].to(src.dtype), src[:, :n_tokens]]
+                rows = torch.cat(parts, dim=1)
+                rows = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, pad))
+                return rows.reshape(nl, n_pages, bs, kvh, hd)
+
+            if self.quantized:
+                for pool, scales, src in (
+                        (self.k_pages, self.k_scales, k_g),
+                        (self.v_pages, self.v_scales, v_g)):
+                    codes, sc = requantize_page_update(
+                        pool[idx], scales[idx],
+                        lambda pages_f, src=src: window(
+                            src.float(),
+                            pages_f.reshape(nl, n_pages * bs, kvh, hd)))
+                    pool[idx] = codes
+                    scales[idx] = sc
+                continue
+
+            # head rows live entirely in the window's first page
+            for pool, src in ((self.k_pages, k_g), (self.v_pages, v_g)):
+                head = (self._gather_window(pool, lg, pages_t[:1]) if lead
+                        else src[:, :0])
+                pool[idx] = window(src, head).to(pool.dtype)
+        self.lengths[slot] = end
+
+    def _gather_window(self, pool: torch.Tensor, lg: torch.Tensor,
+                       pages: torch.Tensor) -> torch.Tensor:
+        nl = lg.shape[0]
+        bs, kvh, hd = pool.shape[2], pool.shape[3], pool.shape[4]
+        return pool[lg[:, None], pages[None, :]].reshape(
+            nl, pages.shape[0] * bs, kvh, hd
+        )
 
     # -- device views ------------------------------------------------------
     # Fresh copies (`torch.tensor` copies — `torch.from_numpy` would alias

@@ -146,6 +146,12 @@ class PrefixIndex:
             node = child
         return chain
 
+    def lookup(self, tokens, keys: Optional[List[Tuple[int, ...]]] = None
+               ) -> List[int]:
+        """Single-group convenience: the matched chain's group-0 pages
+        (the whole story for configs with one attention pattern)."""
+        return [n.pages.get(0, -1) for n in self.lookup_chain(tokens, keys)]
+
     def split_prompt(self, tokens, pages) -> Tuple[int, bool]:
         """Given a `lookup`/`lookup_chain` result, return
         `(n_cached, needs_cow)`: `n_cached` prompt tokens are served from
@@ -346,3 +352,15 @@ class PrefixIndex:
             else:
                 out.append(node)
         return out
+
+    def drop_all(self, cache: PagedKVCache) -> int:
+        """Release every index reference (teardown / tests)."""
+        n = 0
+        for gid, refs in self.page_refs().items():
+            for page, cnt in refs.items():
+                for _ in range(cnt):
+                    cache.release(page, gid)
+                    n += 1
+        self.root = _Node(key=None, pages={}, parent=None)
+        self.retained_by_group = collections.defaultdict(int)
+        return n

@@ -1,0 +1,130 @@
+"""train_step factory: loss + grad + AdamW, with microbatch accumulation.
+Counterpart of `repro.train.step`.
+
+The step is plain eager PyTorch: `torch.autograd.grad` through the
+port's model code (no kernel of the serving path runs here — dense
+leaves are plain matmuls and `forward` uses the dense attention), then
+`adamw_update`, which updates the params and the optimizer state in
+place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..models import forward, forward_encdec
+from ..optim import AdamWConfig, AdamWState, adamw_update
+from ..optim.adamw import tree_items
+from ..optim.schedule import warmup_cosine
+from .loss import softmax_cross_entropy
+
+Batch = Dict[str, torch.Tensor]
+
+#: the loss metrics, summed over microbatches
+LOSS_METRICS = ("loss", "nll", "z_loss", "accuracy", "moe_aux")
+
+
+def make_loss_fn(cfg: ModelConfig) -> Callable:
+    def loss_fn(params, batch: Batch):
+        if cfg.is_encoder_decoder:
+            logits, aux = forward_encdec(params, batch["frames"],
+                                         batch["tokens"], cfg)
+        elif cfg.frontend == "vision_stub":
+            logits, aux = forward(
+                params, batch["tokens"], cfg, extra_embeds=batch["patches"]
+            )
+            logits = logits[:, batch["patches"].shape[1]:]
+        else:
+            logits, aux = forward(params, batch["tokens"], cfg)
+        loss, metrics = softmax_cross_entropy(logits, batch["targets"])
+        loss = loss + cfg.router_aux_coef * aux["moe_aux"]
+        metrics["moe_aux"] = aux["moe_aux"]
+        metrics["loss"] = loss
+        return loss, metrics
+
+    return loss_fn
+
+
+def _unflatten(paths: List[str], leaves: List[Any]) -> Dict:
+    tree: Dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = tree
+        *parents, name = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = leaf
+    return tree
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    opt_cfg: AdamWConfig,
+    *,
+    n_microbatches: int = 1,
+    warmup_steps: int = 100,
+    total_steps: int = 10_000,
+) -> Callable:
+    loss_fn = make_loss_fn(cfg)
+    # NOTE: warmup_steps is deliberately NOT derived from total_steps —
+    # lr(step) must be a function of the step index alone so a run that
+    # crashes and resumes under a different total_steps replays the exact
+    # schedule (the bit-exact recovery property of DESIGN.md §7).
+
+    def value_and_grad(params, leaves, batch):
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss, metrics = loss_fn(params, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        # a leaf the loss never reads (zamba2's shared block in a stack
+        # with no full group) gets zeros, as under `jax.grad`
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        return {k: v.detach() for k, v in metrics.items()}, grads
+
+    def split_micro(batch: Batch) -> List[Batch]:
+        return [
+            {k: x.reshape((n_microbatches, x.shape[0] // n_microbatches)
+                          + tuple(x.shape[1:]))[i] for k, x in batch.items()}
+            for i in range(n_microbatches)
+        ]
+
+    def train_step(
+        params, opt_state: AdamWState, batch: Batch
+    ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+        paths, leaves = zip(*tree_items(params))
+        if n_microbatches > 1:
+            grads, metrics = None, None
+            for mb in split_micro(batch):
+                m, g = value_and_grad(params, leaves, mb)
+                if grads is None:
+                    # f32 accumulators (0 + g is g exactly)
+                    grads = [x.float() for x in g]
+                    metrics = {k: m[k].float() for k in LOSS_METRICS}
+                else:
+                    for acc, x in zip(grads, g):
+                        acc.add_(x)
+                    metrics = {k: metrics[k] + m[k] for k in LOSS_METRICS}
+                del g
+            grads = [g.div_(n_microbatches) for g in grads]
+            metrics = {k: v / n_microbatches for k, v in metrics.items()}
+        else:
+            metrics, grads = value_and_grad(params, leaves, batch)
+
+        lr = warmup_cosine(opt_state.step, opt_cfg.lr, warmup_steps,
+                           total_steps)
+        params2, opt_state2, gnorm = adamw_update(
+            _unflatten(paths, grads), opt_state, params, opt_cfg, lr=lr
+        )
+        metrics = dict(metrics)
+        metrics["grad_norm"] = gnorm
+        metrics["lr"] = lr
+        return params2, opt_state2, metrics
+
+    return train_step

@@ -26,7 +26,9 @@ llava-next-34b's 7, with the same tolerances. The other families
 greedy tokens through the kernels as through the plain versions on the
 dense cache, the paged cache (whisper, llava) and whisper's
 encoder-decoder (logits within 1e-4 there), and K3/K4/K5 hold their
-bars at the families' projection shapes (M = 4 included).
+bars at the families' projection shapes (M = 4 included). Training
+(no kernel of its own) gives on the card, over three f32 steps, the
+params, m and v it gives on the CPU within the stated tolerances.
 """
 
 import dataclasses
@@ -1044,3 +1046,53 @@ def test_bitplane_kernels_family_shapes(cuda_device, k, m, dtype):
         torch.cuda.synchronize()
         err = float((raw - plain[:b]).abs().max() / plain[:b].abs().max())
         assert err <= 1e-5, (k, m, dtype, b, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "phi3.5-moe-42b-a6.6b",
+                                  "zamba2-1.2b"])
+def test_train_steps_on_the_card_match_the_cpu(cuda_device, arch):
+    """Three f32 `make_train_step` steps (remat on, TF32 off) on the card
+    and on the CPU from the same f32 masters: the loss within 1e-5,
+    params within a tenth of the lr (early AdamW updates are near
+    lr * sign(g)), m and v within 1e-5 of their largest value. No serving
+    kernel launches on the training path."""
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_items, tree_map
+    from repro_torch.train import make_train_step
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
+                              remat=True)
+    cpu = init_lm(cfg, torch.Generator().manual_seed(0), "cpu",
+                  param_dtype=torch.float32)
+    card = tree_map(lambda x: x.to(cuda_device, copy=True), cpu)
+    lr = 1e-3
+    step = make_train_step(cfg, AdamWConfig(lr=lr), warmup_steps=0,
+                           total_steps=10)
+    states = {"cpu": (cpu, adamw_init(cpu)), "card": (card, adamw_init(card))}
+    before = {name: mod.LAUNCHES for name, mod in (
+        ("k1", paged_attention), ("k2", paged_prefill), ("k3", bitplane_gemv),
+        ("k4", bitplane_gemm), ("k5", pack))}
+    dc = DataConfig(cfg.vocab_size, 16, 4)
+    for s in range(3):
+        tokens, targets = batch_at(dc, s)
+        losses = {}
+        for name, (params, opt) in states.items():
+            dev = params["embed"].device
+            batch = {"tokens": torch.from_numpy(tokens).to(dev),
+                     "targets": torch.from_numpy(targets).to(dev)}
+            params, opt, m = step(params, opt, batch)
+            states[name] = (params, opt)
+            losses[name] = float(m["loss"])
+        assert abs(losses["card"] - losses["cpu"]) <= 1e-5, (s, losses)
+    (pc, oc), (pp, op) = states["card"], states["cpu"]
+    for got, want, tol in ((pc, pp, 0.1 * lr), (oc.m, op.m, None),
+                           (oc.v, op.v, None)):
+        for (path, g), (_, w) in zip(tree_items(got), tree_items(want)):
+            atol = tol if tol is not None else 1e-5 * float(w.abs().max())
+            err = float((g.cpu() - w).abs().max())
+            assert err <= atol, (path, err, atol)
+    assert before == {name: mod.LAUNCHES for name, mod in (
+        ("k1", paged_attention), ("k2", paged_prefill), ("k3", bitplane_gemv),
+        ("k4", bitplane_gemm), ("k5", pack))}

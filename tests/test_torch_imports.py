@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of `src/repro_torch/`, and
-neither `chip_smoke.py` nor `chip_ab.py`, imports `jax`, the JAX
+neither `chip_smoke.py`, `chip_ab.py` nor `examples/train_lm_torch.py`,
+imports `jax`, the JAX
 package `repro` (importing `repro` imports JAX) or the reference's
 `benchmarks`. Checked on the syntax tree, so a lazy import inside a
 function counts too."""
@@ -11,7 +12,8 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "chip_ab.py"
+    REPO / "chip_smoke.py", REPO / "chip_ab.py",
+    REPO / "examples" / "train_lm_torch.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
