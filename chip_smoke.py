@@ -17,9 +17,13 @@ GELU MLP) at full depth, phi3.5-moe-42b-a6.6b and llama4-scout-17b-a16e
 families at published width and depth: zamba2-1.2b (Mamba2 with a
 shared attention block), xlstm-350m (mLSTM / sLSTM), whisper-medium
 (encoder-decoder over stub frames) and llava-next-34b (stub patch
-embeddings, GQA group 7), and last training through `make_train_step`
+embeddings, GQA group 7), then training through `make_train_step`
 and `Trainer`: qwen2-1.5b at full width, and the example model with
-checkpoints and a bit-exact resume. Phases, one line each:
+checkpoints and a bit-exact resume, and last the distribution layer:
+qwen2-1.5b tensor-parallel (TP = 2) serving and data-parallel (DP = 2)
+training at full width on ranks that share the card, the paper's
+reduction networks as collectives, the int8 error-feedback all-reduce
+and an elastic restore. Phases, one line each:
 
   1. card      nvidia-smi name and power limit, torch and CUDA versions;
                TF32 off for matmuls and cuDNN
@@ -163,7 +167,8 @@ checkpoints and a bit-exact resume. Phases, one line each:
                buckets (the `[serve]` fields, plus the MoE layers'
                dropped fraction and load-balance loss on decode steps
                and prefill chunks):
-               qwen2.5-14b at 48 layers (bf16 KV), granite-20b at 52
+               qwen2.5-14b at 24 of 48 layers (bf16 KV), granite-20b at 26
+               of 52
                (bf16 and int8 KV; K1/K2 at g = 48), phi3.5-moe at 24 of
                32 layers (bf16 KV), llama4-scout at 8 of 48 (bf16 KV);
                then phi3.5-moe's --quantize path at 8 layers
@@ -220,9 +225,41 @@ checkpoints and a bit-exact resume. Phases, one line each:
                dir: 300 steps, loss and accuracy first to last (the loss
                must fall), then 40 steps straight against 20 and a new
                `Trainer` resuming to 40, params, m and v equal bit for bit
- 20. a JSON line {"kernels": [...]} with each kernel's launches (those
-     of the qwen2 paths, and per path), error, times and bound, then the
-     last line {"ok": true, "device": {"platform": "gpu", ...}}
+ 20. dist     the distribution layer (`repro_torch.dist`), its ranks
+               processes on this one card that talk over gloo (NCCL
+               refuses two ranks on one device; all-gather, reduce-scatter
+               and send / recv of CUDA tensors are staged through pinned
+               host memory, and counted): K3/K4/K5 first held against their
+               plain versions at the TP = 2 shard shapes of qwen2-1.5b;
+               then two ranks run (a) TP = 2 dense `generate` of qwen2-1.5b
+               at 28 layers, 8 x 512 prompts, 32 new tokens, bf16 (6 heads,
+               1 kv head, d_ff 4480 and half of `embed`'s d_model a rank;
+               wall, prefill / decode split, tokens/s, peak bytes a rank,
+               all-reduce calls and bytes a decode step, staged bytes), and
+               (a'') the same with 8-bit g = 1 weights (the whole tree
+               packed by K5, then cut by the specs; K5 on a rank's column
+               block must give the cut planes; K3/K4 launch at the shard
+               shapes); (a') at f32 and 4 layers TP = 2 against the one
+               rank: prefill logits within 1e-4, greedy tokens equal, with
+               dense and with 8-bit weights; (e) those TP = 2 params
+               saved whole by rank 0, restored onto one rank and back onto
+               TP = 2, every leaf bit for bit; (b) DP = 2 training of
+               qwen2-1.5b at 28 layers, f32 masters, remat, 2 steps of
+               2 x 4 x 512 (step s, tokens/s, peak a rank, the gradient
+               all-reduce's bytes and seconds), then one DP = 2 f32 step
+               at 2 layers against the one-rank step (loss within 1e-6
+               relative, params within 0.1 x lr); (d) `compressed_psum`
+               over the tied embedding's gradient [151936, 1536] f32:
+               within 5% of the exact mean, residual nonzero. Then four
+               ranks run (c) every reduction schedule of `SCHEDULES` and
+               `reduce_to_zero_binary_hopping` over 16 MiB f32 shards of
+               integers: results equal to `allreduce_tree`'s (rank 0's
+               for reduce-to-zero), seconds, bytes a rank equal to the
+               model — Table IV's networks on gloo's host path, not NVLink
+ 21. a JSON line {"kernels": [...]} with each kernel's launches (those
+     of the qwen2 paths and of the TP = 2 paths, and per path), error,
+     times and bound, then the last line {"ok": true, "device":
+     {"platform": "gpu", ...}}
 
 Any failed check ends the script with a non-zero exit and no "ok" line.
 It exits non-zero at once when no CUDA device is present, or when the
@@ -231,6 +268,7 @@ port's sources are not beside it.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import os
@@ -1695,9 +1733,11 @@ def gemma3_quantized(dev):
 ZOO_SHARED, ZOO_SUFFIX, ZOO_NEW = 256, (256, 768), 32
 ZOO_CACHE_LEN = ZOO_SHARED + ZOO_SUFFIX[1] + ZOO_NEW
 #: (arch, layers run at published width — None: all —, KV dtypes); the
-#: MoE models are cut in depth to fit one card's 80 GB in bf16
-ZOO_RUNS = (("qwen2.5-14b", None, ("bf16",)),
-            ("granite-20b", None, ("bf16", "int8")),
+#: MoE models are cut in depth to fit one card's 80 GB in bf16, and
+#: qwen2.5-14b (48 L) and granite-20b (52 L) to half their depth to keep
+#: the script's time as `[dist]` joined it
+ZOO_RUNS = (("qwen2.5-14b", 24, ("bf16",)),
+            ("granite-20b", 26, ("bf16", "int8")),
             ("phi3.5-moe-42b-a6.6b", 24, ("bf16",)),
             ("llama4-scout-17b-a16e", 8, ("bf16",)))
 #: the f32 kernel-vs-plain parity depth of each model
@@ -2953,6 +2993,536 @@ def train(dev, laps) -> None:
     laps.lap("train example")
 
 
+# ---------------------------------------------------------------------------
+# phase 20: distribution on torch.distributed ([dist])
+# ---------------------------------------------------------------------------
+
+#: (a) tensor-parallel dense `generate`: prompts, prompt length, new tokens
+DIST_B, DIST_T, DIST_NEW = 8, 512, 32
+#: (b) data-parallel training: rows per rank of the 2 x 4 x 512 batch
+DIST_TRAIN_ROWS, DIST_TRAIN_SEQ, DIST_TRAIN_STEPS = 4, 512, 2
+#: (c) the reduction networks: one 16 MiB f32 shard per rank
+DIST_REDUCE_NUMEL = 4 << 20
+#: TP = 2 shard shapes of qwen2-1.5b's projections [K -> M]: wq and wo,
+#: wk / wv (one kv head), w_gate / w_up, w_down
+DIST_SHARD_MATRICES = ((1536, 768), (768, 1536), (1536, 128), (1536, 4480),
+                       (4480, 1536))
+
+
+def dist_counts(before: dict, after: dict) -> dict:
+    return {k: {f: after[k][f] - before[k][f] for f in after[k]}
+            for k in after}
+
+
+def dist_generate(cfg, params, prompts, new_tokens, cache_len, dev):
+    """`ServeEngine.generate` on the dense cache under the active sharding
+    context: tokens, walls split at the prefill's end (a CUDA event), the
+    collectives of prefill and of the decode steps, the launch counts."""
+    from repro_torch.dist import collectives
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    eng = ServeEngine(cfg, params, ServeConfig(
+        max_cache_len=cache_len, max_new_tokens=new_tokens, device=str(dev)))
+    prefill, marks = eng._prefill, {}
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+    def prefill_then_mark(*args, **kw):
+        out = prefill(*args, **kw)
+        events[1].record()
+        marks["prefill"] = collectives.read_counts()
+        return out
+
+    eng._prefill = prefill_then_mark
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset_counts()
+    start = collectives.read_counts()
+    reset_launches()
+    t0 = time.perf_counter()
+    events[0].record()
+    out = eng.generate(prompts)
+    events[2].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    end = collectives.read_counts()
+    tokens = out.cpu().numpy()
+    steps = new_tokens - 1
+    decode = dist_counts(marks["prefill"], end)
+    return tokens, dict(
+        wall_s=wall, prefill_s=events[0].elapsed_time(events[1]) / 1e3,
+        decode_s=events[1].elapsed_time(events[2]) / 1e3,
+        tokens_per_s=tokens.size / wall,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        prefill_collectives=dist_counts(start, marks["prefill"]),
+        all_reduce_calls_per_decode_step=decode["all_reduce"]["calls"] / steps,
+        all_reduce_bytes_per_decode_step=decode["all_reduce"]["bytes"] / steps,
+        all_gather_calls_per_decode_step=decode["all_gather"]["calls"] / steps,
+        staged_bytes=end["staged"]["bytes"],
+        collective_s=sum(v["seconds"] for k, v in end.items()
+                         if k != "staged"),
+        launches=launches)
+
+
+def dist_init(cfg, dev, dtype=None):
+    from repro_torch.models import init_lm
+    return init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED + 50),
+                   dev, param_dtype=dtype)
+
+
+def dist_place(whole, mesh):
+    """This rank's blocks of `whole` by `param_shardings`, and the specs."""
+    from repro_torch.dist.sharding import place_tree
+    from repro_torch.launch.specs import param_shardings
+    specs = param_shardings(whole, mesh)
+    return place_tree(whole, specs, mesh), specs
+
+
+def dist_quantize(cfg, whole):
+    """`ServeEngine.quantize` (8-bit, g = 1) of the whole tree, K5 counted."""
+    from repro_torch.quant import PimQuantConfig
+    from repro_torch.serve import ServeConfig, ServeEngine
+    eng = ServeEngine(cfg, whole,
+                      ServeConfig(device=str(whole["embed"].device)))
+    reset_launches()
+    eng.quantize(PimQuantConfig(n_bits=8, group=1, min_features=1))
+    torch.cuda.synchronize()
+    return eng.params, read_launches()["bitplane_pack"]
+
+
+def dist_tp_full_width(dev, mesh) -> dict:
+    """(a) and (a''): qwen2-1.5b at 28 layers, TP = 2, dense `generate` of
+    8 x 512 prompts, 32 new tokens, bf16 and then 8-bit g = 1 weights
+    (quantized whole, K5, then cut by the specs). K5 on this rank's
+    column block of one w_gate must give the planes of the cut."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import SERVE_RULES, sharding_rules
+    from repro_torch.kernels import ops
+
+    cfg = get_config("qwen2-1.5b")
+    prompts = dense_prompts(cfg.vocab_size, DIST_B, DIST_T, SEED + 51)
+    cache_len = DIST_T + DIST_NEW
+    out = {}
+    for weights in ("bf16", "pim8"):
+        whole = dist_init(cfg, dev)
+        k5 = 0
+        if weights == "pim8":
+            lo = mesh.coords["model"] * cfg.d_ff // 2
+            w0 = whole["layers"]["mlp"]["w_gate"][0][:, lo: lo + cfg.d_ff // 2]
+            w0 = w0.clone()
+            whole, k5 = dist_quantize(cfg, whole)
+        params, _ = dist_place(whole, mesh)
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        shapes = dict(
+            q_heads=params["layers"]["attn"]["wq"].shape[-1] // cfg.hd,
+            kv_heads=params["layers"]["attn"]["wk"].shape[-1] // cfg.hd,
+            d_ff=params["layers"]["mlp"]["w_up"].shape[-1],
+            embed=tuple(params["embed"].shape))
+        if weights == "pim8":
+            reset_launches()
+            planes, scale = ops.quantize_and_pack(w0, 8, 1)
+            mine = params["layers"]["mlp"]["w_gate"][0]
+            check(read_launches()["bitplane_pack"] == 1
+                  and torch.equal(planes, mine.planes)
+                  and torch.equal(scale, mine.scale),
+                  "K5 on a rank's column block differs from the cut planes")
+            wg = params["layers"]["mlp"]["w_gate"]
+            wd = params["layers"]["mlp"]["w_down"]
+            shapes.update(planes_w_gate=tuple(wg.planes.shape),
+                          planes_w_down=tuple(wd.planes.shape),
+                          scale_w_down=tuple(wd.scale.shape))
+            del w0, planes, scale
+        with torch.no_grad(), sharding_rules(mesh, SERVE_RULES):
+            tokens, stats = dist_generate(cfg, params, prompts, DIST_NEW,
+                                          cache_len, dev)
+        check(tokens.shape == (DIST_B, DIST_NEW)
+              and ((tokens >= 0) & (tokens < cfg.vocab_size)).all(),
+              f"TP=2 {weights} generate: bad tokens {tokens.shape}")
+        out[weights] = dict(stats, k5_launches_quantize=k5, tokens=tokens,
+                            **shapes)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_tp_parity(dev, mesh, ckpt_dir) -> dict:
+    """(a') and (e): f32, 4 layers, TP = 2 against one rank (the whole
+    tree on this rank, no context): prefill logits within DIST_LOGIT_TOL,
+    greedy tokens equal; the same with 8-bit weights, tokens equal. Then
+    the TP = 2 params saved whole by rank 0 and restored onto one rank
+    and back onto TP = 2, bit for bit."""
+    import dataclasses
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import (SERVE_RULES, gather_tree,
+                                           sharding_rules)
+    from repro_torch.models import prefill
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=4,
+                              dtype="float32")
+    prompts = dense_prompts(cfg.vocab_size, DIST_B, DIST_T, SEED + 52)
+    cache_len = DIST_T + DIST_NEW
+    toks = torch.from_numpy(prompts).to(dev)
+    out = {}
+    for weights in ("f32", "pim8"):
+        whole = dist_init(cfg, dev)
+        if weights == "pim8":
+            whole = dist_quantize(cfg, whole)[0]
+        params, specs = dist_place(whole, mesh)
+        with torch.no_grad():
+            one_tokens, one = dist_generate(cfg, whole, prompts, DIST_NEW,
+                                            cache_len, dev)
+            one_logits = prefill(whole, toks, cfg, cache_len)[0]
+            collectives.barrier(mesh)
+            with sharding_rules(mesh, SERVE_RULES):
+                tp_tokens, tp = dist_generate(cfg, params, prompts, DIST_NEW,
+                                              cache_len, dev)
+                tp_logits = prefill(params, toks, cfg, cache_len)[0]
+        err = float((tp_logits - one_logits).abs().max())
+        out[weights] = dict(
+            logits_max_abs_err=err,
+            logits_max_abs=float(one_logits.abs().max()),
+            tokens_equal=bool(np.array_equal(one_tokens, tp_tokens)),
+            tokens_differ=int((one_tokens != tp_tokens).sum()),
+            one_rank_launches=one["launches"], launches=tp["launches"])
+        if weights == "f32":
+            t0 = time.perf_counter()
+            back = gather_tree(params, specs, mesh)
+            mgr = CheckpointManager(ckpt_dir)
+            if mesh.rank == 0:
+                mgr.save(1, back)
+            collectives.barrier(mesh)
+            save_s = time.perf_counter() - t0
+            target = meta_like(back)
+            t0 = time.perf_counter()
+            one_rank, _ = mgr.restore(target, device=dev)
+            two_rank, _ = mgr.restore(target, shardings=specs, mesh=mesh,
+                                      device=dev)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            out["elastic"] = dict(
+                save_s=save_s, restore_s=restore_s,
+                leaves=len(list(_leaves(whole))),
+                one_rank_unequal=sum(not torch.equal(a, b) for a, b in zip(
+                    _leaves(one_rank), _leaves(whole))),
+                tp2_unequal=sum(not torch.equal(a, b) for a, b in zip(
+                    _leaves(two_rank), _leaves(params))),
+                bytes=sum(x.numel() * x.element_size()
+                          for x in _leaves(whole)))
+            del back, one_rank, two_rank
+        del whole, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def meta_like(tree):
+    """The tree's shapes and dtypes on the `meta` device (a restore
+    target that allocates nothing)."""
+    if isinstance(tree, dict):
+        return {k: meta_like(v) for k, v in tree.items()}
+    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+
+def dist_dp_train(dev, mesh) -> dict:
+    """(b) and (d): qwen2-1.5b at 28 layers, DP = 2, f32 masters, remat,
+    `make_train_step` on this rank's 4 of 2 x 4 x 512 rows, 2 steps; one
+    DP = 2 f32 step at 2 layers against the one-rank step on the whole
+    batch; `compressed_psum` over the tied embedding's gradient."""
+    import copy
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import local_block
+    from repro_torch.optim import (AdamWConfig, adamw_init, compressed_psum,
+                                   init_residual)
+    from repro_torch.train import make_loss_fn, make_train_step
+
+    def rows(batch):
+        return {k: local_block(v, ("data",), mesh).contiguous()
+                for k, v in batch.items()}
+
+    cfg = get_config("qwen2-1.5b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = dist_init(cfg, dev, torch.float32)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, AdamWConfig(), warmup_steps=2,
+                           total_steps=DIST_TRAIN_STEPS, mesh=mesh)
+    times, losses, grads = [], [], []
+    world_rows = DIST_TRAIN_ROWS * mesh.size
+    for s in range(DIST_TRAIN_STEPS):
+        batch = rows(train_batch(cfg, s, world_rows, DIST_TRAIN_SEQ, dev))
+        torch.cuda.synchronize()
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        grads.append(collectives.read_counts()["all_reduce"])
+    out = {"b": dict(
+        layers=cfg.n_layers, batch=f"{mesh.size}x{DIST_TRAIN_ROWS}x"
+        f"{DIST_TRAIN_SEQ}", step_s=",".join(f"{t:.4f}" for t in times),
+        tokens_per_s=world_rows * DIST_TRAIN_SEQ / times[-1],
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        grad_all_reduce_calls=grads[-1]["calls"],
+        grad_all_reduce_bytes=grads[-1]["bytes"],
+        grad_all_reduce_s=grads[-1]["seconds"],
+        loss=",".join(f"{v:.6f}" for v in losses),
+        finite=all(bool(torch.isfinite(x).all()) for x in _leaves(params)))}
+    del params, opt, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params = dist_init(small, dev, torch.float32)
+    whole = train_batch(small, 0, world_rows, DIST_TRAIN_SEQ, dev)
+    lr = AdamWConfig().lr
+    # warmup_steps=0: the first step runs at the full lr (under warmup
+    # its lr would be 0 and the params would not move)
+    one, _, m1 = make_train_step(small, AdamWConfig(), warmup_steps=0)(
+        copy.deepcopy(params), adamw_init(params), whole)
+    dp, _, m2 = make_train_step(small, AdamWConfig(), warmup_steps=0,
+                                mesh=mesh)(
+        copy.deepcopy(params), adamw_init(params), rows(whole))
+    out["b_parity"] = dict(
+        loss_one_rank=float(m1["loss"]), loss_dp=float(m2["loss"]),
+        loss_rel_err=abs(float(m1["loss"]) - float(m2["loss"]))
+        / abs(float(m1["loss"])),
+        params_max_abs_err=max(float((a - b).abs().max())
+                               for a, b in zip(_leaves(one), _leaves(dp))),
+        lr=lr)
+    del one, dp
+
+    local = rows(whole)
+    params["embed"].requires_grad_(True)
+    loss = make_loss_fn(small)(params, local)[0]
+    g = torch.autograd.grad(loss, params["embed"])[0]
+    params["embed"].requires_grad_(False)
+    exact = collectives.all_reduce(g, "data", mesh) / mesh.size
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    got, res = compressed_psum({"embed": g}, init_residual({"embed": g}),
+                               "data", mesh)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = collectives.read_counts()
+    out["d"] = dict(
+        shape=tuple(g.shape),
+        rel_err=float((got["embed"] - exact).abs().max())
+        / float(exact.abs().max()),
+        residual_max_abs=float(res["embed"].abs().max()),
+        int32_all_reduce_bytes=counts["all_reduce"]["bytes"],
+        f32_all_reduce_bytes=int(2 * (mesh.size - 1) / mesh.size
+                                 * g.numel() * 4),
+        seconds=seconds)
+    del params, g, got, res, exact
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_pair(ckpt_dir, device="cuda") -> dict:
+    """What each of the two ranks of (a), (a'), (a''), (b), (d), (e) runs
+    (`repro_torch.dist.spawn`): TP on a (1, 2) mesh, DP on (2,)."""
+    from repro_torch.launch.mesh import Mesh
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tp = Mesh((1, 2), ("data", "model"))
+    dp = Mesh((2,), ("data",))
+    t0 = time.perf_counter()
+    out = {"a": dist_tp_full_width(dev, tp)}
+    t1 = time.perf_counter()
+    out["a1"] = dist_tp_parity(dev, tp, ckpt_dir)
+    t2 = time.perf_counter()
+    out.update(dist_dp_train(dev, dp))
+    out["seconds"] = {"a": t1 - t0, "a' and e": t2 - t1,
+                      "b and d": time.perf_counter() - t2}
+    return out
+
+
+def dist_reduce(go: str, device="cuda") -> dict:
+    """(c) every schedule of `SCHEDULES` and `reduce_to_zero_binary_hopping`
+    on 4 ranks of the card over a 16 MiB f32 shard of integer values:
+    each result equal to `allreduce_tree`'s, seconds, bytes moved. The
+    ranks start while the two-rank world runs and wait for the file `go`
+    before they touch the card's work."""
+    from repro_torch.core.reduction import (SCHEDULES,
+                                            collective_bytes_per_device,
+                                            make_sharded_allreduce,
+                                            reduce_to_zero_binary_hopping)
+    from repro_torch.dist import collectives
+    from repro_torch.launch.mesh import Mesh
+
+    while not os.path.exists(go):
+        time.sleep(0.05)
+    mesh = Mesh((4,), ("x",))
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60 + mesh.rank)
+    x = torch.randint(-1000, 1000, (DIST_REDUCE_NUMEL,), generator=gen,
+                      device=dev).float()
+    tree = make_sharded_allreduce(mesh, "x", "tree")(x)   # warm-up too
+    out = {}
+    for name in list(SCHEDULES) + ["reduce_to_zero"]:
+        collectives.barrier(mesh)
+        collectives.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "reduce_to_zero":
+            y = reduce_to_zero_binary_hopping(x, "x", mesh)
+        else:
+            y = make_sharded_allreduce(mesh, "x", name)(x)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = collectives.read_counts()
+        equal = torch.equal(y, tree) if (name != "reduce_to_zero"
+                                         or mesh.rank == 0) else True
+        out[name] = dict(
+            seconds=seconds, equal=equal,
+            bytes=sum(counts[k]["bytes"] for k in (
+                "ppermute", "all_reduce", "reduce_scatter", "all_gather")),
+            staged_bytes=counts["staged"]["bytes"],
+            # reduce-to-zero: every rank but 0 sends its partial once
+            model_bytes=(x.numel() * 4 if mesh.rank else 0)
+            if name == "reduce_to_zero" else collective_bytes_per_device(
+                name, x.numel() * 4, mesh.size))
+    return out
+
+
+def dist_shard_kernel_checks(dev, errs) -> None:
+    """K3/K4/K5 against their plain versions at the TP = 2 shard shapes
+    of qwen2-1.5b (8-bit g = 1): decode's 8 rows (K3) and prefill's
+    8 x 512 (K4)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+    rel_err = dict.fromkeys(("bitplane_gemv", "bitplane_gemm",
+                             "matmul_bf16", "matmul_f32"), 0.0)
+    for k, m in DIST_SHARD_MATRICES:
+        check_bitplane_matrix(dev, gen, 8, 1, k, m, (DIST_B, DIST_B * DIST_T),
+                              errs, rel_err)
+    say("bitplane", model="qwen2-1.5b TP=2 shards", format="(8,1)",
+        matrices=",".join(f"{k}->{m}" for k, m in DIST_SHARD_MATRICES),
+        rows=f"{DIST_B},{DIST_B * DIST_T}", pack="byte-identical",
+        gemv_rel_err=rel_err["bitplane_gemv"],
+        gemm_rel_err=rel_err["bitplane_gemm"],
+        matmul_rel_err_bf16=rel_err["matmul_bf16"],
+        matmul_rel_err_f32=rel_err["matmul_f32"])
+
+
+#: (a') f32 logits, TP = 2 against one rank: the row-parallel partial
+#: sums add in another order
+DIST_LOGIT_TOL = 1e-4
+
+
+def dist(dev, errs, laps) -> dict:
+    """Phase 20: the distribution layer on the card. Ranks are processes
+    that all use this card and talk over gloo (NCCL refuses two ranks on
+    one device): each rank computes at its shard's shapes on real
+    blocks, with real collectives between processes, but the transport
+    is gloo's host path, not NVLink. Returns the kernel launches of the
+    TP paths, summed over ranks, by path."""
+    import gc
+    import tempfile
+    from repro_torch.dist import spawn
+
+    dist_shard_kernel_checks(dev, errs)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    say("dist", case="release", parent_memory_allocated=
+        torch.cuda.memory_allocated(), parent_memory_reserved=
+        torch.cuda.memory_reserved())
+    with tempfile.TemporaryDirectory(prefix="dist_") as tmp:
+        # the four-rank world starts now and waits for `go`: its start-up
+        # overlaps the two-rank world's run, its measurements do not
+        go = os.path.join(tmp, "go")
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            quad = pool.submit(spawn.run, "chip_smoke:dist_reduce", 4,
+                               args=(go,), timeout=900, paths=[str(ROOT)])
+            try:
+                pair = spawn.run("chip_smoke:dist_pair", 2, args=(tmp,),
+                                 timeout=600, paths=[str(ROOT)])
+                laps.lap("dist TP and DP")
+            finally:
+                open(go, "w").close()
+            four = quad.result()
+    laps.lap("dist reduction networks")
+    by_path = {}
+    for weights in ("bf16", "pim8"):
+        ranks = [r["a"][weights] for r in pair]
+        check(np.array_equal(ranks[0]["tokens"], ranks[1]["tokens"]),
+              f"(a) TP=2 {weights}: the ranks' tokens differ")
+        for rank, r in enumerate(ranks):
+            say("dist", case="a" if weights == "bf16" else "a''",
+                model="qwen2-1.5b", layers=28, weights=weights, tp=2,
+                rank=rank, batch=f"{DIST_B}x{DIST_T}", new_tokens=DIST_NEW,
+                **{k: v for k, v in r.items()
+                   if k not in ("tokens", "launches", "prefill_collectives")},
+                **{f"launches_{k}": v for k, v in r["launches"].items() if v})
+        by_path[f"qwen2-1.5b TP=2 {weights}"] = {
+            k: sum(r["launches"][k] for r in ranks)
+            for k in ranks[0]["launches"]}
+        by_path[f"qwen2-1.5b TP=2 {weights}"]["bitplane_pack"] += sum(
+            r["k5_launches_quantize"] for r in ranks)
+    pim = by_path["qwen2-1.5b TP=2 pim8"]
+    check(pim["bitplane_gemv"] > 0 and pim["bitplane_gemm"] > 0
+          and pim["bitplane_pack"] > 0,
+          f"(a'') TP=2 pim8: K3/K4/K5 must launch, got {pim}")
+    for rank, r in enumerate(pair):
+        for weights in ("f32", "pim8"):
+            p = r["a1"][weights]
+            say("dist", case="a'", model="qwen2-1.5b", layers=4,
+                dtype="float32", weights=weights, tp=2, rank=rank,
+                tolerance=DIST_LOGIT_TOL, **p)
+            check(p["tokens_equal"], f"(a') {weights}: TP=2 tokens differ "
+                  f"from one rank's ({p['tokens_differ']})")
+            check(weights == "pim8" or p["logits_max_abs_err"]
+                  <= DIST_LOGIT_TOL,
+                  f"(a') logits err {p['logits_max_abs_err']}")
+        e = r["a1"]["elastic"]
+        say("dist", case="e", rank=rank, **e)
+        check(e["one_rank_unequal"] == 0 and e["tp2_unequal"] == 0,
+              f"(e) elastic restore not bit-exact: {e}")
+        b, bp, d = r["b"], r["b_parity"], r["d"]
+        say("dist", case="b", model="qwen2-1.5b", dp=2, rank=rank, **b)
+        check(b["finite"], "(b) non-finite params")
+        say("dist", case="b parity", layers=2, dtype="float32", dp=2,
+            rank=rank, **bp)
+        check(bp["loss_rel_err"] <= 1e-6
+              and bp["params_max_abs_err"] <= 0.1 * bp["lr"],
+              f"(b) DP=2 step vs one rank: {bp}")
+        say("dist", case="d", dp=2, rank=rank, **d)
+        check(d["rel_err"] < 0.05 and d["residual_max_abs"] > 0,
+              f"(d) compressed_psum: {d}")
+    check(pair[0]["b"]["loss"] == pair[1]["b"]["loss"],
+          "(b) the ranks' losses differ")
+    say("dist", case="parts", **{f"rank{r}_{k}_s": v
+                                 for r, p in enumerate(pair)
+                                 for k, v in p["seconds"].items()})
+    for name, r0 in four[0].items():
+        say("dist", case="c", schedule=name, ranks=4,
+            shard_bytes=DIST_REDUCE_NUMEL * 4,
+            transport="gloo through host memory, not NVLink",
+            seconds=",".join(f"{r[name]['seconds']:.4f}" for r in four),
+            bytes_per_rank=",".join(str(r[name]["bytes"]) for r in four),
+            model_bytes_per_rank=",".join(str(int(r[name]["model_bytes"]))
+                                          for r in four),
+            staged_bytes_rank0=r0["staged_bytes"],
+            equal_to_tree=all(r[name]["equal"] for r in four))
+        check(all(r[name]["equal"] for r in four),
+              f"(c) {name} differs from allreduce_tree")
+        check(all(r[name]["bytes"] == r[name]["model_bytes"] for r in four),
+              f"(c) {name}: bytes moved differ from the model")
+    return by_path
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3069,6 +3639,11 @@ def main() -> int:
     train_launches = read_launches()
     check(not any(train_launches.values()),
           f"the training path launched a serving kernel: {train_launches}")
+    tp_paths = dist(dev, errs, laps)
+    by_path.update(tp_paths)
+    for path in tp_paths.values():
+        for name in ("bitplane_gemv", "bitplane_gemm", "bitplane_pack"):
+            launches[name] += path[name]
 
     csrc = "src/repro_torch/kernels/csrc"
     sources = {

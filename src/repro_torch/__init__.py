@@ -13,7 +13,13 @@ kernels hand-written in CUDA C++ for sm_90a (`kernels/csrc/`), the
 serving telemetry (`obs/`), and the paper's own engine (`core/`: the
 IMAGine ISA, the bit-exact PIM array and GEMV engine with its register
 file on the card, the Gold Standard and latency models;
-`launch/paper_tables.py` prints the paper's tables). Entry points run
+`launch/paper_tables.py` prints the paper's tables), training (`train/`,
+`optim/`, `data/`, `ckpt/`), and the distribution layer on
+`torch.distributed` (`dist/`, `launch/mesh.py`, `launch/specs.py`: the
+reference's sharding rules and specs, tensor- and data-parallel
+execution on each rank's blocks, the paper's reduction networks as
+collectives, the int8 error-feedback all-reduce, elastic restore; ranks
+are processes). Entry points run
 on the card (`device="cuda"`) unless the caller passes `device="cpu"`,
 where every kernel wrapper takes its plain PyTorch version.
 """

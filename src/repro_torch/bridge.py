@@ -90,3 +90,28 @@ def pim_array_from_reference(ref, device) -> PimArray:
     arr.out_buffer = [torch.from_numpy(np.array(v, dtype=np.int64)).to(
         arr.device) for v in ref.out_buffer]
     return arr
+
+
+def spec_from_jax(spec) -> tuple:
+    """A reference `PartitionSpec` (or a `NamedSharding`'s `.spec`) as
+    the port's spec: a tuple of axis names, tuples of names or None,
+    trailing Nones dropped."""
+    out = [None if e is None else e if isinstance(e, str)
+           else e[0] if len(e) == 1 else tuple(e) for e in spec]
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def specs_from_jax(tree) -> Any:
+    """A reference spec tree — dicts, and `PimWeight`s whose planes and
+    scale are specs — in the port's form, `PimWeight`s kept (the port's
+    `params_partition_specs` gives the same structure)."""
+    from .quant.bitplane import PimWeight
+
+    if isinstance(tree, Mapping):
+        return {k: specs_from_jax(v) for k, v in tree.items()}
+    if hasattr(tree, "planes") and hasattr(tree, "scale"):
+        return PimWeight(spec_from_jax(tree.planes), spec_from_jax(tree.scale),
+                         tree.n_bits, tree.group)
+    return spec_from_jax(tree)

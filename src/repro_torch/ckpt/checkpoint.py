@@ -63,33 +63,53 @@ def _items(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[str, Any]]:
         yield SEP.join(path), tree
 
 
-def _rebuild(tree, arrays: Dict[str, np.ndarray], path=()):
-    """`tree`'s structure with each leaf read from `arrays`, in the
-    leaf's dtype, on its device."""
+def _map(fn, tree, *others, path=()):
+    """`fn(leaf, *other_leaves, path)` over `tree`'s tensor leaves (a
+    `PimWeight`'s planes and scale as `0` and `1`), same structure."""
     if isinstance(tree, dict):
-        return {k: _rebuild(v, arrays, path + (str(k),))
+        return {k: _map(fn, v, *[o[k] for o in others], path=path + (str(k),))
                 for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*[_rebuild(getattr(tree, n), arrays, path + (n,))
-                            for n in tree._fields])
+        return type(tree)(*[_map(fn, getattr(tree, n),
+                                 *[getattr(o, n) for o in others],
+                                 path=path + (n,)) for n in tree._fields])
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, arrays, path + (str(i),))
+        return type(tree)(_map(fn, v, *[o[i] for o in others],
+                               path=path + (str(i),))
                           for i, v in enumerate(tree))
     if isinstance(tree, PimWeight):
-        return PimWeight(_leaf(tree.planes, arrays, path + ("0",)),
-                         _leaf(tree.scale, arrays, path + ("1",)),
-                         tree.n_bits, tree.group)
-    return _leaf(tree, arrays, path)
+        return PimWeight(
+            _map(fn, tree.planes, *[o.planes for o in others],
+                 path=path + ("0",)),
+            _map(fn, tree.scale, *[o.scale for o in others],
+                 path=path + ("1",)),
+            tree.n_bits, tree.group)
+    return fn(tree, *others, path)
 
 
-def _leaf(target: torch.Tensor, arrays, path) -> torch.Tensor:
+def _rebuild(tree, arrays: Dict[str, np.ndarray], device=None):
+    """`tree`'s structure with each leaf read from `arrays`, in the
+    leaf's dtype, on `device` (default: the leaf's)."""
+    return _map(lambda target, path: _leaf(target, arrays, path, device),
+                tree)
+
+
+def _to_device(tree, target, device=None):
+    """Each leaf of `tree` on `device`, or its `target` leaf's device."""
+    return _map(lambda x, t, path: x.to(
+        device=t.device if device is None else device, copy=True),
+        tree, target)
+
+
+def _leaf(target: torch.Tensor, arrays, path, device=None) -> torch.Tensor:
     key = SEP.join(path)
     if key not in arrays:
         raise KeyError(f"checkpoint missing leaf {key!r}")
     # `np.asarray`, not `np.ascontiguousarray`, which makes a 0-dim
     # array (the optimizer's step) 1-dim
     t = torch.from_numpy(np.asarray(arrays[key], order="C"))
-    return t.to(device=target.device, dtype=target.dtype)
+    return t.to(device=target.device if device is None else device,
+                dtype=target.dtype)
 
 
 def _to_numpy(key: str, leaf) -> np.ndarray:
@@ -208,15 +228,26 @@ class CheckpointManager:
 
     # -- restore ---------------------------------------------------------
 
-    def restore(self, target: Any, step: Optional[int] = None
+    def restore(self, target: Any, step: Optional[int] = None,
+                shardings: Optional[Any] = None, mesh=None, device=None
                 ) -> Tuple[Any, int]:
-        """Restore into the structure of `target` (a tree of tensors):
-        each leaf gets the target leaf's dtype and device. The
-        reference's `shardings` (placing leaves onto a mesh) goes with
-        the distributed layer and is not ported yet."""
+        """Restore into the structure of `target` (a tree of tensors of
+        the whole shapes — `meta` ones allocate nothing): each leaf gets
+        the target leaf's dtype, and its device unless `device` is
+        given. With `shardings` (a spec tree of the same structure, as
+        `launch.specs.param_shardings` gives) each rank gets its block
+        of every leaf on `mesh` (the active sharding context's unless
+        given) — any mesh, whatever mesh saved it: checkpoints hold
+        whole leaves, so restore is elastic."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         with np.load(os.path.join(self._step_dir(step), "arrays.npz")) as z:
             arrays = {k: z[k] for k in z.files}
-        return _rebuild(target, arrays), step
+        if shardings is not None:
+            from ..dist.sharding import current_context, place_tree
+            mesh = mesh if mesh is not None else current_context().mesh
+            whole = _rebuild(target, arrays, device=torch.device("cpu"))
+            placed = place_tree(whole, shardings, mesh, copy=False)
+            return _to_device(placed, target, device), step
+        return _rebuild(target, arrays, device=device), step

@@ -12,7 +12,7 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig, ShapeConfig, shape_applicable
 
 _MODULES: Dict[str, str] = {
     "xlstm-350m": "xlstm_350m",
@@ -39,4 +39,5 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     return mod.smoke() if smoke else mod.config()
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "get_config"]
+__all__ = ["ARCH_IDS", "SHAPES", "ModelConfig", "ShapeConfig", "get_config",
+           "shape_applicable"]

@@ -7,9 +7,12 @@ prefetch thread. Batches are placed on an explicit `device`: on the
 card the worker pins each batch's host memory and `__next__` copies it
 with `non_blocking=True`.
 
-The reference's `mesh` / `batch_spec` arguments (sharding the batch
-over a device mesh) go with the distributed layer and are not ported
-yet.
+With a `mesh` (`launch.mesh.Mesh`) and a `batch_spec` (a spec, e.g.
+`launch.specs.train_batch_specs`' `("data",)`), each rank takes its
+block of the global batch by the spec (`dist.sharding.local_block`) —
+the rows the reference's `device_put` onto the `NamedSharding` gives
+that device. Every rank draws the same global batch: the pipeline is
+a pure function of the step.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Iterator, Tuple
 
 import torch
 
+from ..dist.sharding import local_block
 from ..models.common import resolve_device
 from .synthetic import DataConfig, batch_at
 
@@ -28,11 +32,15 @@ class PrefetchLoader:
     def __init__(
         self,
         cfg: DataConfig,
+        mesh=None,
+        batch_spec=None,
         start_step: int = 0,
         prefetch: int = 2,
         device="cuda",
     ):
         self.cfg = cfg
+        self.mesh = mesh
+        self.spec = tuple(batch_spec) if batch_spec is not None else ()
         self.device = resolve_device(device)
         self._pin = self.device.type == "cuda"
         self.step = start_step
@@ -43,6 +51,8 @@ class PrefetchLoader:
 
     def _host(self, arr) -> torch.Tensor:
         t = torch.from_numpy(arr)
+        if self.mesh is not None:
+            t = local_block(t, self.spec, self.mesh).contiguous()
         return t.pin_memory() if self._pin else t
 
     def _worker(self):

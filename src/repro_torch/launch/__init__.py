@@ -1,1 +1,2 @@
-"""Command-line entry points of the port."""
+"""Command-line entry points of the port, and the meshes (`mesh`) and
+allocation-free specs (`specs`) the distribution layer places by."""

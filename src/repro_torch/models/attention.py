@@ -19,7 +19,10 @@ matches the reference's.
 
 Every projection goes through `quant.pim_linear` with the step's
 `impl`, so PIM bit-plane weights run on K3/K4 (or their plain versions
-under `impl="ref"`).
+under `impl="ref"`). The dense path carries the reference's heads hooks:
+under tensor parallelism (`dist.parallel`) each rank projects its
+column blocks, attends with its query heads and the K/V heads they read,
+and sums `wo`'s row-parallel partial products over ``model``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..dist.parallel import (
+    enter,
+    kv_for_heads,
+    local_columns,
+    row_linear,
+    shard_heads,
+)
 from ..kernels.paged_attention import paged_attention
 from ..kernels.paged_common import requantize_page_update
 from ..kernels.paged_prefill import paged_prefill
@@ -71,16 +81,19 @@ def init_attention(d_model: int, n_heads: int, n_kv_heads: int,
 
 
 def _project_qkv(params, x, n_heads, n_kv, hd, impl):
-    b, t, _ = x.shape
+    """q [B, T, H, hd], k and v [B, T, KV, hd] — under tensor parallelism
+    the heads each rank holds, as the heads hooks place them."""
+    x = enter(x)
     q = pim_linear(x, params["wq"], impl)
     k = pim_linear(x, params["wk"], impl)
     v = pim_linear(x, params["wv"], impl)
     if "bq" in params:
-        q = q + params["bq"].to(q.dtype)
-        k = k + params["bk"].to(k.dtype)
-        v = v + params["bv"].to(v.dtype)
-    return (q.reshape(b, t, n_heads, hd), k.reshape(b, t, n_kv, hd),
-            v.reshape(b, t, n_kv, hd))
+        q = q + local_columns(params["bq"], q.shape[-1]).to(q.dtype)
+        k = k + local_columns(params["bk"], k.shape[-1]).to(k.dtype)
+        v = v + local_columns(params["bv"], v.shape[-1]).to(v.dtype)
+    return (shard_heads(q, n_heads, hd, "heads"),
+            shard_heads(k, n_kv, hd, "kv_heads"),
+            shard_heads(v, n_kv, hd, "kv_heads"))
 
 
 def _gqa_core(
@@ -209,8 +222,10 @@ def attention_forward(
     q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim, impl)
     q = apply_rope(q, positions[None, :], rope_theta)
     k = apply_rope(k, positions[None, :], rope_theta)
-    out = _full_seq_attention(q, k, v, positions, positions, window, causal)
-    return pim_linear(out, params["wo"], impl)
+    out = _full_seq_attention(
+        q, *kv_for_heads(q.shape[2], n_heads, n_kv_heads, k, v), positions,
+        positions, window, causal)
+    return row_linear(out, params["wo"], n_heads * head_dim, impl)
 
 
 def attention_prefill(
@@ -235,9 +250,11 @@ def attention_prefill(
     k = apply_rope(k, positions[None, :], rope_theta)
     cache_k[:, :t] = k.to(cache_k.dtype)
     cache_v[:, :t] = v.to(cache_v.dtype)
-    out = _full_seq_attention(q, k, v, positions, positions, window,
-                              causal=True)
-    return pim_linear(out, params["wo"], impl), cache_k, cache_v
+    out = _full_seq_attention(
+        q, *kv_for_heads(q.shape[2], n_heads, n_kv_heads, k, v), positions,
+        positions, window, causal=True)
+    return row_linear(out, params["wo"], n_heads * head_dim, impl), \
+        cache_k, cache_v
 
 
 def decode_position(position: int, device) -> torch.Tensor:
@@ -295,8 +312,10 @@ def attention_decode(
     cache_v[:, row] = v[:, 0].to(cache_v.dtype)
     if mask is None:
         mask = decode_mask(position, s, window, x.device)
-    out = _gqa_core(q, cache_k, cache_v, mask)
-    return pim_linear(out, params["wo"], impl), cache_k, cache_v
+    out = _gqa_core(q, *kv_for_heads(q.shape[2], n_heads, n_kv_heads,
+                                     cache_k, cache_v), mask)
+    return row_linear(out, params["wo"], n_heads * head_dim, impl), \
+        cache_k, cache_v
 
 
 def attention_decode_paged(
@@ -502,9 +521,11 @@ def init_cross_attention(d_model: int, n_heads: int, head_dim: int,
 def cross_attention_kv(params: Params, enc_out: torch.Tensor, n_heads: int,
                        hd: int, impl: str = "auto"):
     """The encoder's K and V [B, S, H, hd], once per layer."""
-    b, s, _ = enc_out.shape
-    k = pim_linear(enc_out, params["wk"], impl).reshape(b, s, n_heads, hd)
-    v = pim_linear(enc_out, params["wv"], impl).reshape(b, s, n_heads, hd)
+    enc_out = enter(enc_out)
+    k = shard_heads(pim_linear(enc_out, params["wk"], impl), n_heads, hd,
+                    "heads")
+    v = shard_heads(pim_linear(enc_out, params["wv"], impl), n_heads, hd,
+                    "heads")
     return k, v
 
 
@@ -519,10 +540,10 @@ def cross_attention_forward(
 ) -> torch.Tensor:
     """Every decoder position attends to every encoder position: the
     non-causal full-sequence attention, no RoPE."""
-    b, t, _ = x.shape
-    s = k.shape[1]
-    q = pim_linear(x, params["wq"], impl).reshape(b, t, n_heads, head_dim)
+    t, s = x.shape[1], k.shape[1]
+    q = shard_heads(pim_linear(enter(x), params["wq"], impl), n_heads,
+                    head_dim, "heads")
     out = _full_seq_attention(q, k, v, torch.arange(t, device=x.device),
                               torch.arange(s, device=x.device), None,
                               causal=False)
-    return pim_linear(out, params["wo"], impl)
+    return row_linear(out, params["wo"], n_heads * head_dim, impl)

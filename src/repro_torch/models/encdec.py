@@ -18,6 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..dist.sharding import shard, tensor_parallel
 from .attention import (
     attention_decode,
     attention_forward,
@@ -102,11 +103,20 @@ def _attn_kwargs(cfg: ModelConfig):
                 head_dim=cfg.hd, rope_theta=cfg.rope_theta)
 
 
+def _single_rank(what: str) -> None:
+    """The encoder-decoder has the reference's placement hooks, but the
+    port computes it tensor-parallel nowhere yet."""
+    if tensor_parallel() is not None:
+        raise ValueError(f"{what}: the encoder-decoder runs without a "
+                         "model axis")
+
+
 def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
            impl: str = "auto") -> torch.Tensor:
     """frames [B, S_enc, D] stub embeddings -> encoder states, through
     bidirectional attention."""
-    x = frames.to(compute_dtype(cfg.dtype))
+    _single_rank("encode")
+    x = shard(frames.to(compute_dtype(cfg.dtype)), "batch", "seq", "embed")
     positions = torch.arange(x.shape[1], device=x.device)
     layers = unstack_layers(params["enc_layers"], cfg.n_encoder_layers)
 
@@ -222,6 +232,7 @@ def decode_step_encdec(params: Params, token: torch.Tensor, cache: Dict,
     """One decoder token per row [B, 1] at the cache's position; the
     self-attention K/V are written in place. Returns (logits [B, 1, V],
     the cache at position + 1)."""
+    _single_rank("decode_step_encdec")
     x = params["embed"][token.long()].to(compute_dtype(cfg.dtype))
     pos = cache["position"]
     for l in range(cfg.n_layers):

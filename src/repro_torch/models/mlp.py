@@ -4,13 +4,20 @@
 Each projection goes through `quant.pim_linear`, as in the reference: a
 dense matmul in x's dtype for a dense weight, the bit-plane op for a
 `PimWeight`. `impl` is the serving step's kernel impl, passed down to
-`pim_linear` (the reference's blocks have no such argument).
+`pim_linear` (the reference's blocks have no such argument). The
+hidden activation carries the reference's ("batch", "seq", "ff") hook;
+under tensor parallelism the up projections give each rank its d_ff
+columns and the down projection's partial sums are all-reduced.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from ..dist.parallel import enter, row_linear, split_dim
+from ..dist.sharding import shard
 from ..quant.bitplane import pim_linear
 from .common import ACTS, Params, dense_init
 
@@ -29,11 +36,24 @@ def init_swiglu(d_model: int, d_ff: int, generator, device,
     }
 
 
+def _hidden(h: torch.Tensor, d_ff: Optional[int]) -> torch.Tensor:
+    """The hidden activation's ("batch", "seq", "ff") hook. Under tensor
+    parallelism `h` holds this rank's block of the `d_ff` columns where
+    the up projections are split."""
+    if d_ff is None:
+        return h
+    return shard(h, "batch", "seq", "ff", src_dim=split_dim(h, d_ff))
+
+
 def swiglu(params: Params, x: torch.Tensor, act: str = "silu",
-           impl: str = "auto"):
+           impl: str = "auto", d_ff: Optional[int] = None):
+    """`d_ff`: the whole hidden width, which tensor-parallel callers give
+    (a rank's blocks do not tell it)."""
+    x = enter(x)
     g = ACTS[act](pim_linear(x, params["w_gate"], impl))
     u = pim_linear(x, params["w_up"], impl)
-    return pim_linear(g * u, params["w_down"], impl)
+    h = _hidden(g * u, d_ff)
+    return row_linear(h, params["w_down"], d_ff or h.shape[-1], impl)
 
 
 def init_mlp(d_model: int, d_ff: int, generator, device,
@@ -49,6 +69,7 @@ def init_mlp(d_model: int, d_ff: int, generator, device,
 
 
 def mlp(params: Params, x: torch.Tensor, act: str = "gelu",
-        impl: str = "auto"):
-    h = ACTS[act](pim_linear(x, params["w_up"], impl))
-    return pim_linear(h, params["w_down"], impl)
+        impl: str = "auto", d_ff: Optional[int] = None):
+    """`d_ff` as for `swiglu`."""
+    h = _hidden(ACTS[act](pim_linear(enter(x), params["w_up"], impl)), d_ff)
+    return row_linear(h, params["w_down"], d_ff or h.shape[-1], impl)

@@ -41,6 +41,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..dist.sharding import shard
 from ..kernels import ops as kops
 from ..quant.bitplane import PimWeight
 from .common import ACTS, Params, dense_init
@@ -124,6 +125,10 @@ def _dispatch_chunk(params: Params, x: torch.Tensor, top_k: int,
         nc, device=x.device).repeat_interleave(e))
     x_ext = torch.cat([x, x.new_zeros((1, d))])
     xin = x_ext[src[:dump]].reshape(e, capacity, d)           # [E, C, D]
+    # the expert dimension's hook: no rule maps "experts" to a mesh axis
+    # (the reference's spec tree keeps the `we_*` stacks whole), so it
+    # places nothing yet; expert parallelism would give it one
+    xin = shard(xin, "experts", None, "embed")
 
     # expert FFNs (PIM-aware)
     h = ACTS[act](_expert_matmul(xin, params["we_gate"], impl))

@@ -44,6 +44,13 @@ import torch
 import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
+from ..dist.parallel import (
+    enter,
+    gather_layer_split,
+    row_linear,
+    whole_logits,
+)
+from ..dist.sharding import shard, tensor_parallel
 from ..kernels.ops import is_bucket_plan
 from ..quant.bitplane import PimWeight
 from .attention import (
@@ -289,18 +296,46 @@ def unstack_layers(stacked: Params, n: int) -> List[Params]:
 
 def _embed(params, tokens, cfg, extra_embeds=None):
     """Token embeddings in the compute dtype, after the frontend stub's
-    `extra_embeds` [B, T_front, D] when given."""
+    `extra_embeds` [B, T_front, D] when given. Under tensor parallelism
+    `embed` holds a block of d_model (the reference's spec splits its
+    last dimension), and the embed hook gathers the features."""
     dt = compute_dtype(cfg.dtype)
     x = params["embed"][tokens.long()].to(dt)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(dt), x], dim=1)
-    return x
+    src = 2 if x.shape[-1] < cfg.d_model else None
+    return shard(x, "batch", "seq", "embed", src_dim=src)
 
 
 def _head(params, x, cfg):
+    """Logits [.., V], whole on every rank. Under tensor parallelism a
+    split `lm_head` gives a vocab block, the logits hook's layout, which
+    is gathered for the entry point's caller; the tied `embed.T` holds a
+    block of d_model rows, whose partial sums are all-reduced."""
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    w = params["lm_head"] if "lm_head" in params else params["embed"].T
-    return x @ w.to(x.dtype)
+    if "lm_head" in params:
+        w = params["lm_head"]
+        logits = enter(x) @ w.to(x.dtype)
+        logits = shard(logits, "batch", "seq", "vocab",
+                       src_dim=2 if w.shape[-1] < cfg.vocab_size else None)
+        return whole_logits(logits, cfg.vocab_size)
+    return row_linear(x, params["embed"].T.to(x.dtype), cfg.d_model)
+
+
+def _parallel_params(params, cfg: ModelConfig, what: str):
+    """The params an entry point computes with. Under tensor parallelism
+    (a context whose mesh splits over ``model``) it checks that the stack
+    is one the port computes tensor-parallel — dense attention stacks —
+    and gathers what the stored layout splits but each layer needs
+    whole (`dist.parallel.gather_layer_split`)."""
+    if tensor_parallel() is None:
+        return params
+    if cfg.block_kind != "attn" or cfg.n_experts:
+        raise ValueError(
+            f"{what}: tensor-parallel execution covers dense attention "
+            f"stacks, not {cfg.name} ({cfg.block_kind}, "
+            f"{cfg.n_experts} experts); run it without a model axis")
+    return gather_layer_split(params, cfg.n_layers)
 
 
 def _window_array(cfg: ModelConfig, seq_len: int) -> List[int]:
@@ -349,8 +384,8 @@ def _ffn(lp, h, cfg, impl):
                              act=cfg.act, impl=impl)
         return y, aux["load_balance_loss"]
     if cfg.mlp_kind == "plain":
-        return mlp(lp["mlp"], h, cfg.act, impl), None
-    return swiglu(lp["mlp"], h, cfg.act, impl), None
+        return mlp(lp["mlp"], h, cfg.act, impl, d_ff=cfg.d_ff), None
+    return swiglu(lp["mlp"], h, cfg.act, impl, d_ff=cfg.d_ff), None
 
 
 def _layer_loop(params, x, cfg, windows, attn, impl):
@@ -451,6 +486,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     MoE layers' load-balance losses}` (0.0 for a dense or recurrent
     stack). Each layer body is rematerialised in the backward when
     `cfg.remat` is set (`remat`)."""
+    params = _parallel_params(params, cfg, "forward")
     x = _embed(params, tokens, cfg, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     losses = []
@@ -521,7 +557,22 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
             for key, name in keys:
                 a = state[name]
                 cache[key] = a[None].expand((l,) + tuple(a.shape)).clone()
-    return cache
+    return shard_cache(cache)
+
+
+def shard_cache(cache: Dict) -> Dict:
+    """The K/V leaves [L, B, S, KV, hd] placed by the rules ("layers",
+    "batch", "kv_seq", "kv_heads", "cache_head_dim") over ``model``: a
+    whole cache is cut to this rank's kv heads where the rules split
+    them (no-op without a context, or where they stay whole). Rows are
+    already this rank's (`batch` is the caller's), and `kv_seq` stays
+    whole: the port computes attention over the whole sequence. Prefill
+    and decode write the placed tensors in place, so the reference's
+    calls at their ends have no counterpart here."""
+    return {k: shard(v, "layers", "batch", "kv_seq", "kv_heads",
+                     "cache_head_dim")
+            if k in ("k", "v", "shared_k", "shared_v") else v
+            for k, v in cache.items()}
 
 
 def _cache_len(cache: Dict, cfg: ModelConfig) -> int:
@@ -557,6 +608,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     logits [B, 1, V] of position T-1, or of `last_pos` — clamped into
     [0, T-1] as the reference's `dynamic_slice` clamps it. Windows come
     from `window_schedule(cache_len)`, as in the reference."""
+    params = _parallel_params(params, cfg, "prefill")
     x = _embed(params, tokens, cfg, extra_embeds)
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device)
@@ -602,6 +654,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict,
     paper's GEMV workload. The tensors of `cache` (K/V, recurrent
     states) are written in place; the returned cache holds them and
     position + 1. Returns (logits [B, 1, V], cache)."""
+    params = _parallel_params(params, cfg, "decode_step")
     x = _embed(params, token, cfg)
     pos, s = cache["position"], _cache_len(cache, cfg)
     rope_pos = decode_position(pos, x.device)
@@ -738,6 +791,9 @@ def _run_layers(params, x, cfg, attn_fn, attn_args, k_pages, v_pages,
     bt, st, plans, perms, cls = _per_layer_paged_views(
         cfg, block_table, block_start, bucket_plan, bucket_perm, capacity
     )
+    if tensor_parallel() is not None:
+        raise ValueError("paged serving runs on one rank, as the "
+                         "reference's does; run it without a model axis")
     quantized = k_scales is not None
 
     def attn(l, p, h, window):

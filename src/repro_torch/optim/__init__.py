@@ -1,6 +1,6 @@
-"""Optimizers and schedules: counterpart of `repro.optim`. The
-reference's error-feedback gradient compression (`compress.py`) goes
-with the distributed layer and is not ported yet."""
+"""Optimizers, schedules and the error-feedback int8 gradient
+compression of the data-parallel all-reduce: counterpart of
+`repro.optim`."""
 
 from .adamw import (
     AdamWConfig,
@@ -10,10 +10,12 @@ from .adamw import (
     clip_by_global_norm,
     global_norm,
 )
+from .compress import compressed_psum, compression_ratio, init_residual
 from .schedule import linear_warmup_constant, warmup_cosine
 
 __all__ = [
     "AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
-    "clip_by_global_norm", "global_norm", "linear_warmup_constant",
+    "clip_by_global_norm", "compressed_psum", "compression_ratio",
+    "global_norm", "init_residual", "linear_warmup_constant",
     "warmup_cosine",
 ]

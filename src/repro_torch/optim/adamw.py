@@ -110,11 +110,13 @@ def adamw_update(
     params: Params,
     cfg: AdamWConfig,
     lr: Optional[torch.Tensor] = None,
+    norm: Optional[torch.Tensor] = None,
 ) -> Tuple[Params, AdamWState, torch.Tensor]:
     """Returns (params, new_state, pre-clip grad norm); `params` and the
     state's m and v are the same tensors, updated in place. The grads
-    are clipped in place too."""
-    gnorm = global_norm(grads)
+    are clipped in place too. `norm`: the grads' global norm where the
+    caller computes it (over the ranks of a mesh), else `global_norm`."""
+    gnorm = global_norm(grads) if norm is None else norm
     factor = _clip_factor(gnorm, cfg.clip_norm)
     step = state.step + 1
     lr_t = torch.as_tensor(cfg.lr if lr is None else lr,

@@ -17,6 +17,12 @@ Differences from the reference, none of which changes a result:
     projections). The reference packs stacked weights with its jnp
     `pack_ref`; the planes are byte-identical.
   * `pim_linear` takes the serving step's `impl` (see its docstring).
+
+Under a mesh a `PimWeight` is cut by its planes' and scale's specs
+(`launch.specs.param_shardings`, `dist.sharding.place_tree`): a column
+block of M is what quantizing and packing those columns gives (the scale
+is per column); a block of K8 holds whole rows, since a byte packs 8 / g
+consecutive rows, with the whole weight's scale.
 """
 
 from __future__ import annotations

@@ -6,6 +6,15 @@ port's model code (no kernel of the serving path runs here — dense
 leaves are plain matmuls and `forward` uses the dense attention), then
 `adamw_update`, which updates the params and the optimizer state in
 place.
+
+Under a mesh (`mesh=`), each rank takes its rows of the global batch
+and the step does what XLA inserts for the reference's sharded jit:
+the gradients are averaged over the batch axes (`pod`, `data`), so
+every rank holds the global batch's mean gradient, and the loss
+metrics are global means. The gradient norm that clipping reads is the
+global one: leaves whole on every rank of `model` count once, and the
+squared sums of leaves split over `model` (by `param_specs`, the spec
+tree of `launch.specs.param_shardings`) are all-reduced over it.
 """
 
 from __future__ import annotations
@@ -15,6 +24,8 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..dist import collectives
+from ..dist.sharding import spec_axes
 from ..models import forward, forward_encdec
 from ..optim import AdamWConfig, AdamWState, adamw_update
 from ..optim.adamw import tree_items
@@ -59,6 +70,37 @@ def _unflatten(paths: List[str], leaves: List[Any]) -> Dict:
     return tree
 
 
+def _batch_axes(mesh) -> Tuple[str, ...]:
+    if mesh is None:
+        return ()
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names
+                 and mesh.shape[a] > 1)
+
+
+def _mean_over(tensors, axes, mesh):
+    """Each tensor averaged over the ranks along `axes`, in place."""
+    n = mesh.axis_size(axes)
+    for t in tensors:
+        collectives.all_reduce(t, axes, mesh, inplace=True).div_(n)
+    return tensors
+
+
+def _global_norm(paths, grads, mesh, param_specs) -> torch.Tensor:
+    """sqrt of the global sum of squares: the whole leaves' once, the
+    `model`-split leaves' summed over ``model``."""
+    split = {p for p, spec in tree_items(param_specs)
+             if any("model" in spec_axes(e) for e in spec)}
+    whole = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    parts = torch.zeros_like(whole)
+    for path, g in zip(paths, grads):
+        sq = torch.sum(torch.square(g.float()))
+        if path in split:
+            parts = parts + sq
+        else:
+            whole = whole + sq
+    return torch.sqrt(whole + collectives.all_reduce(parts, "model", mesh))
+
+
 def make_train_step(
     cfg: ModelConfig,
     opt_cfg: AdamWConfig,
@@ -66,8 +108,19 @@ def make_train_step(
     n_microbatches: int = 1,
     warmup_steps: int = 100,
     total_steps: int = 10_000,
+    mesh=None,
+    param_specs=None,
 ) -> Callable:
+    """`mesh`: the mesh the ranks run on (see the module docstring); with
+    a ``model`` axis of more than one rank, `param_specs` says which
+    leaves are split over it."""
     loss_fn = make_loss_fn(cfg)
+    batch_axes = _batch_axes(mesh)
+    split_model = (mesh is not None and "model" in mesh.axis_names
+                   and mesh.shape["model"] > 1)
+    if split_model and param_specs is None:
+        raise ValueError("make_train_step: a mesh with a model axis needs "
+                         "param_specs (launch.specs.param_shardings)")
     # NOTE: warmup_steps is deliberately NOT derived from total_steps —
     # lr(step) must be a function of the step index alone so a run that
     # crashes and resumes under a different total_steps replays the exact
@@ -117,11 +170,20 @@ def make_train_step(
         else:
             metrics, grads = value_and_grad(params, leaves, batch)
 
+        norm = None
+        if batch_axes:
+            grads = _mean_over(grads, batch_axes, mesh)
+            names = list(metrics)
+            stacked = torch.stack([metrics[k].float() for k in names])
+            stacked = _mean_over([stacked], batch_axes, mesh)[0]
+            metrics = {k: stacked[i] for i, k in enumerate(names)}
+        if split_model:
+            norm = _global_norm(paths, grads, mesh, param_specs)
         lr = warmup_cosine(opt_state.step, opt_cfg.lr, warmup_steps,
                            total_steps)
         params2, opt_state2, gnorm = adamw_update(
-            _unflatten(paths, grads), opt_state, params, opt_cfg, lr=lr
-        )
+            _unflatten(paths, grads), opt_state, params, opt_cfg, lr=lr,
+            norm=norm)
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm
         metrics["lr"] = lr

@@ -14,6 +14,14 @@ Counterpart of `repro.train.trainer`.
 The step runs eagerly on `device` (there is no `jit`); the loop
 synchronises on each step's loss, where the reference blocks on it, so
 a step's wall time is the device's.
+
+With a `mesh` (data-parallel: its batch axes; the rows of each rank by
+`batch_spec`) every rank runs the loop: the loader gives each rank its
+rows, the step averages the gradients over the batch axes, so the
+params stay equal on every rank. Rank 0 writes the checkpoints, and
+every rank reads them on resume. A ``model`` axis of more than one
+rank is refused: its params are blocks, which a checkpoint of whole
+leaves would need gathered.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 from ..ckpt.checkpoint import CheckpointManager
 from ..configs.base import ModelConfig
 from ..data.loader import PrefetchLoader
+from ..dist import collectives
 from ..data.synthetic import DataConfig
 from ..models.common import resolve_device
 from ..models.frontend_stub import make_stub_embeddings
@@ -61,6 +70,8 @@ class Trainer:
         ckpt_dir: str,
         opt_cfg: AdamWConfig = AdamWConfig(),
         trainer_cfg: TrainerConfig = TrainerConfig(),
+        mesh=None,
+        batch_spec=None,
         straggler_callback: Optional[Callable[[StragglerEvent], None]] = None,
         step_fn: Optional[Callable] = None,
         device="cuda",
@@ -69,6 +80,12 @@ class Trainer:
         self.tc = trainer_cfg
         self.data_cfg = data_cfg
         self.device = resolve_device(device)
+        if mesh is not None and "model" in mesh.axis_names \
+                and mesh.shape["model"] > 1:
+            raise ValueError("Trainer runs data-parallel: a mesh without a "
+                             "model axis of more than one rank")
+        self.mesh = mesh
+        self.batch_spec = batch_spec
         self.ckpt = CheckpointManager(ckpt_dir)
         self.straggler_callback = straggler_callback
         self.params = params
@@ -79,7 +96,7 @@ class Trainer:
         self.train_step = step_fn or make_train_step(
             cfg, opt_cfg,
             n_microbatches=trainer_cfg.n_microbatches,
-            total_steps=trainer_cfg.total_steps,
+            total_steps=trainer_cfg.total_steps, mesh=mesh,
         )
 
     # -- fault tolerance -------------------------------------------------
@@ -96,6 +113,8 @@ class Trainer:
         print(f"[trainer] resumed from step {step}")
 
     def _save(self, step: int):
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         state = {"params": self.params, "opt": self.opt_state}
         if self.tc.async_ckpt:
             self.ckpt.save_async(step, state)
@@ -105,7 +124,9 @@ class Trainer:
     # -- loop --------------------------------------------------------------
 
     def run(self) -> List[Dict[str, float]]:
-        loader = PrefetchLoader(self.data_cfg, start_step=self.start_step,
+        loader = PrefetchLoader(self.data_cfg, mesh=self.mesh,
+                                batch_spec=self.batch_spec,
+                                start_step=self.start_step,
                                 device=self.device)
         ewma = None
         measured = 0
@@ -144,6 +165,8 @@ class Trainer:
             self.ckpt.wait()
             self._save(self.tc.total_steps)
             self.ckpt.wait()
+            if self.mesh is not None:
+                collectives.barrier(self.mesh)  # rank 0's files are written
         finally:
             loader.close()
         return self.metrics_log

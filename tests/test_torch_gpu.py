@@ -28,10 +28,16 @@ dense cache, the paged cache (whisper, llava) and whisper's
 encoder-decoder (logits within 1e-4 there), and K3/K4/K5 hold their
 bars at the families' projection shapes (M = 4 included). Training
 (no kernel of its own) gives on the card, over three f32 steps, the
-params, m and v it gives on the CPU within the stated tolerances.
+params, m and v it gives on the CPU within the stated tolerances. The
+distribution layer runs ranks as processes on the one card over gloo:
+all-gather, reduce-scatter and permutes of CUDA tensors (staged through
+host memory) equal their values, and tensor parallelism on two ranks
+(f32, qwen2-1.5b smoke, dense and 8-bit weights through K3/K4) gives the
+one rank's greedy tokens, logits within 1e-4.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -1096,3 +1102,53 @@ def test_train_steps_on_the_card_match_the_cpu(cuda_device, arch):
     assert before == {name: mod.LAUNCHES for name, mod in (
         ("k1", paged_attention), ("k2", paged_prefill), ("k3", bitplane_gemv),
         ("k4", bitplane_gemm), ("k5", pack))}
+
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+
+
+@pytest.mark.gpu
+def test_staged_collectives_on_the_card(cuda_device):
+    from repro_torch.dist import spawn
+
+    r0, r1 = spawn.run("torch_dist_cases:card_collectives_rank", 2,
+                       timeout=120, paths=[TESTS])
+    x = [torch.arange(8, dtype=torch.float32) + 10 * r for r in range(2)]
+    for rank, r in enumerate((r0, r1)):
+        assert torch.equal(r["all_gather"], torch.cat(x))
+        assert torch.equal(r["reduce_scatter"],
+                           (x[0] + x[1]).chunk(2)[rank])
+        assert torch.equal(r["ppermute"], x[1 - rank])
+        assert torch.equal(r["all_reduce"], x[0] + x[1])
+        assert r["staged"] >= 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantize", [False, True])
+def test_tensor_parallel_on_the_card_matches_one_rank(cuda_device, quantize):
+    from repro_torch.dist import spawn
+    from repro_torch.models import decode_step, forward, prefill
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
+                              dtype="float32")
+    params = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    if quantize:
+        params = quantize_tree(params, PimQuantConfig(n_bits=8, group=1,
+                                                      min_features=1))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16)))
+    r0, r1 = spawn.run("torch_dist_cases:card_tp_rank", 2, args=(
+        params, "qwen2-1.5b", tokens, 24, 6), timeout=120, paths=[TESTS])
+    with torch.no_grad():
+        logits = forward(params, tokens, cfg)[0]
+        out, cache = prefill(params, tokens, cfg, 24)
+        greedy = [out[:, -1].argmax(-1)]
+        for _ in range(5):
+            out, cache = decode_step(params, greedy[-1][:, None], cache, cfg)
+            greedy.append(out[:, -1].argmax(-1))
+    one = torch.stack(greedy, 1)
+    for r in (r0, r1):
+        assert torch.equal(r["tokens"], one)
+        assert float((r["logits"] - logits).abs().max()) <= 1e-4
+        if quantize:
+            assert r["k3"] > 0 and r["k4"] == 0
