@@ -19,11 +19,13 @@ shared attention block), xlstm-350m (mLSTM / sLSTM), whisper-medium
 (encoder-decoder over stub frames) and llava-next-34b (stub patch
 embeddings, GQA group 7), then training through `make_train_step`
 and `Trainer`: qwen2-1.5b at full width, and the example model with
-checkpoints and a bit-exact resume, and last the distribution layer:
+checkpoints and a bit-exact resume, then the distribution layer:
 qwen2-1.5b tensor-parallel (TP = 2) serving and data-parallel (DP = 2)
 training at full width on ranks that share the card, the paper's
 reduction networks as collectives, the int8 error-feedback all-reduce
-and an elastic restore. Phases, one line each:
+and an elastic restore, and last the tools: the dispatch lint, the
+static analysis, the roofline, the dry run and the two examples.
+Phases, one line each:
 
   1. card      nvidia-smi name and power limit, torch and CUDA versions;
                TF32 off for matmuls and cuDNN
@@ -256,7 +258,30 @@ and an elastic restore. Phases, one line each:
                integers: results equal to `allreduce_tree`'s (rank 0's
                for reduce-to-zero), seconds, bytes a rank equal to the
                model — Table IV's networks on gloo's host path, not NVLink
- 21. a JSON line {"kernels": [...]} with each kernel's launches (those
+ 21. tools    the port's tools on the card: [lint] the dispatch lint
+               (`analysis.dispatch_lint`) of the real paged decode and
+               prefill steps of `serve/compiled.py` at qwen2-1.5b's full
+               width (8 slots over 5,858 cached positions; a 768-token
+               chunk after 256 cached) with bf16 KV, int8 KV and 8-bit
+               weights, and of gemma3-27b at 6 layers (two layer groups),
+               through K1-K4 under `set_sync_debug_mode("error")`: 0
+               findings; [analysis] the repo and kernel layers over the
+               tree through `python -m repro_torch.analysis --gate`, and
+               `obs.regress.make_record` reading its findings JSON;
+               [roofline] qwen2-1.5b 28 L, one decode step, one 768-token
+               chunk, the pim8 decode step and one 8 x 512 training step:
+               counted FLOPs and kernel bytes equal on impl="cuda" and
+               impl="ref", the step's median over 10 calls between CUDA
+               events, and bound / measured <= 1; [dryrun] the dry run of
+               qwen2-1.5b decode_32k on 2 x 16 x 16 and train_4k on 16 x
+               16 in a child process (started after the build, one CPU
+               thread; its fake world of 512 / 256 ranks never meets the
+               [dist] phase's): status ok, per-rank bytes, collectives
+               by kind, roofline terms; [examples] both port examples as
+               children on the card: the bit-exact GEMV, the prefix
+               drain's tokens equal to the unshared drain's, and their
+               kernel launches
+ 22. a JSON line {"kernels": [...]} with each kernel's launches (those
      of the qwen2 paths and of the TP = 2 paths, and per path), error,
      times and bound, then the last line {"ok": true, "device":
      {"platform": "gpu", ...}}
@@ -268,6 +293,7 @@ port's sources are not beside it.
 
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import json
 import math
@@ -3522,6 +3548,362 @@ def dist(dev, errs, laps) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the tools ([tools]: [lint], [analysis], [roofline], [dryrun],
+# [examples])
+# ---------------------------------------------------------------------------
+
+#: qwen2-1.5b's decode slots in the lint and the roofline: K1's timing
+#: row (5,858 cached positions; the cache holds one row more, for the
+#: decoded token), and K2's 768-token chunk after a 256-token cached
+#: prefix
+TOOLS_LENGTHS = (340, 420, 560, 700, 810, 930, 1010, 1088)
+TOOLS_CHUNK, TOOLS_CACHED, TOOLS_BS = 768, 256, 16
+#: gemma3-27b at published width and one 5:1 period: two layer groups
+TOOLS_G3_LAYERS = 6
+TOOLS_G3_LENGTHS = (1400, 1700, 2100, 2400, 2700, 3000, 3200, 3392)
+#: the dry-run cells the child runs: the reference's slow-test cell and
+#: a training cell
+TOOLS_DRYRUN = (("qwen2-1.5b", "decode_32k", True),
+                ("qwen2-1.5b", "train_4k", False))
+#: timed calls of each step in [roofline] (median)
+ROOF_CALLS = 10
+
+
+def dryrun_child() -> int:
+    """`chip_smoke.py --dryrun-child`: the dry-run cells, one JSON line
+    each (the fake world of 256 / 512 ranks lives and dies in this
+    process)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.dryrun import run_cell
+    for arch, shape, multi in TOOLS_DRYRUN:
+        r = run_cell(arch, shape, multi)
+        r.get("detail", {}).pop("flops_by_op", None)
+        print(json.dumps(r), flush=True)
+    return 0
+
+
+def start_children(names) -> dict:
+    """Start the `[tools]` children: the dry-run child (CPU only, one
+    thread: it is started right after the build and runs beside the
+    earlier phases) and the two examples (on the card)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmds = {"dryrun": [sys.executable, str(Path(__file__).resolve()),
+                       "--dryrun-child"],
+            "quickstart": [sys.executable,
+                           str(ROOT / "examples" / "quickstart_torch.py")],
+            "serve_pim_gemv": [sys.executable, str(
+                ROOT / "examples" / "serve_pim_gemv_torch.py")]}
+    envs = {"dryrun": dict(env, OMP_NUM_THREADS="1")}
+    procs = {name: subprocess.Popen(cmds[name], env=envs.get(name, env),
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name in names}
+    _CHILDREN.extend(procs.values())
+    return procs
+
+
+#: every child this script started; any still running at exit is killed
+_CHILDREN: list = []
+
+
+@atexit.register
+def _stop_children() -> None:
+    for p in _CHILDREN:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def launched_since(before: dict) -> dict:
+    """The launches of each kernel since `before` (a `read_launches()`)."""
+    return {k: v - before[k] for k, v in read_launches().items()
+            if v != before[k]}
+
+
+def tools_lint_steps(cfg, params, dev, kv_dtype, lengths):
+    from repro_torch.analysis.dispatch_lint import probe_steps
+    return probe_steps(cfg, params, dev, impl="cuda", kv_dtype=kv_dtype,
+                       n_slots=len(lengths), lengths=lengths,
+                       prompt=TOOLS_CHUNK, cached=TOOLS_CACHED,
+                       block_size=TOOLS_BS, max_len=max(lengths) + 1)
+
+
+def tools_lint(dev, qparams, pparams, g3params, g3cfg, cfg):
+    """[lint]: the dispatch lint of the real paged steps at full width, on
+    the card (K1-K4, under set_sync_debug_mode("error"))."""
+    from repro_torch.analysis.dispatch_lint import lint_call
+    from repro_torch.analysis.findings import count_by
+
+    runs = (("qwen2-1.5b", cfg, qparams, "bf16", TOOLS_LENGTHS),
+            ("qwen2-1.5b", cfg, qparams, "int8", TOOLS_LENGTHS),
+            ("qwen2-1.5b pim8", cfg, pparams, "bf16", TOOLS_LENGTHS),
+            (f"gemma3-27b[{TOOLS_G3_LAYERS}L]", g3cfg, g3params, "bf16",
+             TOOLS_G3_LENGTHS))
+    total = []
+    with torch.no_grad():
+        for model, c, p, kv, lens in runs:
+            for name, fn, kw in tools_lint_steps(c, p, dev, kv, lens):
+                before = read_launches()
+                found = lint_call(fn, f"<dispatch:{name}:{model}:{kv}>", **kw)
+                torch.cuda.synchronize()
+                fired = launched_since(before)
+                say("lint", model=model, kv=kv, step=name,
+                    groups=kw["expected_groups"], findings=len(found),
+                    by_rule=json.dumps(count_by(found, "rule")),
+                    launches=json.dumps(fired))
+                for f in found:
+                    print(f"  {f}", flush=True)
+                want = {"decode": "paged_decode",
+                        "prefill": "paged_prefill"}[name]
+                check(fired.get(want, 0) > 0,
+                      f"[lint] {model} {name}: {want} did not launch")
+                if "pim8" in model:
+                    k = "bitplane_gemv" if name == "decode" else \
+                        "bitplane_gemm"
+                    check(fired.get(k, 0) > 0,
+                          f"[lint] {model} {name}: {k} did not launch")
+                total.extend(found)
+    say("lint", findings=len(total),
+        by_rule=json.dumps(count_by(total, "rule")))
+    check(not total, f"[lint] {len(total)} finding(s) on the card")
+
+
+def tools_analysis(tmp):
+    """[analysis]: the repo and kernel layers over the tree, then
+    `obs.regress.make_record` over the findings JSON."""
+    from repro_torch.analysis.__main__ import main as analyze
+    from repro_torch.obs import regress
+
+    out = os.path.join(tmp, "analysis_findings.json")
+    rc = analyze(["--root", str(ROOT), "--layers", "repo,kernels",
+                  "--gate", "--json", out])
+    with open(out) as fh:
+        counts = json.load(fh)["counts"]
+    rec = regress.make_record(tmp)
+    say("analysis", findings=counts["total"], new=counts["new"], rc=rc,
+        findings_total=rec["metrics"].get("analysis.findings_total"),
+        findings_new=rec["metrics"].get("analysis.findings_new"))
+    check(rc == 0 and counts["total"] == 0 and counts["new"] == 0,
+          f"[analysis] findings {counts}")
+    check(rec["metrics"].get("analysis.findings_total") == 0.0,
+          "[analysis] make_record did not read analysis.findings_total")
+
+
+def tools_time_step(fn) -> float:
+    """Median device-clock seconds of `fn()` over ROOF_CALLS calls, each
+    between CUDA events (one warm call first)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(ROOF_CALLS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    return statistics.median(times)
+
+
+def tools_roofline_step(cell, model_flops, fn_for, analytic_bytes,
+                        kernel_bytes, routes=("cuda", "ref")):
+    """Count one step on impl="cuda" and on impl="ref" (both on the card),
+    require equal FLOPs and kernel bytes, time the cuda step and print
+    its roofline shares. `model_flops(count)` gives the step's useful
+    FLOPs."""
+    from repro_torch.launch import roofline as R
+
+    counts = {}
+    for impl in routes:
+        before = read_launches()
+        counts[impl] = R.count_step(fn_for(impl))[1]
+        torch.cuda.synchronize()
+        if impl == "cuda" and kernel_bytes:
+            check(launched_since(before),
+                  f"[roofline] {cell}: no kernel launched on impl=cuda")
+    a, b = counts["cuda"], counts[routes[-1]]
+    check(a["flops"] == b["flops"] and a["kernel_bytes"] == b["kernel_bytes"],
+          f"[roofline] {cell}: cuda {a['flops']}/{a['kernel_bytes']} != "
+          f"ref {b['flops']}/{b['kernel_bytes']}")
+    terms, _ = R.terms_from_count(
+        cell, a, 1, model_flops(a), analytic_bytes=analytic_bytes,
+        kernel_bytes=kernel_bytes)
+    measured = tools_time_step(fn_for("cuda"))
+    sh = R.shares(terms, measured)
+    say("roofline", cell=cell, flops=a["flops"], aten_flops=a["aten_flops"],
+        kernel_flops=a["kernel_flops"], kernel_bytes=a["kernel_bytes"],
+        bytes=terms.hlo_bytes, routes_equal=True,
+        kernels=json.dumps({k: v["calls"] for k, v in a["kernels"].items()}),
+        **sh)
+    check(sh["bound_share"] <= 1.0,
+          f"[roofline] {cell}: bound/measured {sh['bound_share']} > 1")
+    return sh
+
+
+def serve_step_flop(cfg, rows: int, logit_rows: int) -> float:
+    """Weight-product FLOP of one serving step of a dense attention stack:
+    every layer's projections for the `rows` tokens it runs and the head's
+    for the `logit_rows` it returns (a prefill chunk: its last position).
+    The attention's share is what K1/K2 report (their visible pairs)."""
+    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    layer = d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2 + 3 * d * f
+    return 2.0 * (layer * cfg.n_layers * rows
+                  + d * cfg.vocab_size * logit_rows)
+
+
+def tools_roofline(dev, cfg, qparams, pparams):
+    """[roofline]: qwen2-1.5b 28 L, one paged decode step, one 768-token
+    prefill chunk, the pim8 decode step, and (in tools_train_roofline) one
+    training step of 8 x 512. Memory: the weights no kernel reads (all of
+    them, bar the pim8 planes) plus the kernels' reported bytes."""
+    from repro_torch.analysis.dispatch_lint import probe_steps
+    from repro_torch.launch import roofline as R
+
+    rows = {"decode": (len(TOOLS_LENGTHS), len(TOOLS_LENGTHS)),
+            "prefill": (TOOLS_CHUNK, 1)}
+
+    def steps(params, impl):
+        return {name: fn for name, fn, _ in probe_steps(
+            cfg, params, dev, impl=impl, n_slots=len(TOOLS_LENGTHS),
+            lengths=TOOLS_LENGTHS, prompt=TOOLS_CHUNK, cached=TOOLS_CACHED,
+            block_size=TOOLS_BS, max_len=max(TOOLS_LENGTHS) + 1)}
+
+    def useful(name):
+        def model_flops(count):
+            attn = sum(v["flops"] for k, v in count["kernels"].items()
+                       if k.startswith("paged_"))
+            return serve_step_flop(cfg, *rows[name]) + attn
+        return model_flops
+
+    out = {}
+    with torch.no_grad():
+        for tag, params, names in (("bf16", qparams, ("decode", "prefill")),
+                                   ("pim8", pparams, ("decode",))):
+            built = {impl: steps(params, impl) for impl in ("cuda", "ref")}
+            for name in names:
+                cell = f"qwen2-1.5b|{name}|{tag}"
+                out[cell] = tools_roofline_step(
+                    cell, useful(name),
+                    lambda impl, n=name: built[impl][n],
+                    R.unkerneled_param_bytes(params), kernel_bytes=True)
+    return out
+
+
+def tools_train_roofline(dev, cfg):
+    """[roofline] one training step of qwen2-1.5b at 8 x 512 (f32 masters,
+    remat): counted FLOPs (no kernel on this path), the analytic bytes."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import roofline as R
+    from repro_torch.models import init_lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                     param_dtype=torch.float32)
+    state = {"p": params, "o": adamw_init(params)}
+    step = make_train_step(cfg, AdamWConfig(), warmup_steps=2,
+                           total_steps=100)
+    batch = train_batch(cfg, 0, TRAIN_BATCH, TRAIN_SEQ, dev)
+
+    def run():
+        state["p"], state["o"], _ = step(state["p"], state["o"], batch)
+
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    sh = tools_roofline_step(
+        "qwen2-1.5b|train|8x512",
+        lambda count: R.model_flops_for_cell(cfg, shape, params),
+        lambda impl: run, R.analytic_bytes_for_cell(cfg, shape, params),
+        kernel_bytes=False, routes=("cuda",))
+    del params, state
+    torch.cuda.empty_cache()
+    return sh
+
+
+def tools_collect(children):
+    """[dryrun] and [examples]: wait for the children and check them."""
+    outs = {}
+    for name, p in children.items():
+        out, err = p.communicate(timeout=600)
+        outs[name] = (p.returncode, out, err)
+        check(p.returncode == 0,
+              f"[tools] child {name} exited {p.returncode}: {err[-3000:]}")
+    rows = [json.loads(l) for l in outs["dryrun"][1].splitlines()
+            if l.startswith("{")]
+    check(len(rows) == len(TOOLS_DRYRUN), "[dryrun] missing cells")
+    for r in rows:
+        rf = r.get("roofline", {})
+        say("dryrun", cell=r["cell"], status=r["status"],
+            chips=r.get("chips"), trace_s=r.get("trace_s"),
+            argument_bytes=r.get("argument_bytes"),
+            temp_bytes=r.get("temp_bytes"),
+            bytes_per_device=r.get("bytes_per_device"),
+            memory_note=r.get("memory_note"),
+            collectives=json.dumps(r.get("detail", {}).get(
+                "collectives_by_kind")),
+            compute_s=rf.get("compute_s"), memory_s=rf.get("memory_s"),
+            collective_s=rf.get("collective_s"), bound=rf.get("bound"),
+            useful_flops_ratio=rf.get("useful_flops_ratio"))
+        check(r["status"] == "ok", f"[dryrun] {r['cell']}: {r}")
+    q = outs["quickstart"][1]
+    s = outs["serve_pim_gemv"][1]
+    for line in (q + s).splitlines():
+        print(f"  [example] {line}", flush=True)
+    check("bit-exact vs numpy" in q, "[examples] quickstart: no bit-exact")
+    check("same tokens as without prefix sharing: True" in s,
+          "[examples] serve_pim_gemv: prefix drain tokens differ")
+    kq = dict(re.findall(r"(K\d) \w+ (\d+)", q.split("kernel launches")[-1]))
+    ks = dict(re.findall(r"(K\d)=(\d+)", s.split("kernel launches")[-1]))
+    say("examples", quickstart_launches=json.dumps(kq),
+        serve_pim_gemv_launches=json.dumps(ks))
+    check(int(kq.get("K5", 0)) > 0 and int(kq.get("K3", 0)) > 0,
+          f"[examples] quickstart launched {kq}")
+    check(all(int(ks.get(k, 0)) > 0 for k in ("K1", "K2", "K3", "K5")),
+          f"[examples] serve_pim_gemv launched {ks}")
+
+
+def tools(dev, laps, dryrun) -> dict:
+    """The `[tools]` phase: the port's dry run (`dryrun`, the child
+    started after the build), roofline, static analysis, regress record
+    and both examples, on the card. Returns the launches of the lint +
+    roofline path."""
+    import dataclasses
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+
+    children = dict(start_children(("quickstart", "serve_pim_gemv")),
+                    dryrun=dryrun)
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    qparams = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    pparams = quantize_params(cfg, qparams)[0]
+    g3cfg = dataclasses.replace(get_config("gemma3-27b"),
+                                n_layers=TOOLS_G3_LAYERS)
+    g3params = init_lm(g3cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       dev)
+    torch.cuda.synchronize()
+    say("tools", init_s=time.perf_counter() - t0)
+    reset_launches()
+    tools_lint(dev, qparams, pparams, g3params, g3cfg, cfg)
+    del g3params
+    torch.cuda.empty_cache()
+    laps.lap("tools lint")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_analysis_") as tmp:
+        tools_analysis(tmp)
+    laps.lap("tools analysis")
+    tools_roofline(dev, cfg, qparams, pparams)
+    launches = read_launches()
+    del qparams, pparams
+    torch.cuda.empty_cache()
+    tools_train_roofline(dev, cfg)
+    laps.lap("tools roofline")
+    tools_collect(children)
+    laps.lap("tools dryrun and examples")
+    return launches
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3529,6 +3911,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--train-example"]:
         return train_example_child(sys.argv[2])
+    if sys.argv[1:2] == ["--dryrun-child"]:
+        return dryrun_child()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -3556,6 +3940,7 @@ def main() -> int:
         for line in _build.log_path(name).read_text().splitlines():
             if "registers" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
+    dryrun = start_children(("dryrun",))["dryrun"]
     sass = tensor_core_counts(libs)
     say("sass", **{name: n for name, n in sass.items()})
     for name in TENSOR_CORE_KERNELS:
@@ -3644,6 +4029,7 @@ def main() -> int:
     for path in tp_paths.values():
         for name in ("bitplane_gemv", "bitplane_gemm", "bitplane_pack"):
             launches[name] += path[name]
+    by_path["tools lint and roofline"] = tools(dev, laps, dryrun)
 
     csrc = "src/repro_torch/kernels/csrc"
     sources = {
@@ -3667,7 +4053,7 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             launches_by_path={path: n[name] for path, n in by_path.items()}))
-    say("done", seconds=time.perf_counter() - started)
+    say("done", seconds=time.perf_counter() - started, card=repr(smi))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -156,5 +156,5 @@ SHAPES: Dict[str, ShapeConfig] = {
 def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
     """Assignment rules: long_500k only for sub-quadratic archs."""
     if shape.name == "long_500k" and not cfg.supports_long_context:
-        return False, "pure full-attention arch: long_500k skipped"
+        return False, "pure full-attention arch: long_500k skipped (DESIGN.md §4)"
     return True, ""

@@ -157,6 +157,11 @@ def suspended():
         _local.ctx = prev
 
 
+class TensorParallelUnsupported(ValueError):
+    """A stack the port does not compute tensor-parallel (MoE, recurrent
+    and encoder-decoder stacks, the paged path) met a ``model`` axis."""
+
+
 def tensor_parallel() -> Optional[ShardingContext]:
     """The active context when its mesh splits over ``model``, else None:
     the test every tensor-parallel branch of the model code makes."""

@@ -10,7 +10,8 @@ serving-layer gate and move the permutations onto the launch device.
 `quantize_and_pack`, `bitplane_matmul` and `packed_bytes` are the
 bit-plane half (the reference's lines 250-314): K5 packs at load, K3
 (B <= 512 rows) or K4 (above) computes the raw contraction, and
-`bitplane_matmul` applies the offset and the per-channel scale.
+`bitplane_matmul` applies the offset and the per-channel scale. It is
+also the dispatch point that reports K3/K4's work (`kernels.work`).
 
 Impl names belong to the port:
 
@@ -28,7 +29,7 @@ from typing import Literal, Optional, Tuple
 import numpy as np
 import torch
 
-from . import ref
+from . import ref, work
 from .bitplane_gemm import bitplane_gemm
 from .bitplane_gemv import bitplane_gemv
 from .pack import pack_bitplanes
@@ -273,16 +274,18 @@ def bitplane_matmul(
     k = x.shape[-1]
     xf = x.reshape(-1, k)
     m = planes.shape[-1]
-    if resolve_impl(impl, x.device) == "ref":
-        y = ref.bitplane_matmul_ref(xf, planes, scale, n_bits, group)
-        return y.reshape(*lead, m)
-    x_r = ref.prepare_x_ref(xf, group).contiguous()
-    raw = bitplane_kernel(xf.shape[0])(x_r, planes, n_bits=n_bits,
-                                       group=group)
-    off = float(2 ** (n_bits - 1))
-    sum_x = xf.float().sum(dim=-1, keepdim=True)
-    y = (raw - off * sum_x) * scale[None, :]
-    return y.to(x.dtype).reshape(*lead, m)
+    kernel = bitplane_kernel(xf.shape[0])
+    with work.dispatch(kernel.__name__,
+                       lambda: work.bitplane_work(x, planes, scale)):
+        if resolve_impl(impl, x.device) == "ref":
+            y = ref.bitplane_matmul_ref(xf, planes, scale, n_bits, group)
+            return y.reshape(*lead, m)
+        x_r = ref.prepare_x_ref(xf, group).contiguous()
+        raw = kernel(x_r, planes, n_bits=n_bits, group=group)
+        off = float(2 ** (n_bits - 1))
+        sum_x = xf.float().sum(dim=-1, keepdim=True)
+        y = (raw - off * sum_x) * scale[None, :]
+        return y.to(x.dtype).reshape(*lead, m)
 
 
 def packed_bytes(k: int, m: int, n_bits: int, group: int = 1) -> int:

@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from . import ref
+from . import ref, work
 from .ops import resolve_impl
 from .paged_common import (
     DTYPE_CODES,
@@ -163,19 +163,24 @@ def paged_attention(
     """Impl dispatch (`ops.resolve_impl`): `ref` runs the plain version
     over the whole table (plans and `block_start` do not change its
     valid rows); `cuda` — or `auto` on CUDA tensors — launches the
-    kernel, bucketed when `plan` is given."""
+    kernel, bucketed when `plan` is given. Either route reports the
+    same work (`work.decode_work`) to a listening meter."""
     check_quantized_operands(k_pages, k_scales, v_scales)
-    if resolve_impl(impl, q.device) == "ref":
-        return ref.paged_attention_ref(
+    with work.dispatch("paged_decode", lambda: work.decode_work(
+            q, k_pages, block_table, lengths, window, k_scales,
+            block_start)):
+        if resolve_impl(impl, q.device) == "ref":
+            return ref.paged_attention_ref(
+                q, k_pages, v_pages, block_table, lengths, window,
+                k_scales=k_scales, v_scales=v_scales,
+            )
+        if plan is not None:
+            return paged_decode_attention_bucketed(
+                q, k_pages, v_pages, block_table, lengths, window, plan,
+                perm, k_scales=k_scales, v_scales=v_scales,
+                block_start=block_start,
+            )
+        return paged_decode_attention(
             q, k_pages, v_pages, block_table, lengths, window,
-            k_scales=k_scales, v_scales=v_scales,
-        )
-    if plan is not None:
-        return paged_decode_attention_bucketed(
-            q, k_pages, v_pages, block_table, lengths, window, plan, perm,
             k_scales=k_scales, v_scales=v_scales, block_start=block_start,
         )
-    return paged_decode_attention(
-        q, k_pages, v_pages, block_table, lengths, window,
-        k_scales=k_scales, v_scales=v_scales, block_start=block_start,
-    )

@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from . import ref
+from . import ref, work
 from .ops import resolve_impl
 from .paged_common import (
     DTYPE_CODES,
@@ -159,20 +159,24 @@ def paged_prefill(
     impl: str = "auto", k_scales=None, v_scales=None, plan=None,
     perm=None, block_start=None,
 ) -> torch.Tensor:
-    """Impl dispatch (`ops.resolve_impl`), as `paged_attention`."""
+    """Impl dispatch (`ops.resolve_impl`), as `paged_attention`; either
+    route reports the same work (`work.prefill_work`)."""
     check_quantized_operands(k_pages, k_scales, v_scales)
-    if resolve_impl(impl, q.device) == "ref":
-        return ref.paged_prefill_ref(
+    with work.dispatch("paged_prefill", lambda: work.prefill_work(
+            q, k_pages, block_table, start, total, window, k_scales,
+            block_start)):
+        if resolve_impl(impl, q.device) == "ref":
+            return ref.paged_prefill_ref(
+                q, k_pages, v_pages, block_table, start, total, window,
+                k_scales=k_scales, v_scales=v_scales,
+            )
+        if plan is not None:
+            return paged_prefill_attention_bucketed(
+                q, k_pages, v_pages, block_table, start, total, window,
+                plan, perm, k_scales=k_scales, v_scales=v_scales,
+                block_start=block_start,
+            )
+        return paged_prefill_attention(
             q, k_pages, v_pages, block_table, start, total, window,
-            k_scales=k_scales, v_scales=v_scales,
+            k_scales=k_scales, v_scales=v_scales, block_start=block_start,
         )
-    if plan is not None:
-        return paged_prefill_attention_bucketed(
-            q, k_pages, v_pages, block_table, start, total, window,
-            plan, perm, k_scales=k_scales, v_scales=v_scales,
-            block_start=block_start,
-        )
-    return paged_prefill_attention(
-        q, k_pages, v_pages, block_table, start, total, window,
-        k_scales=k_scales, v_scales=v_scales, block_start=block_start,
-    )

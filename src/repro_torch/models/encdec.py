@@ -18,7 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from ..dist.sharding import shard, tensor_parallel
+from ..dist.sharding import TensorParallelUnsupported, shard, tensor_parallel
 from .attention import (
     attention_decode,
     attention_forward,
@@ -107,8 +107,8 @@ def _single_rank(what: str) -> None:
     """The encoder-decoder has the reference's placement hooks, but the
     port computes it tensor-parallel nowhere yet."""
     if tensor_parallel() is not None:
-        raise ValueError(f"{what}: the encoder-decoder runs without a "
-                         "model axis")
+        raise TensorParallelUnsupported(
+            f"{what}: the encoder-decoder runs without a model axis")
 
 
 def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,

@@ -50,7 +50,7 @@ from ..dist.parallel import (
     row_linear,
     whole_logits,
 )
-from ..dist.sharding import shard, tensor_parallel
+from ..dist.sharding import TensorParallelUnsupported, shard, tensor_parallel
 from ..kernels.ops import is_bucket_plan
 from ..quant.bitplane import PimWeight
 from .attention import (
@@ -298,13 +298,17 @@ def _embed(params, tokens, cfg, extra_embeds=None):
     """Token embeddings in the compute dtype, after the frontend stub's
     `extra_embeds` [B, T_front, D] when given. Under tensor parallelism
     `embed` holds a block of d_model (the reference's spec splits its
-    last dimension), and the embed hook gathers the features."""
+    last dimension), and the embed hook gathers the features; the stub's
+    whole `extra_embeds` are brought to the same layout before the two
+    are joined."""
     dt = compute_dtype(cfg.dtype)
     x = params["embed"][tokens.long()].to(dt)
-    if extra_embeds is not None:
-        x = torch.cat([extra_embeds.to(dt), x], dim=1)
     src = 2 if x.shape[-1] < cfg.d_model else None
-    return shard(x, "batch", "seq", "embed", src_dim=src)
+    x = shard(x, "batch", "seq", "embed", src_dim=src)
+    if extra_embeds is not None:
+        front = shard(extra_embeds.to(dt), "batch", "seq", "embed")
+        x = torch.cat([front, x], dim=1)
+    return x
 
 
 def _head(params, x, cfg):
@@ -331,7 +335,7 @@ def _parallel_params(params, cfg: ModelConfig, what: str):
     if tensor_parallel() is None:
         return params
     if cfg.block_kind != "attn" or cfg.n_experts:
-        raise ValueError(
+        raise TensorParallelUnsupported(
             f"{what}: tensor-parallel execution covers dense attention "
             f"stacks, not {cfg.name} ({cfg.block_kind}, "
             f"{cfg.n_experts} experts); run it without a model axis")
@@ -792,8 +796,9 @@ def _run_layers(params, x, cfg, attn_fn, attn_args, k_pages, v_pages,
         cfg, block_table, block_start, bucket_plan, bucket_perm, capacity
     )
     if tensor_parallel() is not None:
-        raise ValueError("paged serving runs on one rank, as the "
-                         "reference's does; run it without a model axis")
+        raise TensorParallelUnsupported(
+            "paged serving runs on one rank, as the reference's does; run "
+            "it without a model axis")
     quantized = k_scales is not None
 
     def attn(l, p, h, window):

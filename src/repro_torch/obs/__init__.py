@@ -1,6 +1,7 @@
 """Serving observability: counterpart of `repro.obs` — metrics registry,
-event log, lifecycle tracing and perf attribution. The bench-history
-regression gate (`repro.obs.regress`) is not ported yet.
+event log, lifecycle tracing and perf attribution, and the
+bench-history regression gate (`obs.regress`, a copy of the
+reference's).
 
 See DESIGN.md §13 for the metric/event schema and naming conventions,
 §14 for predicted-vs-measured launch accounting and step-signature

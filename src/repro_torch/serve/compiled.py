@@ -50,6 +50,13 @@ from ..quant.bitplane import PimWeight
 #: (step kind, plans) appended once per new step signature
 _TRACE_LOG: List[Tuple[str, object]] = []
 
+#: the dtype of every integer tensor a paged step takes (tokens, block
+#: tables, block starts, positions, start / total): an input of another
+#: dtype signs differently and adds a signature (the dispatch lint's
+#: JX005); bucket permutations are index tensors, `PERM_DTYPE`
+STEP_INT_DTYPE = torch.int32
+PERM_DTYPE = torch.int64
+
 
 def trace_count(kind: str = None) -> int:
     """Distinct step signatures seen this process, optionally per kind."""

@@ -119,10 +119,12 @@ class ServeEngine:
         batch at once, so submit and admit coincide."""
         uids = list(range(self._uid_base, self._uid_base + b))
         self._uid_base += b
+        tel = self.telemetry
+        if tel is None:
+            return uids
         for slot, uid in enumerate(uids):
-            self.telemetry.on_submit(uid, prompt_tokens,
-                                     self.sc.max_new_tokens)
-            self.telemetry.on_admit(uid, slot)
+            tel.on_submit(uid, prompt_tokens, self.sc.max_new_tokens)
+            tel.on_admit(uid, slot)
         return uids
 
     def quantize(self, qcfg: Optional[PimQuantConfig] = None) -> float:

@@ -475,13 +475,16 @@ class ContinuousBatcher:
         """End-of-tick gauge sample (telemetry attached only): queue
         depth, active slots, per-group pool state, dedup bytes,
         occupancy and the prefix index (the last four in paged mode)."""
+        tel = self.telemetry
+        if tel is None:
+            return
         queued = len(self.queue)
         active = sum(s is not None for s in self.slots)
         if not self.paged:
-            self.telemetry.end_tick(queued, active)
+            tel.end_tick(queued, active)
             return
         pc = self.pcache
-        self.telemetry.end_tick(
+        tel.end_tick(
             queued, active,
             pool_gauges=pc.pool_gauges(),
             dedup=pc.cross_layer_dedup_stats(),

@@ -33,7 +33,11 @@ distribution layer runs ranks as processes on the one card over gloo:
 all-gather, reduce-scatter and permutes of CUDA tensors (staged through
 host memory) equal their values, and tensor parallelism on two ranks
 (f32, qwen2-1.5b smoke, dense and 8-bit weights through K3/K4) gives the
-one rank's greedy tokens, logits within 1e-4.
+one rank's greedy tokens, logits within 1e-4. The tools: the dispatch
+lint of the probe's real serve steps is clean through K1-K4 under
+`set_sync_debug_mode("error")`, and the roofline's counted FLOPs and
+kernel bytes of a paged step are the same on `impl="cuda"` as on
+`impl="ref"`.
 """
 
 import dataclasses
@@ -1152,3 +1156,45 @@ def test_tensor_parallel_on_the_card_matches_one_rank(cuda_device, quantize):
         assert float((r["logits"] - logits).abs().max()) <= 1e-4
         if quantize:
             assert r["k3"] > 0 and r["k4"] == 0
+
+
+@pytest.mark.gpu
+def test_dispatch_lint_of_the_smoke_steps_is_clean_on_the_card(cuda_device):
+    """The probe's real decode and prefill steps (bf16 and int8 pools,
+    8-bit weights) through K1-K4, under set_sync_debug_mode("error")."""
+    from repro_torch.analysis.dispatch_lint import lint_serve_steps
+
+    before = {m: m.LAUNCHES for m in (paged_attention, paged_prefill,
+                                      bitplane_gemv)}
+    assert lint_serve_steps(device="cuda", impl="cuda") == []
+    assert all(m.LAUNCHES > n for m, n in before.items())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "pim8"])
+def test_counted_work_equal_on_both_routes(cuda_device, quantized):
+    """A paged decode and prefill step of qwen2-1.5b smoke counts the
+    same FLOPs and kernel bytes on impl="cuda" as on impl="ref"."""
+    from repro_torch.analysis.dispatch_lint import probe_steps
+    from repro_torch.launch.roofline import count_step
+
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    params = init_lm(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                     cuda_device)
+    if quantized:
+        params = quantize_tree(params, PimQuantConfig(n_bits=8, group=1,
+                                                      min_features=1))
+    counts = {}
+    with torch.no_grad():
+        for impl in ("cuda", "ref"):
+            for name, fn, _ in probe_steps(
+                    cfg, params, cuda_device, impl=impl, n_slots=4,
+                    lengths=(40, 17, 64, 3), prompt=32, cached=16,
+                    block_size=16, max_len=65):
+                counts[impl, name] = count_step(fn)[1]
+    for name in ("decode", "prefill"):
+        a, b = counts["cuda", name], counts["ref", name]
+        assert a["flops"] == b["flops"] and a["kernel_flops"] > 0
+        assert a["kernel_bytes"] == b["kernel_bytes"]
+        assert {k: v["calls"] for k, v in a["kernels"].items()} == \
+            {k: v["calls"] for k, v in b["kernels"].items()}
