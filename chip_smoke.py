@@ -22,8 +22,9 @@ and `Trainer`: qwen2-1.5b at full width, and the example model with
 checkpoints and a bit-exact resume, then the distribution layer:
 qwen2-1.5b tensor-parallel (TP = 2) serving and data-parallel (DP = 2)
 training at full width on ranks that share the card, the paper's
-reduction networks as collectives, the int8 error-feedback all-reduce
-and an elastic restore, and last the tools: the dispatch lint, the
+reduction networks as collectives, the int8 error-feedback all-reduce,
+an elastic restore, and the MoE, recurrent and encoder-decoder stacks
+tensor-parallel, and last the tools: the dispatch lint, the
 static analysis, the roofline, the dry run and the two examples.
 Phases, one line each:
 
@@ -257,7 +258,20 @@ Phases, one line each:
                `reduce_to_zero_binary_hopping` over 16 MiB f32 shards of
                integers: results equal to `allreduce_tree`'s (rank 0's
                for reduce-to-zero), seconds, bytes a rank equal to the
-               model — Table IV's networks on gloo's host path, not NVLink
+               model — Table IV's networks on gloo's host path, not NVLink.
+               Last, (f) the MoE, recurrent and encoder-decoder stacks at
+               TP = 2 and published width on two more ranks: phi3.5-moe
+               at 8 of 32 layers (bf16 and 8-bit), llama4-scout at 4 of
+               48, zamba2-1.2b (bf16 and 8-bit) and xlstm-350m at full
+               depth, dense `generate` of 4 x 256 tokens and 16 new, and
+               whisper-medium's 24 + 24 layers over 1500 stub frames,
+               `prefill_encdec` and 16 `decode_step_encdec`s: tokens,
+               walls split at the prefill's end, collectives by kind,
+               staged bytes, peaks, K3/K4/K5 launches (K3-K5 held
+               against their plain versions at every shape and row count
+               the pim8 runs gave them, and at whisper's shard shapes);
+               (f') each in f32 at 2 layers against one rank: prefill
+               logits within 1e-4, greedy tokens equal
  21. tools    the port's tools on the card: [lint] the dispatch lint
                (`analysis.dispatch_lint`) of the real paged decode and
                prefill steps of `serve/compiled.py` at qwen2-1.5b's full
@@ -274,7 +288,9 @@ Phases, one line each:
                impl="ref", the step's median over 10 calls between CUDA
                events, and bound / measured <= 1; [dryrun] the dry run of
                qwen2-1.5b decode_32k on 2 x 16 x 16 and train_4k on 16 x
-               16 in a child process (started after the build, one CPU
+               16, of phi3.5-moe, llama4-scout, zamba2, xlstm and whisper
+               decode_32k on 2 x 16 x 16 and zamba2's train_4k on 16 x 16,
+               in a child process (started after the build, one CPU
                thread; its fake world of 512 / 256 ranks never meets the
                [dist] phase's): status ok, per-rank bytes, collectives
                by kind, roofline terms; [examples] both port examples as
@@ -3087,6 +3103,7 @@ def dist_generate(cfg, params, prompts, new_tokens, cache_len, dev):
         staged_bytes=end["staged"]["bytes"],
         collective_s=sum(v["seconds"] for k, v in end.items()
                          if k != "staged"),
+        collectives=dist_counts(start, end),
         launches=launches)
 
 
@@ -3097,11 +3114,24 @@ def dist_init(cfg, dev, dtype=None):
 
 
 def dist_place(whole, mesh):
-    """This rank's blocks of `whole` by `param_shardings`, and the specs."""
-    from repro_torch.dist.sharding import place_tree
+    """This rank's blocks of `whole` by `param_shardings`, and the specs.
+    A leaf the layout keeps whole (the experts, Mamba2's weights) is the
+    tree's own tensor, a cut block a tensor of its own: dropping `whole`
+    frees the cut leaves, and no whole leaf is held twice."""
+    from repro_torch.dist.sharding import local_block
     from repro_torch.launch.specs import param_shardings
+    from repro_torch.quant.bitplane import PimWeight
+
+    def place(x, spec):
+        if isinstance(x, dict):
+            return {k: place(v, spec[k]) for k, v in x.items()}
+        if isinstance(x, PimWeight):
+            return PimWeight(place(x.planes, spec.planes),
+                             place(x.scale, spec.scale), x.n_bits, x.group)
+        out = local_block(x, spec, mesh)
+        return x if out.shape == x.shape else out.contiguous().clone()
     specs = param_shardings(whole, mesh)
-    return place_tree(whole, specs, mesh), specs
+    return place(whole, specs), specs
 
 
 def dist_quantize(cfg, whole):
@@ -3445,6 +3475,279 @@ def dist_shard_kernel_checks(dev, errs) -> None:
 #: sums add in another order
 DIST_LOGIT_TOL = 1e-4
 
+#: (f) the tensor-parallel families at published width, TP = 2 on ranks
+#: sharing the card: (arch, layers (None: all), weights). Peak bytes for
+#: the two ranks together, reckoned: phi3.5-moe's experts are whole on
+#: both ranks (16 x 3 x 4096 x 6400 bf16 = 2.52 GB a layer), 8 layers
+#: 40.3 GB, 60.4 GB while pim8 quantizes (the dense and packed trees at
+#: once); llama4-scout 4.03 GB of experts a layer and 4.1 GB of embedding
+#: and head whole until placed, 4 layers 41.3 GB; zamba2 (2.4 GB),
+#: xlstm (0.7 GB) and whisper (1.5 GB) at full depth, twice
+DIST_FAM_RUNS = (("phi3.5-moe-42b-a6.6b", 8, ("bf16", "pim8")),
+                 ("llama4-scout-17b-a16e", 4, ("bf16",)),
+                 ("zamba2-1.2b", None, ("bf16", "pim8")),
+                 ("xlstm-350m", None, ("bf16",)),
+                 ("whisper-medium", None, ("bf16",)))
+#: the decoder-only runs' dense `generate`: prompts, prompt length, new
+#: tokens; whisper: prompts of WH_PROMPT tokens over WH_FRAMES frames
+DIST_FAM_B, DIST_FAM_T, DIST_FAM_NEW = 4, 256, 16
+#: (f') f32 parity, TP = 2 against one rank: layers (whisper 2 + 2),
+#: prompts, prompt length, new tokens
+DIST_FAM_PARITY = dict(layers=2, b=2, t=64, new=8)
+#: K3 / K4 at whisper-medium's TP = 2 shard shapes: `wq` [1024 -> 512]
+#: (column) and `w_down` [2048 -> 1024] (row), at decode's and the
+#: encoder's row counts
+DIST_FAM_SHARD_MATRICES = ((1024, 512), (2048, 1024))
+
+
+def tree_bytes(tree) -> int:
+    """The bytes of a parameter tree's tensors (a `PimWeight`'s planes and
+    scale)."""
+    from repro_torch.quant.bitplane import PimWeight
+    return sum(x.planes.numel() + x.scale.numel() * x.scale.element_size()
+               if isinstance(x, PimWeight) else x.numel() * x.element_size()
+               for x in _leaves(tree))
+
+
+def dist_family_init(arch, layers, dev, dtype=None):
+    """`init_lm` (`init_encdec` for whisper) of `arch` at published width,
+    cut to `layers` (whisper: both stacks), seeded alike on every rank."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_encdec, init_lm
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers, **(
+            {"n_encoder_layers": layers} if cfg.is_encoder_decoder else {}))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 54)
+    init = init_encdec if cfg.is_encoder_decoder else init_lm
+    return cfg, init(cfg, gen, dev, param_dtype=dtype)
+
+
+def dist_family_generate(cfg, params, dev, b, t, new, seed):
+    """The family's serving path under the active context: dense
+    `generate` (`dist_generate`), or whisper's `prefill_encdec` and
+    `decode_step_encdec`s (`encdec_generate`), the collectives counted
+    by kind. Returns the tokens and the stats."""
+    from repro_torch.dist import collectives
+
+    if not cfg.is_encoder_decoder:
+        prompts = dense_prompts(cfg.vocab_size, b, t, seed)
+        return dist_generate(cfg, params, prompts, new, t + new, dev)
+    frames, prompt = whisper_inputs(cfg, dev, b, WH_FRAMES, seed)
+    collectives.reset_counts()
+    start = collectives.read_counts()
+    tokens, stats, launches = encdec_generate(
+        cfg, params, frames, prompt, new, prompt.shape[1] + new, dev)
+    end = collectives.read_counts()
+    stats = {k: v for k, v in stats.items() if not k.startswith("launches")}
+    return tokens, dict(stats, staged_bytes=end["staged"]["bytes"],
+                        collectives=dist_counts(start, end),
+                        launches=launches)
+
+
+def dist_family_run(arch, layers, weights, dev, mesh, shapes):
+    """(f) one family at TP = 2: init the whole tree (pim8: quantized
+    whole, K5 counted), place this rank's blocks, run the serving path.
+    The bit-plane products of a pim8 run go into `shapes`."""
+    import contextlib
+    import gc
+    from repro_torch.dist.sharding import SERVE_RULES, sharding_rules
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, whole = dist_family_init(arch, layers, dev)
+    k5 = 0
+    if weights == "pim8":
+        if cfg.is_encoder_decoder:
+            raise ValueError("whisper's TP run is bf16 only")
+        whole, k5 = dist_quantize(cfg, whole)
+    params = dist_place(whole, mesh)[0]
+    del whole
+    gc.collect()
+    torch.cuda.synchronize()
+    init = dict(init_s=time.perf_counter() - t0,
+                init_max_memory_allocated=torch.cuda.max_memory_allocated(),
+                param_bytes_rank=tree_bytes(params))
+    torch.cuda.empty_cache()
+    rows = ({} if cfg.is_encoder_decoder
+            else {"b": DIST_FAM_B, "t": DIST_FAM_T})
+    with torch.no_grad(), sharding_rules(mesh, SERVE_RULES), (
+            shapes if weights == "pim8" else contextlib.nullcontext()):
+        tokens, stats = dist_family_generate(
+            cfg, params, dev, rows.get("b", DIST_FAM_B),
+            rows.get("t", WH_PROMPT), DIST_FAM_NEW, SEED + 55)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(tokens.shape == (DIST_FAM_B, DIST_FAM_NEW)
+          and ((tokens >= 0) & (tokens < cfg.vocab_size)).all(),
+          f"(f) {arch} TP=2 {weights}: bad tokens {tokens.shape}")
+    layers_s = (f"{cfg.n_encoder_layers}+{cfg.n_layers}"
+                if cfg.is_encoder_decoder else cfg.n_layers)
+    return dict(stats, **init, layers=layers_s, tokens=tokens,
+                k5_launches_quantize=k5)
+
+
+def dist_family_parity(arch, dev, mesh) -> dict:
+    """(f') f32, DIST_FAM_PARITY["layers"] layers at published width:
+    TP = 2 against one rank (the whole tree on this rank, no context):
+    the prefill's logits within DIST_LOGIT_TOL, greedy tokens equal."""
+    import dataclasses
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import SERVE_RULES, sharding_rules
+    from repro_torch.models import prefill, prefill_encdec
+
+    p = DIST_FAM_PARITY
+    cfg, whole = dist_family_init(arch, p["layers"], dev, torch.float32)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    params = dist_place(whole, mesh)[0]
+    b, t = p["b"], p["t"] if not cfg.is_encoder_decoder else WH_PROMPT
+
+    def logits(tree):
+        if cfg.is_encoder_decoder:
+            frames, prompt = whisper_inputs(cfg, dev, b, WH_FRAMES, SEED + 56)
+            return prefill_encdec(tree, frames, prompt, cfg, t + p["new"])[0]
+        toks = torch.from_numpy(dense_prompts(cfg.vocab_size, b, t,
+                                              SEED + 56)).to(dev)
+        return prefill(tree, toks, cfg, t + p["new"])[0]
+
+    with torch.no_grad():
+        one_tokens, _ = dist_family_generate(cfg, whole, dev, b, t, p["new"],
+                                             SEED + 56)
+        one_logits = logits(whole)
+        collectives.barrier(mesh)
+        with sharding_rules(mesh, SERVE_RULES):
+            tp_tokens, _ = dist_family_generate(cfg, params, dev, b, t,
+                                                p["new"], SEED + 56)
+            tp_logits = logits(params)
+    out = dict(
+        layers=(f"{cfg.n_encoder_layers}+{cfg.n_layers}"
+                if cfg.is_encoder_decoder else cfg.n_layers),
+        logits_max_abs_err=float((tp_logits - one_logits).abs().max()),
+        logits_max_abs=float(one_logits.abs().max()),
+        tokens_equal=bool(np.array_equal(one_tokens, tp_tokens)),
+        tokens_differ=int((one_tokens != tp_tokens).sum()))
+    del whole, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_families_pair(device="cuda") -> dict:
+    """What each of the two ranks of (f) and (f') runs (`spawn`): every
+    run of DIST_FAM_RUNS, then the f32 parities, on a (1, 2) mesh. Rank 0
+    then holds K3-K5 against their plain versions at every [K -> M] and
+    row count the pim8 runs gave them."""
+    from repro_torch.launch.mesh import Mesh
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = Mesh((1, 2), ("data", "model"))
+    shapes = BitplaneShapes()
+    out = {"runs": {}, "parity": {}, "seconds": {}}
+    for arch, layers, weights in DIST_FAM_RUNS:
+        for w in weights:
+            t0 = time.perf_counter()
+            out["runs"][(arch, w)] = dist_family_run(arch, layers, w, dev,
+                                                     mesh, shapes)
+            out["seconds"][f"{arch} {w}"] = time.perf_counter() - t0
+    for arch, _, _ in DIST_FAM_RUNS:
+        t0 = time.perf_counter()
+        out["parity"][arch] = dist_family_parity(arch, dev, mesh)
+        out["seconds"][f"{arch} parity"] = time.perf_counter() - t0
+    if mesh.rank == 0:
+        errs = dict.fromkeys(("bitplane_gemv", "bitplane_gemm",
+                              "bitplane_pack"), 0.0)
+        family_bitplane(dev, "TP=2 families", shapes, errs)
+        out["errs"] = errs
+    return out
+
+
+def dist_family_shard_checks(dev, errs) -> None:
+    """K3/K4/K5 against their plain versions at whisper-medium's TP = 2
+    shard shapes (8-bit g = 1): decode's rows (K3) and the encoder's
+    DIST_FAM_B x WH_FRAMES (K4)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 57)
+    rel_err = dict.fromkeys(("bitplane_gemv", "bitplane_gemm",
+                             "matmul_bf16", "matmul_f32"), 0.0)
+    rows = (DIST_FAM_B, DIST_FAM_B * WH_FRAMES)
+    for k, m in DIST_FAM_SHARD_MATRICES:
+        check_bitplane_matrix(dev, gen, 8, 1, k, m, rows, errs, rel_err)
+    say("bitplane", model="whisper-medium TP=2 shards", format="(8,1)",
+        matrices=",".join(f"{k}->{m}" for k, m in DIST_FAM_SHARD_MATRICES),
+        rows=",".join(map(str, rows)), pack="byte-identical",
+        gemv_rel_err=rel_err["bitplane_gemv"],
+        gemm_rel_err=rel_err["bitplane_gemm"],
+        matmul_rel_err_bf16=rel_err["matmul_bf16"],
+        matmul_rel_err_f32=rel_err["matmul_f32"])
+
+
+def dist_families(dev, errs, laps) -> dict:
+    """(f) and (f'): the MoE, recurrent and encoder-decoder stacks at
+    TP = 2 on two ranks sharing the card. Returns the kernel launches of
+    each run, summed over ranks, by path."""
+    from repro_torch.dist import spawn
+
+    dist_family_shard_checks(dev, errs)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pair = spawn.run("chip_smoke:dist_families_pair", 2, timeout=600,
+                     paths=[str(ROOT)])
+    laps.lap("dist TP families")
+    return dist_families_report(pair, errs)
+
+
+def dist_families_report(pair, errs) -> dict:
+    """The `[dist] case=f` / `f'` lines and checks of the two ranks'
+    results; returns each run's launches, summed over ranks, by path."""
+    for name, e in pair[0]["errs"].items():
+        errs[name] = max(errs[name], e)
+    by_path = {}
+    for arch, _, weights in DIST_FAM_RUNS:
+        for w in weights:
+            ranks = [r["runs"][(arch, w)] for r in pair]
+            check(np.array_equal(ranks[0]["tokens"], ranks[1]["tokens"]),
+                  f"(f) {arch} TP=2 {w}: the ranks' tokens differ")
+            for rank, r in enumerate(ranks):
+                line = dict(batch=f"{DIST_FAM_B}x{WH_PROMPT}"
+                            if "whisper" in arch
+                            else f"{DIST_FAM_B}x{DIST_FAM_T}",
+                            new_tokens=DIST_FAM_NEW)
+                line.update((k, v) for k, v in r.items() if k not in (
+                    "tokens", "launches", "prefill_collectives",
+                    "collectives", "staged_bytes"))
+                line.update((f"{kind}_{f}", v)
+                            for kind, c in r["collectives"].items()
+                            for f, v in c.items() if c["calls"])
+                line.update((f"launches_{k}", v)
+                            for k, v in r["launches"].items() if v)
+                say("dist", case="f", model=arch, weights=w, tp=2,
+                    rank=rank, **line)
+            path = by_path[f"{arch} TP=2 {w}"] = {
+                k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+            path["bitplane_pack"] += sum(r["k5_launches_quantize"]
+                                         for r in ranks)
+            check(w != "pim8" or (path["bitplane_gemv"] > 0
+                                  and path["bitplane_gemm"] > 0
+                                  and path["bitplane_pack"] > 0),
+                  f"(f) {arch} TP=2 pim8: K3/K4/K5 must launch, got {path}")
+    for rank, r in enumerate(pair):
+        for arch, p in r["parity"].items():
+            say("dist", case="f'", model=arch, dtype="float32", tp=2,
+                rank=rank, tolerance=DIST_LOGIT_TOL, **p)
+            check(p["tokens_equal"], f"(f') {arch}: TP=2 tokens differ "
+                  f"from one rank's ({p['tokens_differ']})")
+            check(p["logits_max_abs_err"] <= DIST_LOGIT_TOL,
+                  f"(f') {arch}: logits err {p['logits_max_abs_err']}")
+    say("dist", case="f parts", **{f"rank{r}_{k}_s": v
+                                   for r, p in enumerate(pair)
+                                   for k, v in p["seconds"].items()})
+    return by_path
+
 
 def dist(dev, errs, laps) -> dict:
     """Phase 20: the distribution layer on the card. Ranks are processes
@@ -3479,7 +3782,8 @@ def dist(dev, errs, laps) -> dict:
                 open(go, "w").close()
             four = quad.result()
     laps.lap("dist reduction networks")
-    by_path = {}
+    families = dist_families(dev, errs, laps)
+    by_path = dict(families)
     for weights in ("bf16", "pim8"):
         ranks = [r["a"][weights] for r in pair]
         check(np.array_equal(ranks[0]["tokens"], ranks[1]["tokens"]),
@@ -3489,7 +3793,8 @@ def dist(dev, errs, laps) -> dict:
                 model="qwen2-1.5b", layers=28, weights=weights, tp=2,
                 rank=rank, batch=f"{DIST_B}x{DIST_T}", new_tokens=DIST_NEW,
                 **{k: v for k, v in r.items()
-                   if k not in ("tokens", "launches", "prefill_collectives")},
+                   if k not in ("tokens", "launches", "prefill_collectives",
+                                "collectives")},
                 **{f"launches_{k}": v for k, v in r["launches"].items() if v})
         by_path[f"qwen2-1.5b TP=2 {weights}"] = {
             k: sum(r["launches"][k] for r in ranks)
@@ -3562,10 +3867,22 @@ TOOLS_CHUNK, TOOLS_CACHED, TOOLS_BS = 768, 256, 16
 #: gemma3-27b at published width and one 5:1 period: two layer groups
 TOOLS_G3_LAYERS = 6
 TOOLS_G3_LENGTHS = (1400, 1700, 2100, 2400, 2700, 3000, 3200, 3392)
-#: the dry-run cells the child runs: the reference's slow-test cell and
-#: a training cell
+#: the dry-run cells the child runs: the reference's slow-test cell, a
+#: training cell, and the MoE, recurrent and encoder-decoder stacks on a
+#: `model` axis of 16: each one's decode step on 2 x 16 x 16, zamba2's
+#: training step, and xlstm's training step at 16 positions (a shape as
+#: `ShapeConfig`'s fields): its train_4k runs as a Python loop over 4,096
+#: time steps on meta tensors, whose pointwise meta kernels are Python,
+#: over an hour for one step
 TOOLS_DRYRUN = (("qwen2-1.5b", "decode_32k", True),
-                ("qwen2-1.5b", "train_4k", False))
+                ("qwen2-1.5b", "train_4k", False),
+                ("phi3.5-moe-42b-a6.6b", "decode_32k", True),
+                ("llama4-scout-17b-a16e", "decode_32k", True),
+                ("zamba2-1.2b", "decode_32k", True),
+                ("xlstm-350m", "decode_32k", True),
+                ("whisper-medium", "decode_32k", True),
+                ("zamba2-1.2b", "train_4k", False),
+                ("xlstm-350m", ("train_16", 16, 256, "train"), False))
 #: timed calls of each step in [roofline] (median)
 ROOF_CALLS = 10
 
@@ -3575,9 +3892,11 @@ def dryrun_child() -> int:
     each (the fake world of 256 / 512 ranks lives and dies in this
     process)."""
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.dryrun import run_cell
     for arch, shape, multi in TOOLS_DRYRUN:
-        r = run_cell(arch, shape, multi)
+        r = run_cell(arch, shape if isinstance(shape, str)
+                     else ShapeConfig(*shape), multi)
         r.get("detail", {}).pop("flops_by_op", None)
         print(json.dumps(r), flush=True)
     return 0

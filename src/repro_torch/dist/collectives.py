@@ -4,8 +4,8 @@ Every collective of the distribution layer goes through this module:
 `all_reduce`, `all_gather`, `reduce_scatter`, `ppermute` (the
 reference's `lax.ppermute`: `batch_isend_irecv` over the pairs given),
 `pmax`, and the differentiable forms the tensor-parallel model code
-uses (`gather`, `scatter`, `reduce_partial`, `enter`). An axis is a
-mesh axis name or a tuple of names; the mesh is the active sharding
+uses (`gather`, `gather_apart`, `scatter`, `reduce_partial`, `enter`).
+An axis is a mesh axis name or a tuple of names; the mesh is the active sharding
 context's unless one is passed.
 
 Counts. `COUNTS[kind]` holds `[calls, bytes, seconds]`: the bytes this
@@ -240,6 +240,26 @@ class _Scatter(torch.autograd.Function):
         return all_gather(g, axis, dim, mesh), None, None, None
 
 
+class _GatherApart(torch.autograd.Function):
+    """Blocks -> the whole value on every rank, where each rank goes on
+    to use its own part of what it computes from it (the MoE's routing
+    over every rank's rows): the gradient, partial on each rank, is summed
+    over the ranks and cut to this rank's block (a reduce-scatter). A loss
+    every rank computes whole (the MoE's load-balance loss) so enters each
+    row's gradient once per rank: the training step's mean over the batch
+    axes divides it back."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        ctx.args = (axis, dim, mesh)
+        return all_gather(x, axis, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim, mesh = ctx.args
+        return reduce_scatter(g, axis, dim, mesh), None, None, None
+
+
 class _ReducePartial(torch.autograd.Function):
     """Partial sums -> their sum on every rank; the gradient passes."""
 
@@ -269,6 +289,10 @@ class _Enter(torch.autograd.Function):
 
 def gather(x: torch.Tensor, axis, dim: int, mesh=None) -> torch.Tensor:
     return _Gather.apply(x, axis, dim, _mesh(mesh))
+
+
+def gather_apart(x: torch.Tensor, axis, dim: int, mesh=None) -> torch.Tensor:
+    return _GatherApart.apply(x, axis, dim, _mesh(mesh))
 
 
 def scatter(x: torch.Tensor, axis, dim: int, mesh=None) -> torch.Tensor:

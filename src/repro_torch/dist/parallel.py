@@ -19,7 +19,22 @@ context whose mesh splits over ``model`` (`sharding.tensor_parallel`):
     each rank a block of every token's features, which the embed hook
     gathers; a column block that cuts a head is gathered at the heads
     hook; a row-parallel weight's stacked `scale [L, M]`, split on its
-    layer dimension, is gathered once per call (`gather_layer_split`).
+    layer dimension, is gathered once per call, and an unstacked
+    column-parallel weight's whole 1-D scale is cut to its columns
+    (`pim_scales`).
+
+The recurrent and MoE stacks follow the same design. Their whole
+weights (Mamba2's, the sLSTM's, the mLSTM's `wf` / `wog`, the router
+and the expert stacks: the reference's rules split none of them) are
+computed whole on every rank. A column-parallel product whose output
+such a block reads whole (the mLSTM's `wq`, `wk`, `wv`, `wi`) is
+computed on this rank's columns and gathered (`whole_linear`). A
+recurrent state the cache holds in blocks (`sharding.STATE_DIMS`) is
+gathered before a decode step reads it (`gather_state`), and each
+rank writes back its block (`state_block`). The MoE routes every rank's
+rows of the batch together, as the reference routes the step's global
+batch: the rows are gathered over the batch axes before dispatch
+(`collectives.gather_apart`) and each rank keeps its own.
 
 Outside such a context every function here returns its input, so a
 single-rank run takes the plain code path.
@@ -27,13 +42,13 @@ single-rank run takes the plain code path.
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
 from ..quant.bitplane import PimWeight, pim_linear
 from . import collectives
-from .sharding import shard, tensor_parallel
+from .sharding import current_context, shard, tensor_parallel
 
 
 def enter(x: torch.Tensor) -> torch.Tensor:
@@ -93,6 +108,45 @@ def kv_for_heads(q_heads: int, n_heads: int, n_kv: int, k: torch.Tensor,
     return k[:, :, ids], v[:, :, ids]
 
 
+def whole_linear(x: torch.Tensor, w: Any, full: int,
+                 impl: str = "auto") -> torch.Tensor:
+    """`x @ w`, whole on every rank, for a column-parallel weight that may
+    hold a block of its `full` output columns: this rank's columns,
+    gathered. A whole weight is a plain product of the whole `x` (its
+    gradient the same on every rank, so `x` does not enter)."""
+    if tensor_parallel() is None or w.shape[-1] == full:
+        return pim_linear(x, w, impl)
+    return collectives.gather(pim_linear(enter(x), w, impl), "model", -1)
+
+
+def _split_dim(held: Sequence[int], whole: Sequence[int]) -> Optional[int]:
+    return next((d for d, (a, b) in enumerate(zip(held, whole)) if a != b),
+                None)
+
+
+def gather_state(held: torch.Tensor, whole: Sequence[int]) -> torch.Tensor:
+    """A recurrent state of shape `whole` from this rank's stored block
+    `held` of it: the dimension where the two differ is all-gathered
+    over ``model`` (a whole `held` is returned as it is)."""
+    d = _split_dim(held.shape, whole)
+    return held if d is None else collectives.all_gather(held, "model", d)
+
+
+def state_block(value: torch.Tensor, held: torch.Tensor) -> torch.Tensor:
+    """This rank's block of the whole new state `value`, in the layout of
+    its stored block `held` (`value` itself where `held` is whole)."""
+    d = _split_dim(held.shape, value.shape)
+    return value if d is None else collectives.scatter(value, "model", d)
+
+
+def local_rows(y: torch.Tensor, rows: Tuple[str, ...]) -> torch.Tensor:
+    """This rank's block of the rows (dimension 0) of `y`, computed from
+    the rows gathered over the batch axes `rows`."""
+    mesh = current_context().mesh
+    n = y.shape[0] // mesh.axis_size(rows)
+    return y.narrow(0, mesh.axis_index(rows) * n, n)
+
+
 def _rows(w: Any) -> int:
     return w.shape[0] if isinstance(w, PimWeight) else w.shape[-2]
 
@@ -109,21 +163,27 @@ def row_linear(x: torch.Tensor, w: Any, k_full: int,
     return collectives.reduce_partial(pim_linear(x, w, impl), "model")
 
 
-def gather_layer_split(params: Any, n_layers: int) -> Any:
-    """The tree with every row-parallel `PimWeight` whose stacked scale
-    holds a block of the layers (the reference's layer split of `scale
-    [L, M]`) given its whole scale back: each layer's product needs its
-    own layer's scale."""
+def pim_scales(params: Any, n_layers: int) -> Any:
+    """The tree with each `PimWeight`'s scale brought to the columns its
+    planes hold. A row-parallel weight's stacked scale that holds a block
+    of the layers (the reference's layer split of `scale [L, M]`) is
+    gathered: each layer's product needs its own layer's scale. A
+    column-parallel weight held unstacked (zamba2's shared block), whose
+    1-D scale the reference's spec keeps whole, has it cut to this
+    rank's columns."""
     if tensor_parallel() is None:
         return params
     if isinstance(params, dict):
-        return {k: gather_layer_split(v, n_layers) for k, v in params.items()}
-    if isinstance(params, PimWeight) and params.scale.dim() >= 2 \
-            and params.scale.shape[0] < n_layers:
-        return PimWeight(params.planes,
-                         collectives.gather(params.scale, "model", 0),
-                         params.n_bits, params.group)
-    return params
+        return {k: pim_scales(v, n_layers) for k, v in params.items()}
+    if not isinstance(params, PimWeight):
+        return params
+    scale = params.scale
+    if scale.dim() >= 2 and scale.shape[0] < n_layers:
+        scale = collectives.gather(scale, "model", 0)
+    scale = local_columns(scale, params.planes.shape[-1])
+    if scale is params.scale:
+        return params
+    return PimWeight(params.planes, scale, params.n_bits, params.group)
 
 
 def whole_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:

@@ -28,10 +28,13 @@ caller says which dimension of its local tensor holds this rank's
 block (`src_dim`, None for a tensor held whole), and `shard` gathers
 or cuts it to the layout the rules resolve for the value's global
 shape (`dist.parallel` holds the tensor-parallel compute around it).
-The batch axes (``pod``, ``data``) never move rows inside the model:
-the caller gives each rank its rows of the global batch
+The batch axes (``pod``, ``data``) move no row through a hook: the
+caller gives each rank its rows of the global batch
 (`PrefetchLoader(mesh=, batch_spec=)`, `local_block`), and a value's
-batch dimension is already local when it reaches a hook.
+batch dimension is already local when it reaches one. The one place
+that needs the other ranks' rows is the MoE's routing, in which every
+row of the step competes for the experts' places: it gathers them over
+the axes the context says split the rows (`row_axes`).
 """
 
 from __future__ import annotations
@@ -79,9 +82,12 @@ def spec_axes(entry: Axes) -> Tuple[str, ...]:
 
 
 class ShardingContext:
-    def __init__(self, mesh, rules: Dict[str, Axes]):
+    def __init__(self, mesh, rules: Dict[str, Axes],
+                 rows: Axes = None):
         self.mesh = mesh
         self.rules = dict(rules)
+        self.rows: Tuple[str, ...] = tuple(
+            a for a in spec_axes(rows) if self._axis_size(a) > 1)
 
     def _axis_size(self, name: str) -> int:
         return self.mesh.shape[name] if name in self.mesh.axis_names else 1
@@ -137,9 +143,15 @@ def current_context() -> Optional[ShardingContext]:
 
 
 @contextlib.contextmanager
-def sharding_rules(mesh, rules: Optional[Dict[str, Axes]] = None):
+def sharding_rules(mesh, rules: Optional[Dict[str, Axes]] = None,
+                   rows: Axes = None):
+    """`rows`: the spec entry (a mesh axis or a tuple of them) the caller
+    split the batch rows over, each rank holding its block of the global
+    batch (`local_block` with that entry); None where every rank holds
+    the same rows."""
     prev = current_context()
-    _local.ctx = ShardingContext(mesh, TRAIN_RULES if rules is None else rules)
+    _local.ctx = ShardingContext(mesh, TRAIN_RULES if rules is None else rules,
+                                 rows)
     try:
         yield _local.ctx
     finally:
@@ -158,8 +170,8 @@ def suspended():
 
 
 class TensorParallelUnsupported(ValueError):
-    """A stack the port does not compute tensor-parallel (MoE, recurrent
-    and encoder-decoder stacks, the paged path) met a ``model`` axis."""
+    """The paged path met a ``model`` axis: it serves on one rank, as the
+    reference's does."""
 
 
 def tensor_parallel() -> Optional[ShardingContext]:
@@ -167,6 +179,33 @@ def tensor_parallel() -> Optional[ShardingContext]:
     the test every tensor-parallel branch of the model code makes."""
     ctx = current_context()
     return ctx if ctx is not None and ctx.model > 1 else None
+
+
+def row_axes() -> Tuple[str, ...]:
+    """The mesh axes the batch rows are split over in the active context
+    (`sharding_rules(rows=)`); () without a context."""
+    ctx = current_context()
+    return () if ctx is None else ctx.rows
+
+
+#: the recurrent cache leaves ([L, B, ...]) and the dimensions the
+#: reference's `cache_shardings` tries to split over ``model``, in order:
+#: Mamba2's `ssm` [L, B, H, P, N] over heads and `conv` [L, B, k-1, cd]
+#: over its channels; the mLSTM's `C` [L, B, H, hd, hd] over heads, else
+#: over its first hd, `n` [L, B, H, hd] and `m` [L, B, H] over heads; the
+#: sLSTM's states [L, B, D] over D
+STATE_DIMS = {"ssm": (2,), "conv": (3,), "C": (2, 3), "n": (2,), "m": (2,),
+              "sc": (2,), "sn": (2,), "sm": (2,), "sh": (2,)}
+
+
+def state_model_dim(key: str, shape: Sequence[int],
+                    model: int) -> Optional[int]:
+    """The dimension of the whole recurrent cache leaf `key` of `shape`
+    that a ``model`` axis of `model` ranks splits (the first of its
+    `STATE_DIMS` that `model` divides), or None."""
+    if model <= 1:
+        return None
+    return next((d for d in STATE_DIMS[key] if shape[d] % model == 0), None)
 
 
 def model_dim(spec: Spec) -> Optional[int]:

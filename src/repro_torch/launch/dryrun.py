@@ -39,12 +39,12 @@ fails during the step, `temp_bytes` is `null`, `memory_note` says why,
 and `bytes_per_device` holds the argument bytes alone: nothing is
 estimated in its place.
 
-Cells the port cannot run tensor-parallel. The port computes dense
-attention stacks tensor-parallel (`dist.parallel`); MoE, recurrent and
-encoder-decoder stacks refuse a ``model`` axis with
-`dist.sharding.TensorParallelUnsupported`. On the production meshes
-(``model`` = 16) those cells end with `status: "unsupported"` and the
-refusal's text as `reason`.
+Every stack runs tensor-parallel (`dist.parallel`): dense attention,
+MoE, recurrent and encoder-decoder stacks alike, so every applicable
+cell ends `ok` or fails. The rows of the batch are split over the batch
+axes where the global batch divides over them (the token and batch
+specs), and the sharding context says so (`sharding_rules(rows=)`):
+the MoE routes the step's global rows, as the reference does.
 
 The world is torn down after each cell, so no later code sees it.
 
@@ -71,7 +71,6 @@ from ..configs.base import ModelConfig, ShapeConfig
 from ..dist.sharding import (
     SERVE_RULES,
     TRAIN_RULES,
-    TensorParallelUnsupported,
     place_tree,
     sharding_rules,
 )
@@ -206,8 +205,6 @@ def _run(step, args):
     try:
         with tracker:
             count = count_step(step)[1]
-    except TensorParallelUnsupported:
-        raise
     except Exception as e:
         note = f"MemTracker failed: {type(e).__name__}: {e}"
         return count_step(step)[1], None, note
@@ -215,11 +212,15 @@ def _run(step, args):
 
 
 def run_cell(
-    arch: str, shape_name: str, multi_pod: bool, out_dir: Optional[str] = None,
+    arch: str, shape_name, multi_pod: bool, out_dir: Optional[str] = None,
     quantized: bool = False,
 ) -> Dict:
+    """One cell. `shape_name`: a name of `SHAPES`, or a `ShapeConfig` of
+    its own (a cell cut shorter than the assigned shapes)."""
     cfg = get_config(arch)
-    shape = SHAPES[shape_name]
+    shape = (SHAPES[shape_name] if isinstance(shape_name, str)
+             else shape_name)
+    shape_name = shape.name
     ok, why = shape_applicable(cfg, shape)
     cell = f"{arch}|{shape_name}|{'multi' if multi_pod else 'single'}"
     if not ok:
@@ -234,13 +235,11 @@ def run_cell(
         base["chips"] = mesh_chips(mesh)
         grad = (contextlib.nullcontext() if shape.kind == "train"
                 else torch.no_grad())
+        rows = S.batch_rows(mesh, shape.global_batch)
         t0 = time.perf_counter()
-        with grad, sharding_rules(mesh, rules):
+        with grad, sharding_rules(mesh, rules, rows=rows):
             step, args = build_step(cfg, shape, mesh, quantized=quantized)
-            try:
-                count, temp, note = _run(step, args)
-            except TensorParallelUnsupported as e:
-                return dict(base, status="unsupported", reason=str(e))
+            count, temp, note = _run(step, args)
         trace_s = time.perf_counter() - t0
         arg_bytes = sum(t.numel() * t.element_size()
                         for a in args for t in _tensors(a))
@@ -288,8 +287,7 @@ def main(argv=None):
             for mp in meshes:
                 try:
                     r = run_cell(arch, shape_name, mp, args.out)
-                    tag = r["status"]
-                    if tag == "ok":
+                    if r["status"] == "ok":
                         rf = r["roofline"]
                         print(
                             f"[OK] {r['cell']:55s} trace={r['trace_s']:7.1f}s "
@@ -300,9 +298,6 @@ def main(argv=None):
                             f"bytes/rank={r['bytes_per_device']}",
                             flush=True,
                         )
-                    elif tag == "unsupported":
-                        print(f"[UNSUPPORTED] {r['cell']:47s} {r['reason']}",
-                              flush=True)
                     else:
                         print(f"[SKIP] {r['cell']:54s} {r['reason']}", flush=True)
                 except Exception as e:

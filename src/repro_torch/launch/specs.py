@@ -18,10 +18,12 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..dist.sharding import (
+    STATE_DIMS,
     Spec,
     current_context,
     params_partition_specs,
     sharding_rules,
+    state_model_dim,
     suspended,
 )
 from ..models import init_cache, init_encdec, init_encdec_cache, init_lm
@@ -68,6 +70,14 @@ def _spec(*axes) -> Spec:
 
 def batch_axes(mesh) -> Tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def batch_rows(mesh, b: int) -> Optional[Any]:
+    """The spec entry the rows of a global batch of `b` are split over:
+    the batch axes where `b` divides over them, else the first of them
+    that divides it, else None. Every batch spec below splits rows so; a
+    caller that does gives the same entry to `sharding_rules(rows=)`."""
+    return _fit(mesh, b, batch_axes(mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +139,7 @@ def _meta(shape, dtype) -> torch.Tensor:
 
 def train_batch_specs(cfg: ModelConfig, shape: ShapeConfig, mesh):
     b, t = shape.global_batch, shape.seq_len
-    bspec = _fit(mesh, b, batch_axes(mesh))
+    bspec = batch_rows(mesh, b)
     tok = _meta((b, t), torch.int32)
     batch = {"tokens": tok, "targets": tok}
     shards = {"tokens": _spec(bspec), "targets": _spec(bspec)}
@@ -165,7 +175,7 @@ def cache_shardings(cache_shapes, cfg: ModelConfig, shape: ShapeConfig,
     long_500k  (batch=1):     sequence over data (SP), heads/inner over model.
     """
     b = shape.global_batch
-    bspec = _fit(mesh, b, batch_axes(mesh))
+    bspec = batch_rows(mesh, b)
     ctx = current_context()
 
     def spec_for(key: str, leaf) -> Spec:
@@ -179,22 +189,12 @@ def cache_shardings(cache_shapes, cfg: ModelConfig, shape: ShapeConfig,
                 raise RuntimeError("cache_shardings needs sharding_rules()")
             return ctx.resolve("layers", "batch", "kv_seq", "kv_heads",
                                "cache_head_dim", shape=shp)
-        if key == "ssm":
-            # [L, B, H, P, N]
-            return _spec(None, bspec, _fit(mesh, shp[2], "model"))
-        if key == "conv":
-            # [L, B, k-1, cd]
-            return _spec(None, bspec, None, _fit(mesh, shp[3], "model"))
-        if key == "C":
-            # [L, B, H, hd, hd]
-            h = _fit(mesh, shp[2], "model")
-            hd = None if h else _fit(mesh, shp[3], "model")
-            return _spec(None, bspec, h, hd)
-        if key in ("n", "m"):
-            return _spec(None, bspec, _fit(mesh, shp[2], "model"))
-        if key in ("sc", "sn", "sm", "sh"):
-            # [L, B, D]
-            return _spec(None, bspec, _fit(mesh, shp[2], "model"))
+        if key in STATE_DIMS:
+            # the recurrent states, [L, B, ...]: the dimension the model
+            # code reads and writes its block of (`state_model_dim`)
+            d = state_model_dim(key, shp, _axis_size(mesh, "model"))
+            return _spec(None, bspec, *("model" if i == d else None
+                                        for i in range(2, len(shp))))
         return ()
 
     return {k: spec_for(k, v) for k, v in cache_shapes.items()}
@@ -202,11 +202,11 @@ def cache_shardings(cache_shapes, cfg: ModelConfig, shape: ShapeConfig,
 
 def decode_token_spec(shape: ShapeConfig, mesh):
     b = shape.global_batch
-    bspec = _fit(mesh, b, batch_axes(mesh))
+    bspec = batch_rows(mesh, b)
     return _meta((b, 1), torch.int32), _spec(bspec)
 
 
 def prefill_token_specs(cfg: ModelConfig, shape: ShapeConfig, mesh):
     b, t = shape.global_batch, shape.seq_len
-    bspec = _fit(mesh, b, batch_axes(mesh))
+    bspec = batch_rows(mesh, b)
     return _meta((b, t), torch.int32), _spec(bspec)

@@ -9,6 +9,14 @@ Both stacks are stacked `[L, ...]` trees walked by a Python loop, as in
 `models.transformer`; the decoder's self-attention caches and the cross
 K/V are written in place. Every projection goes through `pim_linear`
 with the caller's `impl`.
+
+Under tensor parallelism (`dist.parallel`) the self- and cross-attention
+and the MLPs are the dense stacks' column / row-parallel blocks; the
+tied `embed`, split on d_model, is gathered at the embed hook and gives
+the head's partial sums (`transformer._embed` / `_head`); the frames,
+whose batch spec splits d_model too, are gathered at the encoder's
+embed hook; the self K/V and the cross `xk` / `xv` are held in the
+kv-heads layout of `launch.specs.cache_shardings` (`shard_cache`).
 """
 
 from __future__ import annotations
@@ -18,7 +26,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from ..dist.sharding import TensorParallelUnsupported, shard, tensor_parallel
+from ..dist.parallel import pim_scales, row_linear
+from ..dist.sharding import shard, tensor_parallel
 from .attention import (
     attention_decode,
     attention_forward,
@@ -37,7 +46,14 @@ from .common import (
     rmsnorm_params,
 )
 from .mlp import init_mlp, mlp
-from .transformer import empty_stack, layer_params, remat, unstack_layers
+from .transformer import (
+    _embed,
+    empty_stack,
+    layer_params,
+    remat,
+    shard_cache,
+    unstack_layers,
+)
 
 
 def _layer_shapes(cfg: ModelConfig, dtype):
@@ -103,20 +119,26 @@ def _attn_kwargs(cfg: ModelConfig):
                 head_dim=cfg.hd, rope_theta=cfg.rope_theta)
 
 
-def _single_rank(what: str) -> None:
-    """The encoder-decoder has the reference's placement hooks, but the
-    port computes it tensor-parallel nowhere yet."""
-    if tensor_parallel() is not None:
-        raise TensorParallelUnsupported(
-            f"{what}: the encoder-decoder runs without a model axis")
+def _parallel_params(params: Params, cfg: ModelConfig) -> Params:
+    """Under tensor parallelism, each stack's `PimWeight` scales brought to
+    their planes' columns (`dist.parallel.pim_scales`; a tree already
+    brought there passes unchanged)."""
+    if tensor_parallel() is None:
+        return params
+    return dict(params,
+                enc_layers=pim_scales(params["enc_layers"],
+                                      cfg.n_encoder_layers),
+                dec_layers=pim_scales(params["dec_layers"], cfg.n_layers))
 
 
 def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
            impl: str = "auto") -> torch.Tensor:
     """frames [B, S_enc, D] stub embeddings -> encoder states, through
     bidirectional attention."""
-    _single_rank("encode")
-    x = shard(frames.to(compute_dtype(cfg.dtype)), "batch", "seq", "embed")
+    params = _parallel_params(params, cfg)
+    x = frames.to(compute_dtype(cfg.dtype))
+    x = shard(x, "batch", "seq", "embed",
+              src_dim=2 if x.shape[-1] < cfg.d_model else None)
     positions = torch.arange(x.shape[1], device=x.device)
     layers = unstack_layers(params["enc_layers"], cfg.n_encoder_layers)
 
@@ -126,7 +148,7 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
             lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), positions,
             causal=False, impl=impl, **_attn_kwargs(cfg))
         return x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps),
-                       "gelu", impl)
+                       "gelu", impl, d_ff=cfg.d_ff)
 
     body = remat(cfg, body)
     for l in range(cfg.n_encoder_layers):
@@ -141,7 +163,7 @@ def _cross_and_mlp(lp, x, xk, xv, cfg, impl):
         lp["xattn"], rmsnorm(lp["ln_x"], x, cfg.norm_eps), xk, xv,
         cfg.n_heads, cfg.hd, impl)
     return x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps), "gelu",
-                   impl)
+                   impl, d_ff=cfg.d_ff)
 
 
 def _dec_block(lp, x, positions, enc_k, enc_v, cfg, impl="auto"):
@@ -152,8 +174,10 @@ def _dec_block(lp, x, positions, enc_k, enc_v, cfg, impl="auto"):
 
 
 def _dec_head(params, x, cfg):
+    """Logits through the tied `embed` (row-parallel where it holds a
+    block of d_model)."""
     x = rmsnorm(params["dec_norm"], x, cfg.norm_eps)
-    return x @ params["embed"].T.to(x.dtype)
+    return row_linear(x, params["embed"].T.to(x.dtype), cfg.d_model)
 
 
 def forward_encdec(params: Params, frames: torch.Tensor,
@@ -163,8 +187,9 @@ def forward_encdec(params: Params, frames: torch.Tensor,
     teacher forcing. Returns (logits [B, T, V], {"moe_aux": 0.0}). Each
     encoder and decoder layer body is rematerialised in the backward
     when `cfg.remat` is set."""
+    params = _parallel_params(params, cfg)
     enc_out = encode(params, frames, cfg, impl)
-    x = params["embed"][tokens.long()].to(compute_dtype(cfg.dtype))
+    x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     layers = unstack_layers(params["dec_layers"], cfg.n_layers)
 
@@ -184,20 +209,20 @@ def forward_encdec(params: Params, frames: torch.Tensor,
 def init_encdec_cache(cfg: ModelConfig, batch: int, cache_len: int,
                       enc_len: int, device="cuda") -> Dict:
     """Zero self-attention K/V `[L, B, cache_len, KV, hd]` and cross K/V
-    `[L, B, enc_len, H, hd]` in the compute dtype; write position 0 (a
-    host int)."""
+    `[L, B, enc_len, H, hd]` in the compute dtype (each rank's blocks
+    under tensor parallelism); write position 0 (a host int)."""
     dev = resolve_device(device)
     dt = compute_dtype(cfg.dtype)
     l = cfg.n_layers
     kv = (l, batch, cache_len, cfg.n_kv_heads, cfg.hd)
     xkv = (l, batch, enc_len, cfg.n_heads, cfg.hd)
-    return {
+    return shard_cache({
         "position": 0,
         "k": torch.zeros(kv, dtype=dt, device=dev),
         "v": torch.zeros(kv, dtype=dt, device=dev),
         "xk": torch.zeros(xkv, dtype=dt, device=dev),
         "xv": torch.zeros(xkv, dtype=dt, device=dev),
-    }
+    })
 
 
 def prefill_encdec(params: Params, frames: torch.Tensor,
@@ -206,11 +231,12 @@ def prefill_encdec(params: Params, frames: torch.Tensor,
     """Encode the frames, run the decoder prompt [B, T] into a new cache
     (self K/V in rows [0, T), each layer's cross K/V, position T) and
     return the logits [B, 1, V] of position T-1."""
+    params = _parallel_params(params, cfg)
     enc_out = encode(params, frames, cfg, impl)
     b, t = tokens.shape
     cache = init_encdec_cache(cfg, b, cache_len, enc_out.shape[1],
                               enc_out.device)
-    x = params["embed"][tokens.long()].to(compute_dtype(cfg.dtype))
+    x = _embed(params, tokens, cfg)
     positions = torch.arange(t, device=x.device)
     for l in range(cfg.n_layers):
         lp = layer_params(params["dec_layers"], l)
@@ -232,8 +258,8 @@ def decode_step_encdec(params: Params, token: torch.Tensor, cache: Dict,
     """One decoder token per row [B, 1] at the cache's position; the
     self-attention K/V are written in place. Returns (logits [B, 1, V],
     the cache at position + 1)."""
-    _single_rank("decode_step_encdec")
-    x = params["embed"][token.long()].to(compute_dtype(cfg.dtype))
+    params = _parallel_params(params, cfg)
+    x = _embed(params, token, cfg)
     pos = cache["position"]
     for l in range(cfg.n_layers):
         lp = layer_params(params["dec_layers"], l)

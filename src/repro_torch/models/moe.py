@@ -32,16 +32,28 @@ reference's `jax.vmap` of `bitplane_matmul` dispatches).
 
 Returns `(y, aux)` with the Switch load-balance loss
 (`E * sum_e f_e * p_e`, means over chunks) and the dropped fraction.
+
+Under a mesh. The router and the expert stacks are whole on every rank
+(no rule splits them), so each rank computes the routed experts whole.
+The reference routes the step's global batch; a rank that holds its
+block of the rows (`dist.sharding.row_axes`) gathers every rank's rows
+before dispatch, routes them all, and keeps its own rows' outputs, so
+the drops, the loss and the dropped fraction are the one-rank values.
+llama4's shared expert is the tensor-parallel SwiGLU of `models.mlp` on
+this rank's rows; the routed output is added after its all-reduce (added
+before it, it would be summed once per rank).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..dist.sharding import shard
+from ..dist import collectives
+from ..dist.parallel import local_rows
+from ..dist.sharding import row_axes, shard
 from ..kernels import ops as kops
 from ..quant.bitplane import PimWeight
 from .common import ACTS, Params, dense_init
@@ -162,16 +174,22 @@ def expert_capacity(chunk: int, top_k: int, n_experts: int,
 
 def moe_forward(params: Params, x: torch.Tensor, *, top_k: int,
                 capacity_factor: float, act: str = "silu",
-                chunk: int = MOE_CHUNK, impl: str = "auto"
+                chunk: int = MOE_CHUNK, impl: str = "auto",
+                shared_d_ff: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x [B, T, D] -> (y [B, T, D], {"load_balance_loss",
     "dropped_fraction"}). Every row of x takes part in the routing —
     idle slots and padding rows included, as in the reference, since
-    rows of one chunk compete for the experts' places."""
-    b, t, d = x.shape
+    rows of one chunk compete for the experts' places — and, under a
+    mesh whose batch axes split the rows, every other rank's rows too.
+    `shared_d_ff`: the shared expert's whole width (tensor-parallel
+    callers give it, as to `swiglu`)."""
+    rows = row_axes()
+    routed = collectives.gather_apart(x, rows, 0) if rows else x
+    b, t, d = routed.shape
     e = params["router"].shape[-1]
     n = b * t
-    flat = x.reshape(n, d)
+    flat = routed.reshape(n, d)
     chunk = min(chunk, n)
     if n % chunk:
         pad = chunk - n % chunk
@@ -187,8 +205,10 @@ def moe_forward(params: Params, x: torch.Tensor, *, top_k: int,
         fps.append(fp)
         drs.append(dr)
     y = torch.cat(ys)[:n].reshape(b, t, d)
+    if rows:
+        y = local_rows(y, rows)
     if "shared" in params:
-        y = y + swiglu(params["shared"], x, act, impl)
+        y = y + swiglu(params["shared"], x, act, impl, d_ff=shared_d_ff)
     aux = {
         "load_balance_loss": e * torch.stack(fps).mean(dim=0).sum(),
         "dropped_fraction": torch.stack(drs).mean(),

@@ -33,6 +33,13 @@ device to place its KV. Beside it, by block kind:
          "sc", "sn", "sm", "sh"  sLSTM states, [L, B, D] f32
 A layer whose xLSTM cell does not run leaves the other cell's state
 untouched, as the reference's `lax.cond` passes it through.
+
+Under tensor parallelism (`dist.parallel`) every stack computes on each
+rank's blocks; the cache holds each rank's blocks too (`shard_cache`):
+the K/V heads the rules split, and the recurrent states split as the
+reference's `cache_shardings` splits them, which a decode step gathers
+whole (`_read_state`) and writes back in blocks (`_write_state`). The
+paged entry points run on one rank only.
 """
 
 from __future__ import annotations
@@ -44,13 +51,22 @@ import torch
 import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
+from ..dist import collectives
 from ..dist.parallel import (
     enter,
-    gather_layer_split,
+    gather_state,
+    pim_scales,
     row_linear,
+    state_block,
     whole_logits,
 )
-from ..dist.sharding import TensorParallelUnsupported, shard, tensor_parallel
+from ..dist.sharding import (
+    STATE_DIMS,
+    TensorParallelUnsupported,
+    shard,
+    state_model_dim,
+    tensor_parallel,
+)
 from ..kernels.ops import is_bucket_plan
 from ..quant.bitplane import PimWeight
 from .attention import (
@@ -299,14 +315,17 @@ def _embed(params, tokens, cfg, extra_embeds=None):
     `extra_embeds` [B, T_front, D] when given. Under tensor parallelism
     `embed` holds a block of d_model (the reference's spec splits its
     last dimension), and the embed hook gathers the features; the stub's
-    whole `extra_embeds` are brought to the same layout before the two
-    are joined."""
+    `extra_embeds` are brought to the same layout before the two are
+    joined (whole from a serving caller; a training batch's spec splits
+    their d_model too, and that block is gathered)."""
     dt = compute_dtype(cfg.dtype)
     x = params["embed"][tokens.long()].to(dt)
     src = 2 if x.shape[-1] < cfg.d_model else None
     x = shard(x, "batch", "seq", "embed", src_dim=src)
     if extra_embeds is not None:
-        front = shard(extra_embeds.to(dt), "batch", "seq", "embed")
+        front = extra_embeds.to(dt)
+        front = shard(front, "batch", "seq", "embed",
+                      src_dim=2 if front.shape[-1] < cfg.d_model else None)
         x = torch.cat([front, x], dim=1)
     return x
 
@@ -326,20 +345,13 @@ def _head(params, x, cfg):
     return row_linear(x, params["embed"].T.to(x.dtype), cfg.d_model)
 
 
-def _parallel_params(params, cfg: ModelConfig, what: str):
-    """The params an entry point computes with. Under tensor parallelism
-    (a context whose mesh splits over ``model``) it checks that the stack
-    is one the port computes tensor-parallel — dense attention stacks —
-    and gathers what the stored layout splits but each layer needs
-    whole (`dist.parallel.gather_layer_split`)."""
+def _parallel_params(params, cfg: ModelConfig):
+    """The params an entry point computes with: under tensor parallelism
+    (a context whose mesh splits over ``model``) each `PimWeight`'s scale
+    brought to its planes' columns (`dist.parallel.pim_scales`)."""
     if tensor_parallel() is None:
         return params
-    if cfg.block_kind != "attn" or cfg.n_experts:
-        raise TensorParallelUnsupported(
-            f"{what}: tensor-parallel execution covers dense attention "
-            f"stacks, not {cfg.name} ({cfg.block_kind}, "
-            f"{cfg.n_experts} experts); run it without a model axis")
-    return gather_layer_split(params, cfg.n_layers)
+    return pim_scales(params, cfg.n_layers)
 
 
 def _window_array(cfg: ModelConfig, seq_len: int) -> List[int]:
@@ -385,7 +397,8 @@ def _ffn(lp, h, cfg, impl):
     if cfg.n_experts:
         y, aux = moe_forward(lp["moe"], h, top_k=cfg.top_k,
                              capacity_factor=cfg.capacity_factor,
-                             act=cfg.act, impl=impl)
+                             act=cfg.act, impl=impl,
+                             shared_d_ff=cfg.d_ff * cfg.n_shared_experts)
         return y, aux["load_balance_loss"]
     if cfg.mlp_kind == "plain":
         return mlp(lp["mlp"], h, cfg.act, impl, d_ff=cfg.d_ff), None
@@ -451,7 +464,7 @@ def _mamba_loop(params, x, cfg, block, shared_attn, impl):
             x = x + shared_attn(site, sp["attn"],
                                 rmsnorm(sp["ln"], x, cfg.norm_eps))
             x = x + swiglu(sp["mlp"], rmsnorm(sp["ln2"], x, cfg.norm_eps),
-                           cfg.act, impl)
+                           cfg.act, impl, d_ff=cfg.d_ff)
             site += 1
     return x
 
@@ -490,7 +503,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     MoE layers' load-balance losses}` (0.0 for a dense or recurrent
     stack). Each layer body is rematerialised in the backward when
     `cfg.remat` is set (`remat`)."""
-    params = _parallel_params(params, cfg, "forward")
+    params = _parallel_params(params, cfg)
     x = _embed(params, tokens, cfg, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     losses = []
@@ -539,44 +552,81 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
         shape = (l, batch, cache_len, cfg.n_kv_heads, cfg.hd)
         cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
         cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
-    elif cfg.block_kind == "mamba":
-        p = cfg.d_inner // cfg.ssm_heads
-        cache["ssm"] = torch.zeros((l, batch, cfg.ssm_heads, p,
-                                    cfg.ssm_state), dtype=torch.float32,
-                                   device=dev)
-        cache["conv"] = torch.zeros(
-            (l, batch, cfg.ssm_conv - 1, conv_dim(cfg.d_inner,
-                                                  cfg.ssm_state)),
-            dtype=dt, device=dev)
+    for key, a in _layer_states(cfg, batch, dev).items():
+        cache[key] = a[None].expand((l,) + tuple(a.shape)).clone()
+    if cfg.block_kind == "mamba":
         n_sites = sum(1 for *_, has_attn in _group_slices(cfg) if has_attn)
         if n_sites:
             shape = (n_sites, batch, cache_len, cfg.n_kv_heads, cfg.hd)
             cache["shared_k"] = torch.zeros(shape, dtype=dt, device=dev)
             cache["shared_v"] = torch.zeros(shape, dtype=dt, device=dev)
-    elif cfg.block_kind == "xlstm":
-        hd = cfg.ssm_expand * cfg.d_model // cfg.n_heads
-        for keys, state in (
-                (_MLSTM_KEYS, mlstm_init_state(batch, cfg.n_heads, hd, dev)),
-                (_SLSTM_KEYS, slstm_init_state(batch, cfg.d_model, dev))):
-            for key, name in keys:
-                a = state[name]
-                cache[key] = a[None].expand((l,) + tuple(a.shape)).clone()
     return shard_cache(cache)
 
 
+def _layer_states(cfg: ModelConfig, batch: int, device) -> Dict:
+    """One layer's initial recurrent states, whole, by cache key: zero
+    Mamba2 `ssm` (f32) and `conv` tail (compute dtype); both xLSTM cells'
+    initial states (f32); none for an attention stack."""
+    if cfg.block_kind == "mamba":
+        return {
+            "ssm": torch.zeros((batch, cfg.ssm_heads,
+                                cfg.d_inner // cfg.ssm_heads, cfg.ssm_state),
+                               dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.ssm_conv - 1,
+                                 conv_dim(cfg.d_inner, cfg.ssm_state)),
+                                dtype=compute_dtype(cfg.dtype),
+                                device=device)}
+    if cfg.block_kind == "xlstm":
+        hd = cfg.ssm_expand * cfg.d_model // cfg.n_heads
+        out = {}
+        for keys, state in (
+                (_MLSTM_KEYS, mlstm_init_state(batch, cfg.n_heads, hd,
+                                               device)),
+                (_SLSTM_KEYS, slstm_init_state(batch, cfg.d_model, device))):
+            out.update((key, state[name]) for key, name in keys)
+        return out
+    return {}
+
+
 def shard_cache(cache: Dict) -> Dict:
-    """The K/V leaves [L, B, S, KV, hd] placed by the rules ("layers",
-    "batch", "kv_seq", "kv_heads", "cache_head_dim") over ``model``: a
-    whole cache is cut to this rank's kv heads where the rules split
-    them (no-op without a context, or where they stay whole). Rows are
-    already this rank's (`batch` is the caller's), and `kv_seq` stays
-    whole: the port computes attention over the whole sequence. Prefill
-    and decode write the placed tensors in place, so the reference's
-    calls at their ends have no counterpart here."""
-    return {k: shard(v, "layers", "batch", "kv_seq", "kv_heads",
-                     "cache_head_dim")
-            if k in ("k", "v", "shared_k", "shared_v") else v
-            for k, v in cache.items()}
+    """A whole cache cut to this rank's blocks over ``model`` (no-op
+    without a context, or where the layout keeps a leaf whole). The K/V
+    leaves [L, B, S, KV, hd] are placed by the rules ("layers", "batch",
+    "kv_seq", "kv_heads", "cache_head_dim"): `kv_seq` stays whole, as the
+    port computes attention over the whole sequence. The recurrent states
+    split on the dimension `sharding.state_model_dim` names, as the
+    reference's `cache_shardings` lays them out. Rows are already this
+    rank's (`batch` is the caller's). Prefill and decode write the placed
+    tensors in place, so the reference's calls at their ends have no
+    counterpart here."""
+    ctx = tensor_parallel()
+    out = {}
+    for k, v in cache.items():
+        if k in ("k", "v", "shared_k", "shared_v", "xk", "xv"):
+            v = shard(v, "layers", "batch", "kv_seq", "kv_heads",
+                      "cache_head_dim")
+        elif ctx is not None and k in STATE_DIMS:
+            d = state_model_dim(k, v.shape, ctx.model)
+            if d is not None:
+                v = collectives.scatter(v, "model", d)
+        out[k] = v
+    return out
+
+
+def _read_state(cfg: ModelConfig, cache: Dict, key: str, l: int):
+    """Layer `l`'s state `key`, whole (gathered where the cache holds this
+    rank's block of it)."""
+    held = cache[key][l]
+    if tensor_parallel() is None:
+        return held
+    whole = _layer_states(cfg, held.shape[0], "meta")[key].shape
+    return gather_state(held, whole)
+
+
+def _write_state(cache: Dict, key: str, l: int, value) -> None:
+    """Layer `l`'s whole new state `key` into the cache, in place: this
+    rank's block of it where the cache holds one."""
+    cache[key][l] = state_block(value, cache[key][l])
 
 
 def _cache_len(cache: Dict, cfg: ModelConfig) -> int:
@@ -587,16 +637,19 @@ def _cache_len(cache: Dict, cfg: ModelConfig) -> int:
     return 1  # a purely recurrent stack has no positional cache
 
 
-def _xlstm_cells(cache: Dict, run_m, run_s):
-    """The xLSTM layer callables of `_xlstm_loop` over `cache`: each reads
-    its layer's state of the cell that runs, calls `run_m(params, h,
-    state)` / `run_s(...)` -> `(y, new_state)` and writes the new state
-    back in place; the other cell's state stays as it was."""
+def _xlstm_cells(cfg: ModelConfig, cache: Dict, run_m, run_s, fresh: bool):
+    """The xLSTM layer callables of `_xlstm_loop` over `cache`: each calls
+    `run_m(params, h, state)` / `run_s(...)` -> `(y, new_state)` on its
+    layer's whole state of the cell that runs (None with `fresh`: the
+    cell's initial state, which a new cache holds) and writes the new
+    state back in place; the other cell's state stays as it was."""
     def cell(keys, run):
         def fn(l, p, h):
-            y, st = run(p, h, {name: cache[key][l] for key, name in keys})
+            st = None if fresh else {
+                name: _read_state(cfg, cache, key, l) for key, name in keys}
+            y, st = run(p, h, st)
             for key, name in keys:
-                cache[key][l] = st[name]
+                _write_state(cache, key, l, st[name])
             return y
         return fn
     return cell(_MLSTM_KEYS, run_m), cell(_SLSTM_KEYS, run_s)
@@ -612,7 +665,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     logits [B, 1, V] of position T-1, or of `last_pos` — clamped into
     [0, T-1] as the reference's `dynamic_slice` clamps it. Windows come
     from `window_schedule(cache_len)`, as in the reference."""
-    params = _parallel_params(params, cfg, "prefill")
+    params = _parallel_params(params, cfg)
     x = _embed(params, tokens, cfg, extra_embeds)
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device)
@@ -626,8 +679,10 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                         attn, impl)[0]
     elif cfg.block_kind == "mamba":
         def block(l, p, h):
-            y, (cache["ssm"][l], cache["conv"][l]) = mamba2_forward(
+            y, (ssm, conv) = mamba2_forward(
                 p, h, return_state=True, impl=impl, **_ssm_kwargs(cfg))
+            _write_state(cache, "ssm", l, ssm)
+            _write_state(cache, "conv", l, conv)
             return y
 
         def shared(site, p, h):
@@ -637,13 +692,13 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         x = _mamba_loop(params, x, cfg, block, shared, impl)
     elif cfg.block_kind == "xlstm":
         x = _xlstm_loop(params, x, cfg, *_xlstm_cells(
-            cache,
+            cfg, cache,
             lambda p, h, st: mlstm_forward(p, h, n_heads=cfg.n_heads,
                                            init_state=st, return_state=True,
                                            impl=impl),
             lambda p, h, st: slstm_forward(p, h, n_heads=cfg.n_heads,
                                            init_state=st, return_state=True,
-                                           impl=impl)))
+                                           impl=impl), fresh=True))
     else:
         raise ValueError(cfg.block_kind)
     cache["position"] = t
@@ -658,7 +713,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict,
     paper's GEMV workload. The tensors of `cache` (K/V, recurrent
     states) are written in place; the returned cache holds them and
     position + 1. Returns (logits [B, 1, V], cache)."""
-    params = _parallel_params(params, cfg, "decode_step")
+    params = _parallel_params(params, cfg)
     x = _embed(params, token, cfg)
     pos, s = cache["position"], _cache_len(cache, cfg)
     rope_pos = decode_position(pos, x.device)
@@ -676,9 +731,12 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict,
         mask = decode_mask(pos, s, None, x.device)
 
         def block(l, p, h):
-            y, cache["ssm"][l], cache["conv"][l] = mamba2_decode(
-                p, h, cache["ssm"][l], cache["conv"][l], impl=impl,
+            y, ssm, conv = mamba2_decode(
+                p, h, _read_state(cfg, cache, "ssm", l),
+                _read_state(cfg, cache, "conv", l), impl=impl,
                 **_ssm_kwargs(cfg))
+            _write_state(cache, "ssm", l, ssm)
+            _write_state(cache, "conv", l, conv)
             return y
 
         def shared(site, p, h):
@@ -689,11 +747,11 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict,
         x = _mamba_loop(params, x, cfg, block, shared, impl)
     elif cfg.block_kind == "xlstm":
         x = _xlstm_loop(params, x, cfg, *_xlstm_cells(
-            cache,
+            cfg, cache,
             lambda p, h, st: mlstm_decode(p, h, st, n_heads=cfg.n_heads,
                                           impl=impl),
             lambda p, h, st: slstm_decode(p, h, st, n_heads=cfg.n_heads,
-                                          impl=impl)))
+                                          impl=impl), fresh=False))
     else:
         raise ValueError(cfg.block_kind)
     return _head(params, x, cfg), dict(cache, position=pos + 1)

@@ -11,6 +11,13 @@ dispatch. The stabiliser `m` starts at -1e30 and every state is f32.
 State trees:
   mLSTM: {"C": [B, H, hd, hd], "n": [B, H, hd], "m": [B, H]}
   sLSTM: {"c", "n", "m", "h": [B, D]}
+
+Under tensor parallelism (`dist.parallel`) each cell runs whole on every
+rank, on whole states (the caller gathers the cache's blocks). The
+mLSTM's column-parallel `wq`, `wk`, `wv` (and `wi` where the heads
+split) give this rank's columns, gathered (`whole_linear`); its `wf`
+and `wog` are whole, and `w_down` is row-parallel, its partial sums
+all-reduced. The sLSTM's weights are all whole.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..dist.parallel import row_linear, whole_linear
 from ..quant.bitplane import pim_linear
 from .common import Params, dense_init
 
@@ -91,12 +99,13 @@ def _mlstm_step(state: State, q, k, v, it, ft) -> Tuple[State, torch.Tensor]:
 
 def _mlstm_inputs(params, x, n_heads, impl):
     b, t, _ = x.shape
+    inner = params["wog"].shape[-1]
 
     def heads(name):
-        return pim_linear(x, params[name], impl).reshape(
+        return whole_linear(x, params[name], inner, impl).reshape(
             b, t, n_heads, -1).float()
     q, k, v = heads("wq"), heads("wk"), heads("wv")
-    it = pim_linear(x, params["wi"], impl).float()          # [B, T, H]
+    it = whole_linear(x, params["wi"], n_heads, impl).float()  # [B, T, H]
     ft = pim_linear(x, params["wf"], impl).float()
     og = torch.sigmoid(pim_linear(x, params["wog"], impl).float())
     return q, k, v, it, ft, og
@@ -117,7 +126,8 @@ def mlstm_forward(params: Params, x: torch.Tensor, *, n_heads: int,
                                ft[:, i])
         hs.append(h)
     h = torch.stack(hs, dim=1).reshape(b, t, n_heads * hd)
-    y = pim_linear((og * h).to(x.dtype), params["w_down"], impl)
+    y = row_linear((og * h).to(x.dtype), params["w_down"], n_heads * hd,
+                   impl)
     return (y, state) if return_state else y
 
 
@@ -129,8 +139,9 @@ def mlstm_decode(params: Params, x: torch.Tensor, state: State, *,
     q, k, v, it, ft, og = _mlstm_inputs(params, x, n_heads, impl)
     state, h = _mlstm_step(state, q[:, 0], k[:, 0], v[:, 0], it[:, 0],
                            ft[:, 0])
-    y = pim_linear((og * h.reshape(b, 1, -1)).to(x.dtype),
-                   params["w_down"], impl)
+    h = h.reshape(b, 1, -1)
+    y = row_linear((og * h).to(x.dtype), params["w_down"], h.shape[-1],
+                   impl)
     return y, state
 
 

@@ -11,7 +11,12 @@ Under a mesh (`mesh=`), each rank takes its rows of the global batch
 and the step does what XLA inserts for the reference's sharded jit:
 the gradients are averaged over the batch axes (`pod`, `data`), so
 every rank holds the global batch's mean gradient, and the loss
-metrics are global means. The gradient norm that clipping reads is the
+metrics are global means. The step runs under a sharding context whose
+rows are split over those axes (`sharding_rules(rows=)`; the caller's
+rules where it has a context), so the MoE routes every rank's rows
+together, as the reference routes the global batch: the reduce-scatter
+its row gather takes back sums each row's gradient over the ranks, and
+the mean over the batch axes divides that sum back. The gradient norm that clipping reads is the
 global one: leaves whole on every rank of `model` count once, and the
 squared sums of leaves split over `model` (by `param_specs`, the spec
 tree of `launch.specs.param_shardings`) are all-reduced over it.
@@ -19,13 +24,19 @@ tree of `launch.specs.param_shardings`) are all-reduced over it.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig
 from ..dist import collectives
-from ..dist.sharding import spec_axes
+from ..dist.sharding import (
+    TRAIN_RULES,
+    current_context,
+    sharding_rules,
+    spec_axes,
+)
 from ..models import forward, forward_encdec
 from ..optim import AdamWConfig, AdamWState, adamw_update
 from ..optim.adamw import tree_items
@@ -126,12 +137,20 @@ def make_train_step(
     # crashes and resumes under a different total_steps replays the exact
     # schedule (the bit-exact recovery property of DESIGN.md §7).
 
+    def rows_split():
+        if not batch_axes:
+            return contextlib.nullcontext()
+        ctx = current_context()
+        return sharding_rules(mesh, TRAIN_RULES if ctx is None else ctx.rules,
+                              rows=batch_axes)
+
     def value_and_grad(params, leaves, batch):
         for p in leaves:
             p.requires_grad_(True)
         try:
-            loss, metrics = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with rows_split():
+                loss, metrics = loss_fn(params, batch)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         finally:
             for p in leaves:
                 p.requires_grad_(False)

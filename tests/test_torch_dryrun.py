@@ -8,11 +8,14 @@ fake world of 256 / 512 ranks.
   meshes (each leaf's bytes over the product of the mesh axes its spec
   names), the roofline terms are finite and positive, and the
   collectives a tensor-parallel step issues are counted.
-* The cells the port does not run tensor-parallel (MoE, recurrent and
-  encoder-decoder stacks on a `model` axis of 16) are pinned: every
-  applicable cell of those five archs, on both meshes, ends
-  `unsupported` with the model's refusal as its reason; none crashes,
-  and no dense attention arch is among them.
+* The MoE, recurrent and encoder-decoder stacks run tensor-parallel on
+  the same terms: `decode_32k` of phi3.5-moe, llama4-scout, zamba2,
+  xlstm and whisper on 16 x 16, zamba2's `long_500k` on 2 x 16 x 16 and
+  zamba2's `decode_32k` with bit-plane weights (bytes from the
+  reference's `abstract_params(cfg, quantized=True)`) give `ok` with the
+  reference's bytes and counted collectives.
+* The paged path still refuses a `model` axis
+  (`TensorParallelUnsupported`).
 * The fake world is gone after a cell.
 
 The reference's spec functions build `NamedSharding`s, which need real
@@ -24,6 +27,7 @@ import math
 
 import jax
 import pytest
+import torch
 import torch.distributed as dist
 
 from repro.configs import SHAPES as J_SHAPES
@@ -32,19 +36,27 @@ from repro.dist.sharding import SERVE_RULES as J_SERVE_RULES
 from repro.dist.sharding import TRAIN_RULES as J_TRAIN_RULES
 from repro.dist.sharding import sharding_rules as j_sharding_rules
 from repro.launch import specs as JS
-from repro_torch.configs import ARCH_IDS, SHAPES, get_config, shape_applicable
+from repro_torch.configs import get_config
+from repro_torch.dist.sharding import (
+    SERVE_RULES,
+    TensorParallelUnsupported,
+    sharding_rules,
+)
 from repro_torch.launch.dryrun import main, run_cell
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import decode_step_paged, init_lm, init_paged_pool
 
-#: the cells a `model` axis of 16 refuses, by arch (every applicable
-#: shape, on both production meshes)
-UNSUPPORTED_ARCHS = ("phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e",
-                     "zamba2-1.2b", "xlstm-350m", "whisper-medium")
-UNSUPPORTED_CELLS = {
-    (a, s, m)
-    for a in UNSUPPORTED_ARCHS for s in SHAPES for m in ("single", "multi")
-    if shape_applicable(get_config(a), SHAPES[s])[0]
-}
-N_UNSUPPORTED = 34
+#: (arch, shape, multi-pod, bit-plane weights) of the MoE, recurrent and
+#: encoder-decoder cells held against the reference's bytes
+FAMILY_CELLS = [
+    ("phi3.5-moe-42b-a6.6b", "decode_32k", False, False),
+    ("llama4-scout-17b-a16e", "decode_32k", False, False),
+    ("zamba2-1.2b", "decode_32k", False, False),
+    ("xlstm-350m", "decode_32k", False, False),
+    ("whisper-medium", "decode_32k", False, False),
+    ("zamba2-1.2b", "long_500k", True, False),
+    ("zamba2-1.2b", "decode_32k", False, True),
+]
 
 
 class StandIn:
@@ -69,13 +81,17 @@ def _tree_bytes(tree, specs, mesh) -> int:
     return sum(_spec_bytes(l, s, mesh) for l, s in zip(leaves, spec_leaves))
 
 
-def _reference_bytes(monkeypatch, arch, shape_name, multi) -> int:
-    """Rank 0's argument bytes by the reference's specs."""
+def _reference_bytes(monkeypatch, arch, shape_name, multi,
+                     quantized=False) -> int:
+    """Rank 0's argument bytes by the reference's specs (`shape_name`: a
+    shape's name, or the reference's `ShapeConfig` itself)."""
     monkeypatch.setattr(JS, "NamedSharding", lambda mesh, spec: spec)
-    cfg, shape = j_get_config(arch), J_SHAPES[shape_name]
+    cfg = j_get_config(arch)
+    shape = (J_SHAPES[shape_name] if isinstance(shape_name, str)
+             else shape_name)
     mesh = (StandIn((2, 16, 16), ("pod", "data", "model")) if multi
             else StandIn((16, 16), ("data", "model")))
-    params = JS.abstract_params(cfg)
+    params = JS.abstract_params(cfg, quantized=quantized)
     if shape.kind == "train":
         p_specs = JS.param_shardings(params, mesh, J_TRAIN_RULES)
         batch, b_specs = JS.train_batch_specs(cfg, shape, mesh)
@@ -116,21 +132,45 @@ def test_dense_cells_ok_with_the_reference_bytes(monkeypatch, arch, shape,
     assert r["trace_s"] >= 0
 
 
-def test_unsupported_cells_are_pinned():
-    assert len(UNSUPPORTED_CELLS) == N_UNSUPPORTED
-    seen = set()
-    for arch, shape, mesh in sorted(UNSUPPORTED_CELLS):
-        r = run_cell(arch, shape, mesh == "multi")
-        assert not dist.is_initialized()
-        assert r["status"] == "unsupported", r
-        assert "without a model axis" in r["reason"], r
-        seen.add((arch, shape, mesh))
-    assert seen == UNSUPPORTED_CELLS
-    dense = {a for a in ARCH_IDS if a not in UNSUPPORTED_ARCHS}
-    for a in dense:
-        cfg = get_config(a)
-        assert cfg.block_kind == "attn" and not cfg.n_experts \
-            and not cfg.is_encoder_decoder, a
+@pytest.mark.parametrize(
+    "arch,shape,multi,quantized", FAMILY_CELLS,
+    ids=[f"{a.split('-')[0]}-{s}-{'multi' if m else 'single'}"
+         + ("-pim" if q else "") for a, s, m, q in FAMILY_CELLS])
+def test_family_cells_ok_with_the_reference_bytes(monkeypatch, arch, shape,
+                                                  multi, quantized):
+    """The stacks that refused a `model` axis before now run on it: rank
+    0's argument bytes equal the reference's specs', the temp bytes are
+    measured, and the step's collectives are counted (the row-parallel
+    all-reduces; zamba2's and xlstm's decode also gather their recurrent
+    states)."""
+    r = run_cell(arch, shape, multi, quantized=quantized)
+    assert not dist.is_initialized()
+    assert r["status"] == "ok", r
+    assert r["argument_bytes"] == _reference_bytes(monkeypatch, arch, shape,
+                                                   multi, quantized)
+    assert r["temp_bytes"] is not None and r["temp_bytes"] > 0, r
+    kinds = r["detail"]["collectives_by_kind"]
+    assert kinds.get("all_reduce", 0) > 0, kinds
+    if get_config(arch).block_kind != "attn" and shape != "long_500k":
+        assert kinds.get("all_gather", 0) > 0, kinds
+    rf = r["roofline"]
+    for key in ("compute_s", "memory_s", "collective_s", "bound_s"):
+        assert math.isfinite(rf[key]) and rf[key] > 0, (key, rf)
+
+
+def test_paged_path_refuses_a_model_axis():
+    """Paged serving runs on one rank, as the reference's does: under a
+    `model` axis its layer loop raises `TensorParallelUnsupported`."""
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    params = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    k_pages, v_pages = init_paged_pool(cfg, 4, 4, device="cpu")
+    table = torch.zeros((1, 2), dtype=torch.int32)
+    pos = torch.zeros((1,), dtype=torch.int32)
+    with sharding_rules(Mesh((1, 2), ("data", "model")), SERVE_RULES):
+        with pytest.raises(TensorParallelUnsupported, match="one rank"):
+            decode_step_paged(params, torch.zeros((1, 1), dtype=torch.int64),
+                              k_pages, v_pages, table, pos, cfg,
+                              impl="ref")
 
 
 def test_skipped_cells_keep_the_reference_reason():
@@ -147,3 +187,69 @@ def test_cli_writes_the_artifact(tmp_path, capsys):
     assert "[OK] gemma3-27b|decode_32k|single" in out
     files = list(tmp_path.glob("*.json"))
     assert [f.name for f in files] == ["gemma3-27b__decode_32k__single.json"]
+
+
+def test_llava_train_step_gathers_the_split_patches():
+    """A training batch's spec splits the stub patches' d_model over
+    `model` (as the reference's `train_batch_specs`): llava's step on
+    16 x 16 gathers that block before joining it to the embedding (it
+    raised on the size mismatch before). Smoke widths, 64 positions."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist.sharding import TRAIN_RULES
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cfg = dataclasses.replace(get_config("llava-next-34b", smoke=True),
+                              frontend_tokens=16)
+    shape = ShapeConfig("train_64", 64, 256, "train")
+    with D.fake_world(256):
+        mesh = make_production_mesh()
+        with sharding_rules(mesh, TRAIN_RULES,
+                            rows=S.batch_rows(mesh, shape.global_batch)):
+            step, args = D.build_step(cfg, shape, mesh)
+            assert args[2]["patches"].shape[-1] < cfg.d_model
+            _, _, metrics = step()
+    assert metrics["loss"].shape == ()
+    assert not dist.is_initialized()
+
+
+def test_xlstm_train_step_at_published_width(monkeypatch):
+    """xlstm-350m's training step at its published width on 16 x 16, 16
+    positions (the cells' Python time loop runs on meta tensors at about
+    a second a position here, so the `train_4k` cell takes over an hour):
+    the mLSTM's q / k / v blocks (128 of a head's 512 columns) are
+    gathered whole and their gradients cut back, `w_down`'s partial sums
+    all-reduced. Rank 0's argument bytes equal the reference's specs' for
+    the same shape; the loss is a scalar."""
+    from repro.configs.base import ShapeConfig as JShapeConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import TRAIN_RULES
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cfg = get_config("xlstm-350m")
+    shape = ShapeConfig("train_16", 16, 256, "train")
+    with D.fake_world(256):
+        mesh = make_production_mesh()
+        with sharding_rules(mesh, TRAIN_RULES,
+                            rows=S.batch_rows(mesh, shape.global_batch)):
+            step, args = D.build_step(cfg, shape, mesh)
+            hd = cfg.ssm_expand * cfg.d_model // cfg.n_heads
+            assert args[0]["layers"]["mlstm"]["wq"].shape[-1] < hd
+            collectives.reset_counts()
+            _, _, metrics = step()
+            counts = collectives.read_counts()
+    assert not dist.is_initialized()
+    assert metrics["loss"].shape == ()
+    assert counts["all_gather"]["calls"] > 0
+    assert counts["all_reduce"]["calls"] > 0
+    arg_bytes = sum(t.numel() * t.element_size()
+                    for a in args for t in D._tensors(a))
+    assert arg_bytes == _reference_bytes(
+        monkeypatch, "xlstm-350m",
+        JShapeConfig("train_16", 16, 256, "train"), False)

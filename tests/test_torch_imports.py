@@ -16,6 +16,7 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "examples" / "train_lm_torch.py",
     REPO / "examples" / "quickstart_torch.py",
     REPO / "examples" / "serve_pim_gemv_torch.py",
+    REPO / "examples" / "tensor_parallel_torch.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 

@@ -74,10 +74,10 @@ def _tp_case(params, arch, dtype, mesh, tokens, cache_len, new_tokens,
 
     cfg = _cfg(arch, dtype, **(overrides or {}))
     local = place_tree(params, specs.param_shardings(params, mesh), mesh)
-    rows = specs._fit(mesh, tokens.shape[0], specs.batch_axes(mesh))
+    rows = specs.batch_rows(mesh, tokens.shape[0])
     toks = local_block(tokens, specs._spec(rows), mesh)
     collectives.reset_counts()
-    with torch.no_grad(), sharding_rules(mesh, SERVE_RULES):
+    with torch.no_grad(), sharding_rules(mesh, SERVE_RULES, rows=rows):
         logits, _ = forward(local, toks, cfg)
         out, cache = prefill(local, toks, cfg, cache_len)
         greedy = [out[:, -1].float().argmax(-1)]
@@ -115,25 +115,29 @@ def dp_rank(params, arch, dtype, batch, lr, steps, warmup):
     return {"params": p, "metrics": {k: float(v) for k, v in metrics.items()}}
 
 
-def tp_train_rank(cases, lr, steps):
-    """`steps` tensor-parallel `make_train_step` steps on a (1, 4) mesh
-    (name -> f32 masters, arch, config overrides, batch): each rank
-    trains its blocks; the whole params gathered back, and the metrics."""
+def tp_train_rank(cases, lr, steps, mesh_shape=(1, 4)):
+    """`steps` tensor-parallel `make_train_step` steps on a (data, model)
+    mesh (name -> f32 masters, arch, config overrides, batch): each rank
+    trains its blocks on its rows of the batch; the whole params gathered
+    back, and the metrics."""
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.train.step import make_train_step
 
-    mesh = Mesh((1, 4), ("data", "model"))
+    mesh = Mesh(mesh_shape, ("data", "model"))
     out = {}
     for name, (params, arch, over, batch) in cases.items():
         cfg = _cfg(arch, "float32", **over)
         p_specs = specs.param_shardings(params, mesh)
         p = place_tree(params, p_specs, mesh)
+        rows = specs.batch_rows(mesh, batch["tokens"].shape[0])
+        mine = {k: local_block(v, specs._spec(rows), mesh)
+                for k, v in batch.items()}
         step = make_train_step(cfg, AdamWConfig(lr=lr), warmup_steps=0,
                                mesh=mesh, param_specs=p_specs)
         opt = adamw_init(p)
-        with sharding_rules(mesh):
+        with sharding_rules(mesh):   # the step says how rows are split
             for _ in range(steps):
-                p, opt, metrics = step(p, opt, batch)
+                p, opt, metrics = step(p, opt, mine)
         out[name] = {"params": gather_tree(p, p_specs, mesh),
                      "metrics": {k: float(v) for k, v in metrics.items()}}
     return out
@@ -242,3 +246,83 @@ def _to_card(tree):
         return PimWeight(tree.planes.cuda(), tree.scale.cuda(), tree.n_bits,
                          tree.group)
     return tree.cuda()
+
+
+# ---------------------------------------------------------------------------
+# the MoE, recurrent and encoder-decoder stacks (test_torch_dist_families.py)
+# ---------------------------------------------------------------------------
+
+#: the cache leaves a family's test holds against the one-rank cache cut
+#: by `cache_shardings`
+FAMILY_CACHE_KEYS = ("ssm", "conv", "C", "n", "m", "sc", "sn", "sm", "sh",
+                     "xk", "xv", "k", "v", "shared_k", "shared_v")
+
+
+def _family_case(params, arch, dtype, mesh, tokens, frames, cache_len,
+                 new_tokens, overrides=None):
+    """forward (or forward_encdec), prefill and greedy decode on this
+    rank's blocks and rows; the cache leaves after prefill; the MoE's
+    load-balance sum."""
+    from repro_torch.models import (decode_step, decode_step_encdec, forward,
+                                    forward_encdec, prefill, prefill_encdec)
+
+    cfg = _cfg(arch, dtype, **(overrides or {}))
+    local = place_tree(params, specs.param_shardings(params, mesh), mesh)
+    rows = specs.batch_rows(mesh, tokens.shape[0])
+    toks = local_block(tokens, specs._spec(rows), mesh)
+    collectives.reset_counts()
+    with torch.no_grad(), sharding_rules(mesh, SERVE_RULES, rows=rows):
+        if cfg.is_encoder_decoder:
+            fr = local_block(frames, specs._spec(rows), mesh)
+            logits, aux = forward_encdec(local, fr, toks, cfg)
+            out, cache = prefill_encdec(local, fr, toks, cfg, cache_len)
+        else:
+            logits, aux = forward(local, toks, cfg)
+            out, cache = prefill(local, toks, cfg, cache_len)
+        kept = {k: cache[k].clone() for k in FAMILY_CACHE_KEYS if k in cache}
+        greedy = [out[:, -1].float().argmax(-1)]
+        for _ in range(new_tokens - 1):
+            tok = greedy[-1][:, None]
+            out, cache = (decode_step_encdec(local, tok, cache, cfg)
+                          if cfg.is_encoder_decoder
+                          else decode_step(local, tok, cache, cfg))
+            greedy.append(out[:, -1].float().argmax(-1))
+    return {"logits": logits.float(), "moe_aux": float(aux["moe_aux"]),
+            "tokens": torch.stack(greedy, 1), "cache": kept,
+            "counts": collectives.read_counts()}
+
+
+def moe_rows_case(params, x, top_k, capacity_factor, mesh):
+    """One MoE layer on this rank's rows of `x` under the mesh: its rows
+    of the output and the (global) load-balance loss and dropped
+    fraction."""
+    from repro_torch.models.moe import moe_forward
+
+    rows = specs.batch_rows(mesh, x.shape[0])
+    with torch.no_grad(), sharding_rules(mesh, SERVE_RULES, rows=rows):
+        y, aux = moe_forward(params, local_block(x, specs._spec(rows), mesh),
+                             top_k=top_k, capacity_factor=capacity_factor)
+    return {"y": y, **{k: float(v) for k, v in aux.items()}}
+
+
+def families_rank(cases, mesh_shape, moe_rows=None, train=None):
+    """Each (name -> params, arch, dtype, tokens, frames, overrides) case
+    on a (data, model) mesh of every rank; the MoE layer on the rows of
+    the batch, on that mesh and, in a world of 8, on a (pod, data, model)
+    = (2, 2, 2) mesh; tensor-parallel training (mesh name ->
+    `tp_train_rank`'s arguments)."""
+    mesh = Mesh(mesh_shape, ("data", "model"))
+    out = {"cases": {
+        name: _family_case(p, arch, dt, mesh, toks, frames, 24, 6, over)
+        for name, (p, arch, dt, toks, frames, over) in cases.items()}}
+    if moe_rows is not None:
+        out["moe_rows"] = moe_rows_case(*moe_rows, mesh)
+        if mesh.size == 8:
+            out["moe_rows_pod"] = moe_rows_case(
+                *moe_rows, Mesh((2, 2, 2), ("pod", "data", "model")))
+            # 3 rows do not divide over data: every rank holds them all
+            layer, x, *rest = moe_rows
+            out["moe_rows_whole"] = moe_rows_case(layer, x[:3], *rest, mesh)
+    if train is not None:
+        out["train"] = {k: tp_train_rank(*a) for k, a in train.items()}
+    return out
