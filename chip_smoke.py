@@ -271,7 +271,11 @@ Phases, one line each:
                against their plain versions at every shape and row count
                the pim8 runs gave them, and at whisper's shard shapes);
                (f') each in f32 at 2 layers against one rank: prefill
-               logits within 1e-4, greedy tokens equal
+               logits within 1e-4, greedy tokens equal; (g) phi3.5-moe's
+               f32 training at 2 layers (d_ff cut to 1600) on (data,
+               model) = (2, 1) in 2 microbatches at capacity factor 0.5,
+               2 steps: metrics within 1e-5 and params within 1e-4 of
+               rank 0's steps on one rank over the whole batch
  21. tools    the port's tools on the card: [lint] the dispatch lint
                (`analysis.dispatch_lint`) of the real paged decode and
                prefill steps of `serve/compiled.py` at qwen2-1.5b's full
@@ -289,7 +293,9 @@ Phases, one line each:
                events, and bound / measured <= 1; [dryrun] the dry run of
                qwen2-1.5b decode_32k on 2 x 16 x 16 and train_4k on 16 x
                16, of phi3.5-moe, llama4-scout, zamba2, xlstm and whisper
-               decode_32k on 2 x 16 x 16 and zamba2's train_4k on 16 x 16,
+               decode_32k on 2 x 16 x 16, zamba2's and xlstm-350m's
+               train_4k and llava-next-34b's prefill_32k on 16 x 16 (the
+               last two's argument bytes held to the reference's specs),
                in a child process (started after the build, one CPU
                thread; its fake world of 512 / 256 ranks never meets the
                [dist] phase's): status ok, per-rank bytes, collectives
@@ -3045,6 +3051,15 @@ DIST_B, DIST_T, DIST_NEW = 8, 512, 32
 DIST_TRAIN_ROWS, DIST_TRAIN_SEQ, DIST_TRAIN_STEPS = 4, 512, 2
 #: (c) the reduction networks: one 16 MiB f32 shard per rank
 DIST_REDUCE_NUMEL = 4 << 20
+#: (g) the MoE's microbatches across data: phi3.5-moe at 2 layers, f32,
+#: its d_ff cut to a quarter (two ranks' f32 training state and the
+#: one-rank steps share the card), capacity factor 0.5 (capacity binds),
+#: 8 x 128 rows in 2 microbatches, 2 steps at the full lr
+DIST_MB = dict(arch="phi3.5-moe-42b-a6.6b", layers=2, d_ff=1600,
+               capacity_factor=0.5, rows=8, seq=128, micro=2, steps=2)
+DIST_MB_METRICS = ("loss", "nll", "accuracy", "moe_aux", "grad_norm")
+#: (g) against one rank: the metrics (grad_norm relative), the params
+DIST_MB_METRIC_TOL, DIST_MB_PARAM_TOL = 1e-5, 1e-4
 #: TP = 2 shard shapes of qwen2-1.5b's projections [K -> M]: wq and wo,
 #: wk / wv (one kv head), w_gate / w_up, w_down
 DIST_SHARD_MATRICES = ((1536, 768), (768, 1536), (1536, 128), (1536, 4480),
@@ -3383,9 +3398,82 @@ def dist_dp_train(dev, mesh) -> dict:
     return out
 
 
+def dist_moe_micro(dev) -> dict:
+    """(g) phi3.5-moe's f32 training in DIST_MB["micro"] microbatches on
+    (data, model) = (2, 1), each rank on its rows, capacity binding: the
+    step re-lays the rows so a rank's microbatch i is its block of the
+    global microbatch i, and the MoE routes the rows one rank routes.
+    Rank 0 then runs the same steps on one rank on the whole batch and
+    compares metrics and params."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import local_block
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+
+    p = DIST_MB
+    cfg = dataclasses.replace(get_config(p["arch"]), n_layers=p["layers"],
+                              d_ff=p["d_ff"], dtype="float32",
+                              capacity_factor=p["capacity_factor"])
+    mesh = Mesh((2, 1), ("data", "model"))
+
+    def run(split):
+        params = dist_init(cfg, dev, torch.float32)
+        opt = adamw_init(params)
+        step = make_train_step(cfg, AdamWConfig(), warmup_steps=0,
+                               n_microbatches=p["micro"],
+                               mesh=mesh if split else None)
+        metrics, times = [], []
+        for s in range(p["steps"]):
+            batch = train_batch(cfg, s, p["rows"], p["seq"], dev)
+            if split:
+                batch = {k: local_block(v, ("data",), mesh).contiguous()
+                         for k, v in batch.items()}
+            torch.cuda.synchronize(dev)
+            collectives.reset_counts()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t0)
+            metrics.append({k: float(m[k]) for k in DIST_MB_METRICS})
+        del opt
+        return params, metrics, times, collectives.read_counts()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, metrics, times, counts = run(True)
+    out = dict(step_s=",".join(f"{t:.4f}" for t in times),
+               loss=",".join(f"{m['loss']:.6f}" for m in metrics),
+               moe_aux=",".join(f"{m['moe_aux']:.6f}" for m in metrics),
+               all_gather_calls=counts["all_gather"]["calls"],
+               all_reduce_calls=counts["all_reduce"]["calls"],
+               reduce_scatter_calls=counts["reduce_scatter"]["calls"],
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    if mesh.rank == 0:
+        gc.collect()
+        one, one_metrics, _, _ = run(False)
+        out["metric_max_abs_err"] = max(
+            abs(a[k] - b[k]) for a, b in zip(metrics, one_metrics)
+            for k in DIST_MB_METRICS if k != "grad_norm")
+        out["grad_norm_rel_err"] = max(
+            abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+            for a, b in zip(metrics, one_metrics))
+        out["params_max_abs_err"] = max(
+            float((a - b).abs().max())
+            for a, b in zip(_leaves(params), _leaves(one)))
+        del one
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def dist_pair(ckpt_dir, device="cuda") -> dict:
-    """What each of the two ranks of (a), (a'), (a''), (b), (d), (e) runs
-    (`repro_torch.dist.spawn`): TP on a (1, 2) mesh, DP on (2,)."""
+    """What each of the two ranks of (a), (a'), (a''), (b), (d), (e), (g)
+    runs (`repro_torch.dist.spawn`): TP on a (1, 2) mesh, DP on (2,), the
+    MoE's microbatches on (2, 1)."""
     from repro_torch.launch.mesh import Mesh
 
     dev = torch.device(device)
@@ -3399,8 +3487,10 @@ def dist_pair(ckpt_dir, device="cuda") -> dict:
     out["a1"] = dist_tp_parity(dev, tp, ckpt_dir)
     t2 = time.perf_counter()
     out.update(dist_dp_train(dev, dp))
+    t3 = time.perf_counter()
+    out["g"] = dist_moe_micro(dev)
     out["seconds"] = {"a": t1 - t0, "a' and e": t2 - t1,
-                      "b and d": time.perf_counter() - t2}
+                      "b and d": t3 - t2, "g": time.perf_counter() - t3}
     return out
 
 
@@ -3833,6 +3923,21 @@ def dist(dev, errs, laps) -> dict:
               f"(d) compressed_psum: {d}")
     check(pair[0]["b"]["loss"] == pair[1]["b"]["loss"],
           "(b) the ranks' losses differ")
+    for rank, r in enumerate(pair):
+        g = r["g"]
+        say("dist", case="g", model="phi3.5-moe", layers=DIST_MB["layers"],
+            d_ff=DIST_MB["d_ff"], dtype="float32", data=2, model_axis=1,
+            microbatches=DIST_MB["micro"],
+            capacity_factor=DIST_MB["capacity_factor"],
+            batch=f"{DIST_MB['rows']}x{DIST_MB['seq']}", rank=rank,
+            metric_tol=DIST_MB_METRIC_TOL, param_tol=DIST_MB_PARAM_TOL, **g)
+    g = pair[0]["g"]
+    check(g["metric_max_abs_err"] <= DIST_MB_METRIC_TOL
+          and g["grad_norm_rel_err"] <= DIST_MB_METRIC_TOL
+          and g["params_max_abs_err"] <= DIST_MB_PARAM_TOL,
+          f"(g) MoE microbatches across data vs one rank: {g}")
+    check(pair[0]["g"]["loss"] == pair[1]["g"]["loss"],
+          "(g) the ranks' losses differ")
     say("dist", case="parts", **{f"rank{r}_{k}_s": v
                                  for r, p in enumerate(pair)
                                  for k, v in p["seconds"].items()})
@@ -3882,7 +3987,12 @@ TOOLS_DRYRUN = (("qwen2-1.5b", "decode_32k", True),
                 ("xlstm-350m", "decode_32k", True),
                 ("whisper-medium", "decode_32k", True),
                 ("zamba2-1.2b", "train_4k", False),
-                ("xlstm-350m", ("train_16", 16, 256, "train"), False))
+                ("xlstm-350m", "train_4k", False),
+                ("llava-next-34b", "prefill_32k", False))
+#: rank 0's argument bytes of cells of TOOLS_DRYRUN by the reference's
+#: own specs (`tests/test_torch_dryrun.py` holds them to the reference)
+TOOLS_DRYRUN_BYTES = {"xlstm-350m|train_4k|single": 2_610_212_868,
+                      "llava-next-34b|prefill_32k|single": 8_765_871_616}
 #: timed calls of each step in [roofline] (median)
 ROOF_CALLS = 10
 
@@ -3892,11 +4002,9 @@ def dryrun_child() -> int:
     each (the fake world of 256 / 512 ranks lives and dies in this
     process)."""
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.dryrun import run_cell
     for arch, shape, multi in TOOLS_DRYRUN:
-        r = run_cell(arch, shape if isinstance(shape, str)
-                     else ShapeConfig(*shape), multi)
+        r = run_cell(arch, shape, multi)
         r.get("detail", {}).pop("flops_by_op", None)
         print(json.dumps(r), flush=True)
     return 0
@@ -4165,6 +4273,10 @@ def tools_collect(children):
             collective_s=rf.get("collective_s"), bound=rf.get("bound"),
             useful_flops_ratio=rf.get("useful_flops_ratio"))
         check(r["status"] == "ok", f"[dryrun] {r['cell']}: {r}")
+        check(r["argument_bytes"] == TOOLS_DRYRUN_BYTES.get(
+            r["cell"], r["argument_bytes"]),
+            f"[dryrun] {r['cell']}: argument bytes {r['argument_bytes']}, "
+            f"the reference's specs give {TOOLS_DRYRUN_BYTES.get(r['cell'])}")
     q = outs["quickstart"][1]
     s = outs["serve_pim_gemv"][1]
     for line in (q + s).splitlines():

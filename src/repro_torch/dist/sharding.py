@@ -159,14 +159,22 @@ def sharding_rules(mesh, rules: Optional[Dict[str, Axes]] = None,
 
 
 @contextlib.contextmanager
-def suspended():
-    """No sharding context inside (whole values, as on one rank)."""
+def within(ctx: Optional[ShardingContext]):
+    """`ctx` as this thread's context inside (None: no context). The
+    context is per thread, and the autograd engine runs the backward of
+    CUDA tensors, and so a rematerialised layer's recompute, on a thread
+    of its own: code that runs there re-enters the context it captured."""
     prev = current_context()
-    _local.ctx = None
+    _local.ctx = ctx
     try:
-        yield
+        yield ctx
     finally:
         _local.ctx = prev
+
+
+def suspended():
+    """No sharding context inside (whole values, as on one rank)."""
+    return within(None)
 
 
 class TensorParallelUnsupported(ValueError):

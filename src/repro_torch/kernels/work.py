@@ -17,6 +17,11 @@ must do, from the shapes (and, for the attention kernels, the lengths):
 the formulas `chip_smoke.py`'s `bound()` is fed with. The work is the
 same whichever route implements the kernel.
 
+A loop on meta tensors whose steps are alike (`models.scan`) runs one
+step for many: inside `repeat(k)` (and between `enter_repeat(k)` /
+`leave_repeat(k)`, which the step's autograd nodes call in the backward)
+every op and dispatch counts k times, the product of the repeats open.
+
 Nothing is computed unless someone listens: `WorkMeter` (the roofline's
 count) records each dispatch's work, `KernelScopes` (the dispatch lint)
 only tracks that a dispatch is open. While any dispatch is open,
@@ -28,12 +33,39 @@ only under a meter, never in a timed or linted step.
 
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Callable, Dict, List, Tuple
 
 import torch
 
 #: the listeners now open (meters and scope trackers), innermost last
 _LISTENERS: List["KernelScopes"] = []
+#: the repeat factors now open (`repeat`), innermost last
+_REPEATS: List[int] = []
+
+
+def repeats() -> int:
+    """How many times an op or dispatch counts now."""
+    return math.prod(_REPEATS)
+
+
+def enter_repeat(k: int) -> None:
+    _REPEATS.append(k)
+
+
+def leave_repeat(k: int) -> None:
+    _REPEATS.remove(k)
+
+
+@contextlib.contextmanager
+def repeat(k: int):
+    """Ops and dispatches inside count `k` times each."""
+    enter_repeat(k)
+    try:
+        yield
+    finally:
+        leave_repeat(k)
 
 
 class KernelScopes:
@@ -63,24 +95,25 @@ class WorkMeter(KernelScopes):
 
     def __init__(self):
         super().__init__()
-        self.records: List[Tuple[str, float, float]] = []
+        self.records: List[Tuple[str, float, float, int]] = []
 
     def record(self, name: str, flops: float, nbytes: float) -> None:
-        self.records.append((name, float(flops), float(nbytes)))
+        k = repeats()
+        self.records.append((name, k * float(flops), k * float(nbytes), k))
 
     @property
     def flops(self) -> float:
-        return sum(f for _, f, _ in self.records)
+        return sum(r[1] for r in self.records)
 
     @property
     def bytes(self) -> float:
-        return sum(b for _, _, b in self.records)
+        return sum(r[2] for r in self.records)
 
     def by_kernel(self) -> Dict[str, Dict[str, float]]:
         out: Dict[str, Dict[str, float]] = {}
-        for name, f, b in self.records:
+        for name, f, b, k in self.records:
             e = out.setdefault(name, {"calls": 0, "flops": 0.0, "bytes": 0.0})
-            e["calls"] += 1
+            e["calls"] += k
             e["flops"] += f
             e["bytes"] += b
         return out

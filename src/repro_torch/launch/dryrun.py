@@ -24,12 +24,17 @@ to run on shapes. Shape errors, sharding mismatches and refusals surface
 there as they would at compile time.
 
 Meta tensors, not `FakeTensorMode`. Both propagate shapes without
-storage; meta tensors do it in C++, while a fake tensor's every op
-passes through Python (its dispatch cache and output wrapping), which
-made a `train_4k` step several times slower under the counting and
-memory modes this dry run also runs. The step counter of the optimizer
-stays a real CPU tensor, as in training: the schedule reads it on the
-host.
+storage. A fake tensor's every op passes through Python (its dispatch
+cache and output wrapping), which made a `train_4k` step several times
+slower under the counting and memory modes this dry run also runs. On
+meta tensors, matmuls and views are C++, but elementwise ops go through
+PyTorch's Python reference meta kernels (`torch._prims_common`): about
+a millisecond an op, so a step costs what it dispatches. The models'
+loops over positions, blocks and chunks are `models.scan`s, which on
+meta run four of their alike steps and account exactly for the others
+(FLOPs, memory; see that module), so a cell's cost no longer grows with
+its sequence length. The step counter of the optimizer stays a real CPU
+tensor, as in training: the schedule reads it on the host.
 
 Per-rank bytes. `bytes_per_device` is the bytes of the rank's argument
 blocks (params, optimizer state, cache, batch) plus the peak of

@@ -67,8 +67,9 @@ DTYPE_BYTES = {
 
 class FlopCount(TorchDispatchMode):
     """FLOPs of the aten ops dispatched inside, by op, priced by
-    `torch.utils.flop_counter`'s registry; ops inside an open kernel
-    dispatch (`kernels.work.inside()`) are the kernel's, and skipped."""
+    `torch.utils.flop_counter`'s registry, each counted
+    `kernels.work.repeats()` times; ops inside an open kernel dispatch
+    (`kernels.work.inside()`) are the kernel's, and skipped."""
 
     def __init__(self):
         super().__init__()
@@ -80,7 +81,7 @@ class FlopCount(TorchDispatchMode):
         out = func(*args, **kwargs)
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None and not work.inside():
-            f = float(formula(*args, **kwargs, out_val=out))
+            f = float(formula(*args, **kwargs, out_val=out)) * work.repeats()
             self.flops += f
             name = str(func._overloadpacket)
             self.by_op[name] = self.by_op.get(name, 0.0) + f

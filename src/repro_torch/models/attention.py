@@ -43,6 +43,7 @@ from ..kernels.paged_common import requantize_page_update
 from ..kernels.paged_prefill import paged_prefill
 from ..quant.bitplane import pim_linear
 from .common import NEG_INF, Params, apply_rope, dense_init
+from .scan import scan
 
 
 def _select_bucket_plan(call, bucket_plans, bucket_perms, plan_class):
@@ -149,27 +150,24 @@ def _chunked_gqa(
     an odd T and would make this Python loop T times longer. Each
     block's scores are dropped before the next, so one
     [B, KV, G, Q_BLOCK, kb] f32 block (and its exponentials) is alive
-    at a time."""
+    at a time. Both walks are `models.scan`s."""
     b, t, h, hd = q.shape
     s, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     kb = _pick_block(s, KV_BLOCK)
     scale = hd ** -0.5
-    outs = []
-    for i in range(0, t, Q_BLOCK):
-        qp = q_pos[i: i + Q_BLOCK]
+
+    def q_block(_, i):
+        qp = q_pos[i * Q_BLOCK: (i + 1) * Q_BLOCK]
         qb = qp.shape[0]
-        qf = q[:, i: i + qb].reshape(b, qb, kvh, g, hd).float() * scale
-        acc = torch.zeros((b, kvh, g, qb, hd), dtype=torch.float32,
-                          device=q.device)
-        m = torch.full((b, kvh, g, qb), NEG_INF, dtype=torch.float32,
-                       device=q.device)
-        l = torch.zeros((b, kvh, g, qb), dtype=torch.float32,
-                        device=q.device)
-        for j in range(0, s, kb):
-            kp = kv_pos[j: j + kb]
+        qf = q[:, i * Q_BLOCK: i * Q_BLOCK + qb].reshape(
+            b, qb, kvh, g, hd).float() * scale
+
+        def kv_block(run, j):
+            acc, m, l = run
+            kp = kv_pos[j * kb: (j + 1) * kb]
             scores = torch.einsum("bqkgh,bskh->bkgqs", qf,
-                                  k[:, j: j + kb].float())
+                                  k[:, j * kb: (j + 1) * kb].float())
             ok = torch.ones((qb, kb), dtype=torch.bool, device=q.device)
             if causal:
                 ok = ok & (kp[None, :] <= qp[:, None])
@@ -182,12 +180,22 @@ def _chunked_gqa(
             alpha = torch.exp(m - m_new)
             l = alpha * l + p.sum(dim=-1)
             acc = alpha[..., None] * acc + torch.einsum(
-                "bkgqs,bskh->bkgqh", p, v[:, j: j + kb].float())
-            m = m_new
-            del p
+                "bkgqs,bskh->bkgqh", p, v[:, j * kb: (j + 1) * kb].float())
+            return (acc, m_new, l), ()
+
+        (acc, _, l), _ = scan(kv_block, (
+            torch.zeros((b, kvh, g, qb, hd), dtype=torch.float32,
+                        device=q.device),
+            torch.full((b, kvh, g, qb), NEG_INF, dtype=torch.float32,
+                       device=q.device),
+            torch.zeros((b, kvh, g, qb), dtype=torch.float32,
+                        device=q.device)), s // kb)
         out = acc / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, qb, h * hd))
-    return torch.cat(outs, dim=1).to(q.dtype)
+        return None, (out.permute(0, 3, 1, 2, 4).reshape(b, qb, h * hd),)
+
+    _, (out,) = scan(q_block, None, -(-t // Q_BLOCK), join=(("cat", 1),),
+                     alike=t // Q_BLOCK)
+    return out.to(q.dtype)
 
 
 def _full_seq_attention(q, k, v, q_pos, kv_pos, window, causal):

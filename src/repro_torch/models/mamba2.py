@@ -8,8 +8,8 @@ State-space duality layer with n_groups = 1:
 
 Prefill splits the sequence into chunks of `CHUNK` steps; within a chunk
 the recurrence is unrolled into an attention-like quadratic form, and a
-Python loop carries the [B, H, P, N] state across chunk boundaries (the
-reference's `lax.scan`). The [B, L, L, H] decay tensor lives one chunk
+`models.scan` carries the [B, H, P, N] state across chunk boundaries
+(the reference's `lax.scan`). The [B, L, L, H] decay tensor lives one chunk
 at a time. Decode is the recurrence, a handful of projections through
 `pim_linear`.
 
@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from ..quant.bitplane import pim_linear
 from .common import Params, dense_init, rmsnorm, rmsnorm_params
+from .scan import scan
 
 CHUNK = 256
 #: the reference's clip of the log-decay exponents
@@ -167,16 +168,17 @@ def mamba2_forward(
         bs_ = F.pad(bs_, (0, 0, 0, lpad))
         cs = F.pad(cs, (0, 0, 0, lpad))
         dts = F.pad(dts, (0, 0, 0, lpad))
-    h = (init_state if init_state is not None
-         else torch.zeros((b, h_heads, p, n), dtype=torch.float32,
-                          device=u.device))
-    ys = []
-    for c0 in range(0, t + lpad, chunk):
-        sl = slice(c0, c0 + chunk)
+
+    def step(h, c):
+        sl = slice(c * chunk, (c + 1) * chunk)
         h, yk = _chunk_step(h, xs[:, sl], bs_[:, sl], cs[:, sl], dts[:, sl],
                             a)
-        ys.append(yk)
-    y = torch.cat(ys, dim=1)[:, :t]
+        return h, (yk,)
+    h, (y,) = scan(step, init_state if init_state is not None
+                   else torch.zeros((b, h_heads, p, n), dtype=torch.float32,
+                                    device=u.device),
+                   (t + lpad) // chunk, join=(("cat", 1),))
+    y = y[:, :t]
     y = y + params["D"][None, None, :, None] * x.float()
     y = y.reshape(b, t, d_inner).to(u.dtype)
     y = rmsnorm(params["norm"], y * F.silu(z))

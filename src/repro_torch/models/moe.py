@@ -58,6 +58,7 @@ from ..kernels import ops as kops
 from ..quant.bitplane import PimWeight
 from .common import ACTS, Params, dense_init
 from .mlp import init_swiglu, swiglu
+from .scan import scan
 
 #: token chunk of the dispatch (the reference's)
 MOE_CHUNK = 2048
@@ -197,20 +198,18 @@ def moe_forward(params: Params, x: torch.Tensor, *, top_k: int,
     n_chunks = flat.shape[0] // chunk
     capacity = expert_capacity(chunk, top_k, e, capacity_factor)
 
-    ys, fps, drs = [], [], []
-    for c in range(n_chunks):
-        y, fp, dr = _dispatch_chunk(params, flat[c * chunk:(c + 1) * chunk],
-                                    top_k, capacity, act, impl)
-        ys.append(y)
-        fps.append(fp)
-        drs.append(dr)
-    y = torch.cat(ys)[:n].reshape(b, t, d)
+    def step(_, c):
+        return None, _dispatch_chunk(params, flat[c * chunk:(c + 1) * chunk],
+                                     top_k, capacity, act, impl)
+    _, (y, fps, drs) = scan(step, None, n_chunks,
+                            join=(("cat", 0), ("stack", 0), ("stack", 0)))
+    y = y[:n].reshape(b, t, d)
     if rows:
         y = local_rows(y, rows)
     if "shared" in params:
         y = y + swiglu(params["shared"], x, act, impl, d_ff=shared_d_ff)
     aux = {
-        "load_balance_loss": e * torch.stack(fps).mean(dim=0).sum(),
-        "dropped_fraction": torch.stack(drs).mean(),
+        "load_balance_loss": e * fps.mean(dim=0).sum(),
+        "dropped_fraction": drs.mean(),
     }
     return y, aux

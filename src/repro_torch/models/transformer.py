@@ -63,9 +63,11 @@ from ..dist.parallel import (
 from ..dist.sharding import (
     STATE_DIMS,
     TensorParallelUnsupported,
+    current_context,
     shard,
     state_model_dim,
     tensor_parallel,
+    within,
 )
 from ..kernels.ops import is_bucket_plan
 from ..quant.bitplane import PimWeight
@@ -385,8 +387,15 @@ def remat(cfg: ModelConfig, body):
     def run(x, l):
         if not (torch.is_grad_enabled() and x.requires_grad):
             return body(x, l)
+        ctx = current_context()
+
+        def in_context(x, l):
+            # the recompute runs on the autograd engine's thread for CUDA
+            # tensors, which has no sharding context of its own
+            with within(ctx):
+                return body(x, l)
         return torch.utils.checkpoint.checkpoint(
-            body, x, l, use_reentrant=False, preserve_rng_state=False)
+            in_context, x, l, use_reentrant=False, preserve_rng_state=False)
     return run
 
 

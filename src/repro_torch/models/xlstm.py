@@ -4,9 +4,10 @@ memory) and the sLSTM (scalar memory).
 The mLSTM keeps a matrix memory C [hd x hd] per head that each step
 updates with a rank-1 term and reads with a GEMV, the update/readout
 dataflow of a PIM block row. Both cells are recurrences over time: the
-reference's `lax.scan` is a Python loop over T here, about a dozen
-torch ops per token, so a long prompt's prefill is bound by the host's
-dispatch. The stabiliser `m` starts at -1e30 and every state is f32.
+reference's `lax.scan` is `models.scan` here, a Python loop over T on
+the card, about a dozen torch ops per token, so a long prompt's prefill
+is bound by the host's dispatch. The stabiliser `m` starts at -1e30 and
+every state is f32.
 
 State trees:
   mLSTM: {"C": [B, H, hd, hd], "n": [B, H, hd], "m": [B, H]}
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 from ..dist.parallel import row_linear, whole_linear
 from ..quant.bitplane import pim_linear
 from .common import Params, dense_init
+from .scan import scan
 
 State = Dict[str, torch.Tensor]
 
@@ -118,14 +120,17 @@ def mlstm_forward(params: Params, x: torch.Tensor, *, n_heads: int,
     b, t, _ = x.shape
     q, k, v, it, ft, og = _mlstm_inputs(params, x, n_heads, impl)
     hd = q.shape[-1]
-    state = (init_state if init_state is not None
-             else mlstm_init_state(b, n_heads, hd, x.device))
-    hs = []
-    for i in range(t):
+
+    def step(state, i):
         state, h = _mlstm_step(state, q[:, i], k[:, i], v[:, i], it[:, i],
                                ft[:, i])
-        hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(b, t, n_heads * hd)
+        return state, (h,)
+    # the initial state is not bound here, so the scan frees it after
+    # step 0, as the loop did
+    state, (h,) = scan(step, init_state if init_state is not None
+                       else mlstm_init_state(b, n_heads, hd, x.device), t,
+                       join=(("stack", 1),))
+    h = h.reshape(b, t, n_heads * hd)
     y = row_linear((og * h).to(x.dtype), params["w_down"], n_heads * hd,
                    impl)
     return (y, state) if return_state else y
@@ -218,13 +223,15 @@ def slstm_forward(params: Params, x: torch.Tensor, *, n_heads: int,
                   impl: str = "auto"):
     b, t, d = x.shape
     gx = _slstm_gates(params, x, impl)
-    state = (init_state if init_state is not None
-             else slstm_init_state(b, d, x.device))
-    hs = []
-    for i in range(t):
+
+    def step(state, i):
         state, h = _slstm_step(state, gx[:, i], params["r_gates"], n_heads)
-        hs.append(h)
-    y = pim_linear(torch.stack(hs, dim=1).to(x.dtype), params["w_out"], impl)
+        return state, (h,)
+    state, (h,) = scan(step, init_state if init_state is not None
+                       else slstm_init_state(b, d, x.device), t,
+                       join=(("stack", 1),))
+    h = h.to(x.dtype)
+    y = pim_linear(h, params["w_out"], impl)
     return (y, state) if return_state else y
 
 

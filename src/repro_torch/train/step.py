@@ -20,6 +20,17 @@ the mean over the batch axes divides that sum back. The gradient norm that clipp
 global one: leaves whole on every rank of `model` count once, and the
 squared sums of leaves split over `model` (by `param_specs`, the spec
 tree of `launch.specs.param_shardings`) are all-reduced over it.
+
+Microbatches under a mesh. The reference's microbatch i is a contiguous
+block of the global batch (rows [i B/n, (i+1) B/n)), whatever the
+sharding. With `n_microbatches > 1` and rows split over D ranks of the
+batch axes, the step first re-lays the rows (one counted all-gather of
+the batch over those axes, then a cut): rank r's microbatch i is the
+r-th of D equal sub-blocks of the reference's microbatch i. The MoE's
+row gather then joins exactly the reference's rows of microbatch i, in
+its order, so rows compete for the experts' places as there. A rank's
+rows that do not split into `n_microbatches` equal blocks are refused,
+as the reference's reshape refuses them.
 """
 
 from __future__ import annotations
@@ -160,7 +171,27 @@ def make_train_step(
                  for p, g in zip(leaves, grads)]
         return {k: v.detach() for k, v in metrics.items()}, grads
 
+    def relay(batch: Batch) -> Batch:
+        """This rank's rows re-laid so that its microbatch i is its block
+        of the reference's global microbatch i (module docstring)."""
+        d, r = mesh.axis_size(batch_axes), mesh.axis_index(batch_axes)
+        out = {}
+        for k, x in batch.items():
+            per = x.shape[0] // n_microbatches
+            whole = collectives.all_gather(x, batch_axes, 0, mesh)
+            out[k] = whole.reshape((n_microbatches, d, per)
+                                   + tuple(x.shape[1:]))[:, r].reshape(
+                                       x.shape)
+        return out
+
     def split_micro(batch: Batch) -> List[Batch]:
+        for k, x in batch.items():
+            if x.shape[0] % n_microbatches:
+                raise ValueError(
+                    f"make_train_step: {x.shape[0]} rows of {k!r} do not "
+                    f"split into {n_microbatches} microbatches")
+        if batch_axes:
+            batch = relay(batch)
         return [
             {k: x.reshape((n_microbatches, x.shape[0] // n_microbatches)
                           + tuple(x.shape[1:]))[i] for k, x in batch.items()}

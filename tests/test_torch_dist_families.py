@@ -122,6 +122,9 @@ MOE_ROWS = dict(rows=4, t=8, top_k=2, capacity_factor=0.5)
 #: half the assignments, so tokens are dropped in every layer
 MOE_TRAIN = ("phi3.5-moe", "llama4-scout")
 DATA_MESHES = ("2x2", "4x1")
+#: the same MoE runs in two microbatches: a data rank's microbatch i is its
+#: block of the global batch's microbatch i, as in the reference
+MICRO = 2
 
 REFERENCE = textwrap.dedent("""
     import dataclasses, sys
@@ -212,6 +215,10 @@ def _train_overrides(name, mesh):
     return over
 
 
+def _train_key(mesh, micro):
+    return mesh if micro == 1 else f"{mesh}/mb{micro}"
+
+
 def _train_batch(name):
     rng = np.random.default_rng(1)
     batch = {k: torch.from_numpy(rng.integers(0, 128, (8, 16)).astype(
@@ -264,11 +271,13 @@ def runs(tmp_path_factory):
                                         dtype=torch.float32)
     moe_layer, moe_x = _moe_rows_inputs()
     moe = (moe_layer, moe_x, MOE_ROWS["top_k"], MOE_ROWS["capacity_factor"])
-    train = {mesh: ({name: (masters[name], MODELS[name][0],
-                            _train_overrides(name, mesh), _train_batch(name))
-                     for name in names}, LR, TRAIN_STEPS, MESHES[mesh])
-             for mesh, names in (("1x4", NAMES), ("2x2", MOE_TRAIN),
-                                 ("4x1", MOE_TRAIN))}
+    train = {_train_key(mesh, micro): (
+        {name: (masters[name], MODELS[name][0], _train_overrides(name, mesh),
+                _train_batch(name)) for name in names},
+        LR, TRAIN_STEPS, MESHES[mesh], micro)
+        for mesh, names, micro in (
+            ("1x4", NAMES, 1), ("2x2", MOE_TRAIN, 1), ("4x1", MOE_TRAIN, 1),
+            ("2x2", MOE_TRAIN, MICRO), ("4x1", MOE_TRAIN, MICRO))}
     try:
         r8 = spawn.run("torch_dist_cases:families_rank", 8,
                        args=(cases, (2, 4), moe), timeout=150, paths=[TESTS])
@@ -434,18 +443,20 @@ def _leaves(tree, path=""):
         yield path, tree
 
 
-def _check_train(runs, name, mesh):
-    """Each rank of the world of 4 trained on `mesh`: its metrics and the
-    params gathered back against two one-rank steps on the whole batch."""
+def _check_train(runs, name, mesh, micro=1):
+    """Each rank of the world of 4 trained on `mesh` in `micro`
+    microbatches: its metrics and the params gathered back against two
+    one-rank steps on the whole batch in as many microbatches."""
     cfg = dataclasses.replace(get_config(MODELS[name][0], smoke=True),
                               dtype="float32", **_train_overrides(name, mesh))
     p = copy.deepcopy(runs["masters"][name])
     opt = adamw_init(p)
-    step = make_train_step(cfg, AdamWConfig(lr=LR), warmup_steps=0)
+    step = make_train_step(cfg, AdamWConfig(lr=LR), warmup_steps=0,
+                           n_microbatches=micro)
     for _ in range(TRAIN_STEPS):
         p, opt, m = step(p, opt, _train_batch(name))
     for r in runs["ranks"]["1x4"]:
-        got = r["train"][mesh][name]
+        got = r["train"][_train_key(mesh, micro)][name]
         for k in ("loss", "nll", "accuracy", "moe_aux"):
             assert abs(got["metrics"][k] - float(m[k])) <= 1e-5, k
         assert abs(got["metrics"]["grad_norm"] - float(m["grad_norm"])) \
@@ -476,6 +487,62 @@ def test_moe_train_steps_across_data_match_one_rank(runs, mesh, name):
     over data divides that sum back, so the load-balance loss's gradient,
     the params and the metrics equal one rank's on the whole batch."""
     _check_train(runs, name, mesh)
+
+
+@pytest.mark.parametrize("name", MOE_TRAIN)
+@pytest.mark.parametrize("mesh", DATA_MESHES)
+def test_moe_microbatches_across_data_match_one_rank(runs, mesh, name):
+    """Two f32 train steps of an MoE model on (2, 2) and (4, 1) at binding
+    capacity in two microbatches: the step re-lays each data rank's rows
+    (one all-gather of the batch), so its microbatch i is its block of
+    the global microbatch i and the MoE routes the rows the one-rank
+    step routes in that microbatch; drops, the load-balance loss, the
+    metrics and the params equal one rank's."""
+    _check_train(runs, name, mesh, MICRO)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "xlstm-350m"])
+def test_remat_recompute_on_another_thread_keeps_the_sharding_context(arch):
+    """The autograd engine runs the backward of CUDA tensors on a thread of
+    its own, where the forward's sharding context (per thread) is not
+    set; a rematerialised layer's recompute there must gather and route
+    as its forward did, or its saved tensors change shape and the
+    checkpoint refuses them. Here the forward runs on this thread and the
+    backward on another, as on the card: a smoke stack with remat on the
+    16 x 16 mesh of a fake world, meta tensors, rows split over `data`
+    (the MoE gathers them, xLSTM's q / k / v blocks are gathered)."""
+    import threading
+
+    from repro_torch.dist.sharding import TRAIN_RULES
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.optim.adamw import tree_items
+    from repro_torch.train.step import make_loss_fn
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), remat=True,
+                              n_heads=16, n_kv_heads=16, d_model=64)
+    shape = ShapeConfig("train_8", 8, 32, "train")
+    out = {}
+    with D.fake_world(256):
+        mesh = make_production_mesh()
+        with sharding_rules(mesh, TRAIN_RULES,
+                            rows=specs.batch_rows(mesh, shape.global_batch)):
+            _, (params, _, batch) = D.build_step(cfg, shape, mesh)
+            leaves = [p.requires_grad_(True) for _, p in tree_items(params)]
+            loss, _ = make_loss_fn(cfg)(params, batch)
+
+        def backward():
+            try:
+                out["grads"] = torch.autograd.grad(loss, leaves,
+                                                   allow_unused=True)
+            except Exception as e:  # reported below, with its message
+                out["error"] = e
+        t = threading.Thread(target=backward)
+        t.start()
+        t.join(timeout=120)
+    assert not t.is_alive()
+    assert "error" not in out, out.get("error")
+    assert len(out["grads"]) == len(leaves)
 
 
 def _example():

@@ -14,6 +14,12 @@ fake world of 256 / 512 ranks.
   zamba2's `decode_32k` with bit-plane weights (bytes from the
   reference's `abstract_params(cfg, quantized=True)`) give `ok` with the
   reference's bytes and counted collectives.
+* xlstm-350m's `train_4k` and llava-next-34b's `prefill_32k`, whose
+  loops over positions and blocks are `models.scan`s, end `ok` with the
+  reference's bytes, as `chip_smoke.py` pins them.
+* Pinned cells: with the loops on `models.scan` the dry run gives the
+  argument bytes, temp bytes, FLOPs and collectives the whole loops
+  gave, but for the two changes `test_pinned_cells_...` names.
 * The paged path still refuses a `model` axis
   (`TensorParallelUnsupported`).
 * The fake world is gone after a cell.
@@ -23,7 +29,9 @@ devices; a stand-in mesh (`shape` and `axis_names`, all its rules read)
 takes their place, and `NamedSharding` is patched to return the spec.
 """
 
+import importlib.util
 import math
+import os
 
 import jax
 import pytest
@@ -45,6 +53,8 @@ from repro_torch.dist.sharding import (
 from repro_torch.launch.dryrun import main, run_cell
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import decode_step_paged, init_lm, init_paged_pool
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: (arch, shape, multi-pod, bit-plane weights) of the MoE, recurrent and
 #: encoder-decoder cells held against the reference's bytes
@@ -98,6 +108,17 @@ def _reference_bytes(monkeypatch, arch, shape_name, multi,
         return (3 * _tree_bytes(params, p_specs, mesh) + 4   # m, v, step
                 + _tree_bytes(batch, b_specs, mesh))
     p_specs = JS.param_shardings(params, mesh, J_SERVE_RULES)
+    if shape.kind == "prefill":
+        tok, t_spec = JS.prefill_token_specs(cfg, shape, mesh)
+        n = _tree_bytes(params, p_specs, mesh)
+        if cfg.frontend == "vision_stub":   # the stub's positions
+            nf = cfg.frontend_tokens        # are not tokens
+            b, t = tok.shape
+            tok = jax.ShapeDtypeStruct((b, t - nf), tok.dtype)
+            patches = jax.ShapeDtypeStruct((b, nf, cfg.d_model),
+                                           jax.numpy.float32)
+            n += _spec_bytes(patches, t_spec, mesh)
+        return n + _spec_bytes(tok, t_spec, mesh)
     cache = JS.abstract_cache(cfg, shape)
     with j_sharding_rules(mesh, J_SERVE_RULES):
         c_specs = JS.cache_shardings(cache, cfg, shape, mesh)
@@ -217,13 +238,14 @@ def test_llava_train_step_gathers_the_split_patches():
 
 
 def test_xlstm_train_step_at_published_width(monkeypatch):
-    """xlstm-350m's training step at its published width on 16 x 16, 16
-    positions (the cells' Python time loop runs on meta tensors at about
-    a second a position here, so the `train_4k` cell takes over an hour):
-    the mLSTM's q / k / v blocks (128 of a head's 512 columns) are
-    gathered whole and their gradients cut back, `w_down`'s partial sums
-    all-reduced. Rank 0's argument bytes equal the reference's specs' for
-    the same shape; the loss is a scalar."""
+    """xlstm-350m's training step at its published width on 16 x 16: at
+    16 positions, the mLSTM's q / k / v blocks (128 of a head's 512
+    columns) are gathered whole and their gradients cut back, `w_down`'s
+    partial sums all-reduced, and rank 0's argument bytes equal the
+    reference's specs' for the same shape; the loss is a scalar. Then the
+    whole `train_4k` cell through `run_cell` (its time loops are
+    `models.scan`s, so 4,096 positions trace in seconds): `ok`, its
+    argument bytes the reference's and `chip_smoke.py`'s pinned bytes."""
     from repro.configs.base import ShapeConfig as JShapeConfig
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.dist import collectives
@@ -253,3 +275,111 @@ def test_xlstm_train_step_at_published_width(monkeypatch):
     assert arg_bytes == _reference_bytes(
         monkeypatch, "xlstm-350m",
         JShapeConfig("train_16", 16, 256, "train"), False)
+
+    r = run_cell("xlstm-350m", "train_4k", False)
+    assert not dist.is_initialized()
+    assert r["status"] == "ok", r
+    assert r["temp_bytes"] > 0
+    kinds = r["detail"]["collectives_by_kind"]
+    assert kinds["all_gather"] > 0 and kinds["all_reduce"] > 0
+    want = _reference_bytes(monkeypatch, "xlstm-350m", "train_4k", False)
+    assert r["argument_bytes"] == want
+    assert _chip_smoke().TOOLS_DRYRUN_BYTES[r["cell"]] == want
+
+
+def test_llava_prefill_32k_cell_with_the_reference_bytes(monkeypatch):
+    """llava-next-34b's `prefill_32k` on 16 x 16: 60 layers of dense
+    attention over 32,768 positions, each a walk of 64 x 32 blocks that
+    `models.scan` shortens on meta. Rank 0's argument bytes (params,
+    tokens, stub patches) equal the reference's specs' and
+    `chip_smoke.py`'s pinned bytes."""
+    r = run_cell("llava-next-34b", "prefill_32k", False)
+    assert r["status"] == "ok", r
+    want = _reference_bytes(monkeypatch, "llava-next-34b", "prefill_32k",
+                            False)
+    assert r["argument_bytes"] == want
+    assert _chip_smoke().TOOLS_DRYRUN_BYTES[r["cell"]] == want
+    assert r["temp_bytes"] > 0
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# ---------------------------------------------------------------------------
+# pinned cells: what the dry run gave before its loops ran on `models.scan`
+# ---------------------------------------------------------------------------
+
+#: (arch, shape name, positions, global batch, kind) -> rank 0's argument
+#: bytes, temp bytes, counted aten FLOPs and {collective: [calls, bytes]}
+#: on 16 x 16, as the dry run gave them when every loop stepped through
+#: all its positions, blocks and chunks on meta (about a second a
+#: position for xlstm's training step)
+PINNED = {
+    ("xlstm-350m", "train_16", 16, 256, "train"): (
+        2_609_690_628, 2_374_936_009, 203_604_099_072,
+        {"all_reduce": [179, 1_757_990_444],
+         "all_gather": [284, 138_608_640]}),
+    ("xlstm-350m", "train_64", 64, 256, "train"): (
+        2_609_696_772, 5_633_189_833, 814_819_049_472,
+        {"all_reduce": [179, 2_138_795_564],
+         "all_gather": [284, 554_434_560]}),
+    ("qwen2-1.5b", "train_4k", 4096, 256, "train"): (
+        1_159_940_100, 103_216_625_737, 230_229_037_547_520,
+        {"all_reduce": [298, 90_912_656_684],
+         "all_gather": [564, 19_755_601_920]}),
+    ("qwen2-1.5b", "prefill_8k", 8192, 32, "prefill"): (
+        386_537_472, 996_212_992, 25_773_083_344_896,
+        {"all_reduce": [57, 5_285_962_560],
+         "all_gather": [85, 1_808_793_600]}),
+    ("phi3.5-moe-42b-a6.6b", "train_128", 128, 256, "train"): (
+        484_415_832_068, 376_606_531_657, 1_651_326_811_373_568,
+        {"all_reduce": [337, 306_314_557_484],
+         "all_gather": [388, 16_748_298_240],
+         "reduce_scatter": [64, 8_053_063_680]}),
+    ("zamba2-1.2b", "prefill_2k", 2048, 32, "prefill"): (
+        3_912_373_504, 511_334_080, 8_662_696_984_576,
+        {"all_reduce": [13, 377_727_360], "all_gather": [1, 15_728_640]}),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(PINNED), ids=lambda c: f"{c[0]}-{c[1]}")
+def test_pinned_cells_count_what_the_whole_loops_counted(cell):
+    """The dry run with its loops on `models.scan` (steps 0, 1, 2 and the
+    last run on meta, the others accounted for) against the numbers the
+    whole loops gave. Equal, but for two named changes:
+
+    * the batch re-lay of a training step in microbatches under a data
+      split (`train.step`): one all-gather of tokens and one of targets
+      over `data` (15 blocks of 16 rows each), whose result, the re-laid
+      16 rows, is alive through the step;
+    * Mamba2's chunk outputs: the loop kept its list of them to the end
+      of `mamba2_forward`, the scan frees it once they are joined, so the
+      peak after the scan is lower by the 8 chunk outputs of
+      [2 rows, 256, 4096] f32 of one layer."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import collectives
+
+    arch, name, t, b, kind = cell
+    args, temp, flops, counts = PINNED[cell]
+    counts = {k: list(v) for k, v in counts.items()}
+    if kind == "train":
+        batch = 2 * (b // 16) * t * 4            # tokens, targets: int32
+        temp += batch
+        counts["all_gather"][0] += 2
+        counts["all_gather"][1] += 15 * batch
+    if arch == "zamba2-1.2b":
+        temp -= 8 * 2 * 256 * 4096 * 4
+    collectives.reset_counts()
+    r = run_cell(arch, ShapeConfig(name, t, b, kind), False)
+    got = {k: [v["calls"], v["bytes"]]
+           for k, v in collectives.read_counts().items()
+           if v["calls"] and k != "staged"}
+    assert r["status"] == "ok", r
+    assert (r["argument_bytes"], r["temp_bytes"]) == (args, temp)
+    assert r["detail"]["counted_flops"] == {"aten": flops, "kernels": 0}
+    assert got == counts

@@ -344,10 +344,10 @@ def test_loss_and_gradients_equal_the_reference(arch):
                                    err_msg=path)
 
 
-def _three_steps(arch, n_microbatches, remat=False):
+def _three_steps(arch, n_microbatches, remat=False, **over):
     jcfg, jp, cfg, tp = _arch_trees(arch)
-    jcfg = dataclasses.replace(jcfg, remat=remat)
-    cfg = dataclasses.replace(cfg, remat=remat)
+    jcfg = dataclasses.replace(jcfg, remat=remat, **over)
+    cfg = dataclasses.replace(cfg, remat=remat, **over)
     kw = dict(n_microbatches=n_microbatches, warmup_steps=2, total_steps=10)
     jstep = jax.jit(j_make_train_step(jcfg, JAdamWConfig(lr=LR), **kw))
     tstep = make_train_step(cfg, AdamWConfig(lr=LR), **kw)
@@ -378,6 +378,19 @@ def test_three_train_steps_equal_the_reference(arch):
                                   "whisper-medium", "llava-next-34b"])
 def test_two_microbatch_steps_equal_the_reference(arch):
     _three_steps(arch, 2)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "llama4-scout-17b-a16e"])
+def test_two_microbatch_moe_steps_at_binding_capacity_equal_the_reference(
+        arch):
+    """Capacity factor 0.5: each microbatch's rows compete for the
+    experts' places and tokens are dropped, so the rows of a microbatch
+    and their order decide the result. The one-rank step against the
+    reference's `make_train_step(n_microbatches=2)`; the tests of
+    `test_torch_dist_families.py` hold the data-split step against this
+    one."""
+    _three_steps(arch, 2, capacity_factor=0.5)
 
 
 def test_remat_steps_equal_the_reference():

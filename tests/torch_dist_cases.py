@@ -115,11 +115,11 @@ def dp_rank(params, arch, dtype, batch, lr, steps, warmup):
     return {"params": p, "metrics": {k: float(v) for k, v in metrics.items()}}
 
 
-def tp_train_rank(cases, lr, steps, mesh_shape=(1, 4)):
+def tp_train_rank(cases, lr, steps, mesh_shape=(1, 4), n_microbatches=1):
     """`steps` tensor-parallel `make_train_step` steps on a (data, model)
-    mesh (name -> f32 masters, arch, config overrides, batch): each rank
-    trains its blocks on its rows of the batch; the whole params gathered
-    back, and the metrics."""
+    mesh (name -> f32 masters, arch, config overrides, batch), with
+    `n_microbatches` microbatches: each rank trains its blocks on its rows
+    of the batch; the whole params gathered back, and the metrics."""
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.train.step import make_train_step
 
@@ -133,7 +133,8 @@ def tp_train_rank(cases, lr, steps, mesh_shape=(1, 4)):
         mine = {k: local_block(v, specs._spec(rows), mesh)
                 for k, v in batch.items()}
         step = make_train_step(cfg, AdamWConfig(lr=lr), warmup_steps=0,
-                               mesh=mesh, param_specs=p_specs)
+                               n_microbatches=n_microbatches, mesh=mesh,
+                               param_specs=p_specs)
         opt = adamw_init(p)
         with sharding_rules(mesh):   # the step says how rows are split
             for _ in range(steps):
