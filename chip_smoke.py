@@ -127,6 +127,12 @@ Phases, one line each:
                the same tokens with the kernels as with the plain
                versions, and with dense weights the same tokens as the
                paged engine
+     ckpt      qwen2-1.5b's serving params at full width (28 layers, bf16
+               weights) saved by `CheckpointManager.save` and by
+               `save_async` + `wait`, each into a temp dir of its own,
+               restored onto the card with every leaf equal, and once
+               into an f32 target, the bf16 values widened exactly;
+               bytes, save, snapshot, write and restore seconds
  11. init      gemma3-27b, all 62 layers in bf16 (the qwen2 weights
                freed first): parameters, seconds, peak device memory
  12. serve     gemma3-27b: 8 slots, 16 requests, each a shared 256-token
@@ -244,9 +250,10 @@ Phases, one line each:
                block must give the cut planes; K3/K4 launch at the shard
                shapes); (a') at f32 and 4 layers TP = 2 against the one
                rank: prefill logits within 1e-4, greedy tokens equal, with
-               dense and with 8-bit weights; (e) those TP = 2 params
-               saved whole by rank 0, restored onto one rank and back onto
-               TP = 2, every leaf bit for bit; (b) DP = 2 training of
+               dense and with 8-bit weights; (e) those TP = 2 params, and
+               a bf16 copy of them, saved whole by rank 0, restored onto
+               one rank and back onto TP = 2, every leaf bit for bit;
+               (b) DP = 2 training of
                qwen2-1.5b at 28 layers, f32 masters, remat, 2 steps of
                2 x 4 x 512 (step s, tokens/s, peak a rank, the gradient
                all-reduce's bytes and seconds), then one DP = 2 f32 step
@@ -3224,15 +3231,15 @@ def dist_tp_parity(dev, mesh, ckpt_dir) -> dict:
     """(a') and (e): f32, 4 layers, TP = 2 against one rank (the whole
     tree on this rank, no context): prefill logits within DIST_LOGIT_TOL,
     greedy tokens equal; the same with 8-bit weights, tokens equal. Then
-    the TP = 2 params saved whole by rank 0 and restored onto one rank
-    and back onto TP = 2, bit for bit."""
+    the TP = 2 params, and a bf16 copy of them, saved whole by rank 0 and
+    restored onto one rank and back onto TP = 2, bit for bit."""
     import dataclasses
     from repro_torch.ckpt import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.dist import collectives
-    from repro_torch.dist.sharding import (SERVE_RULES, gather_tree,
-                                           sharding_rules)
+    from repro_torch.dist.sharding import SERVE_RULES, sharding_rules
     from repro_torch.models import prefill
+    from repro_torch.optim.adamw import tree_map
 
     cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=4,
                               dtype="float32")
@@ -3262,41 +3269,126 @@ def dist_tp_parity(dev, mesh, ckpt_dir) -> dict:
             tokens_differ=int((one_tokens != tp_tokens).sum()),
             one_rank_launches=one["launches"], launches=tp["launches"])
         if weights == "f32":
-            t0 = time.perf_counter()
-            back = gather_tree(params, specs, mesh)
             mgr = CheckpointManager(ckpt_dir)
-            if mesh.rank == 0:
-                mgr.save(1, back)
-            collectives.barrier(mesh)
-            save_s = time.perf_counter() - t0
-            target = meta_like(back)
-            t0 = time.perf_counter()
-            one_rank, _ = mgr.restore(target, device=dev)
-            two_rank, _ = mgr.restore(target, shardings=specs, mesh=mesh,
-                                      device=dev)
-            torch.cuda.synchronize()
-            restore_s = time.perf_counter() - t0
-            out["elastic"] = dict(
-                save_s=save_s, restore_s=restore_s,
-                leaves=len(list(_leaves(whole))),
-                one_rank_unequal=sum(not torch.equal(a, b) for a, b in zip(
-                    _leaves(one_rank), _leaves(whole))),
-                tp2_unequal=sum(not torch.equal(a, b) for a, b in zip(
-                    _leaves(two_rank), _leaves(params))),
-                bytes=sum(x.numel() * x.element_size()
-                          for x in _leaves(whole)))
-            del back, one_rank, two_rank
+            out["elastic"] = dist_elastic(whole, params, specs, mesh, mgr,
+                                          1, dev)
+            whole = tree_map(lambda x: x.to(torch.bfloat16), whole)
+            params = dist_place(whole, mesh)[0]
+            out["elastic_bf16"] = dist_elastic(whole, params, specs, mesh,
+                                               mgr, 2, dev)
         del whole, params
         torch.cuda.empty_cache()
     return out
 
 
-def meta_like(tree):
-    """The tree's shapes and dtypes on the `meta` device (a restore
-    target that allocates nothing)."""
+def dist_elastic(whole, params, specs, mesh, mgr, step, dev) -> dict:
+    """(e) the TP = 2 blocks `params` of `whole` gathered and saved whole
+    by rank 0 as `step`, then restored onto one rank and back onto
+    TP = 2 by `restore(shardings=)`: leaves unequal to `whole`'s and to
+    the blocks', seconds, bytes."""
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import gather_tree
+
+    t0 = time.perf_counter()
+    back = gather_tree(params, specs, mesh)
+    if mesh.rank == 0:
+        mgr.save(step, back)
+    collectives.barrier(mesh)
+    save_s = time.perf_counter() - t0
+    target = meta_like(back)
+    t0 = time.perf_counter()
+    one_rank, _ = mgr.restore(target, step=step, device=dev)
+    two_rank, _ = mgr.restore(target, step=step, shardings=specs, mesh=mesh,
+                              device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    return dict(
+        save_s=save_s, restore_s=restore_s,
+        leaves=len(list(_leaves(whole))),
+        dtypes=",".join(sorted({str(x.dtype).replace("torch.", "")
+                                for x in _leaves(whole)})),
+        one_rank_unequal=sum(not torch.equal(a, b) for a, b in zip(
+            _leaves(one_rank), _leaves(whole))),
+        tp2_unequal=sum(not torch.equal(a, b) for a, b in zip(
+            _leaves(two_rank), _leaves(params))),
+        bytes=sum(x.numel() * x.element_size() for x in _leaves(whole)))
+
+
+def meta_like(tree, dtype=None):
+    """The tree's shapes and dtypes (or `dtype`) on the `meta` device (a
+    restore target that allocates nothing)."""
     if isinstance(tree, dict):
-        return {k: meta_like(v) for k, v in tree.items()}
-    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+        return {k: meta_like(v, dtype) for k, v in tree.items()}
+    return torch.empty(tree.shape, dtype=dtype or tree.dtype, device="meta")
+
+
+def ckpt(dev) -> None:
+    """Phase ckpt: qwen2-1.5b's serving params at full width (28 L, bf16
+    weights, f32 norm gains) through `CheckpointManager`: `save`, then
+    `save_async` + `wait`, each into a temp dir of its own (one 3 GB
+    file on the disk at a time); each restored onto the card with every
+    leaf `torch.equal`, and the first once more into an f32 target, the
+    bf16 values widened exactly. Host seconds: `save_s` (device-to-host
+    copy and write), `snapshot_s` (the copy `save_async` makes before it
+    returns), `write_s` (its thread's write, waited for), `restore_s`
+    (file to card, synchronised)."""
+    import tempfile
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+
+    cfg = get_config("qwen2-1.5b")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    leaves = list(_leaves(params))
+    check(any(x.dtype == torch.bfloat16 for x in leaves),
+          "[ckpt] qwen2-1.5b's serving params hold no bf16 leaf")
+    fields = dict(model=cfg.name, layers=cfg.n_layers, leaves=len(leaves),
+                  bf16_leaves=sum(x.dtype == torch.bfloat16 for x in leaves),
+                  bytes=sum(x.numel() * x.element_size() for x in leaves))
+    torch.cuda.synchronize()
+    for how in ("save", "save_async"):
+        with tempfile.TemporaryDirectory(prefix="ckpt_") as tmp:
+            mgr = CheckpointManager(tmp)
+            t0 = time.perf_counter()
+            if how == "save":
+                mgr.save(1, params)
+                fields["save_s"] = time.perf_counter() - t0
+            else:
+                mgr.save_async(1, params)
+                t1 = time.perf_counter()
+                mgr.wait()
+                fields["snapshot_s"] = t1 - t0
+                fields["write_s"] = time.perf_counter() - t1
+            fields[f"{how}_file_bytes"] = os.path.getsize(
+                os.path.join(tmp, "step_00000001", "arrays.npz"))
+            t0 = time.perf_counter()
+            got, _ = mgr.restore(meta_like(params), device=dev)
+            torch.cuda.synchronize()
+            key = "restore_s" if how == "save" else "restore_async_s"
+            fields[key] = time.perf_counter() - t0
+            fields[f"{how}_unequal"] = sum(
+                not (a.dtype == b.dtype and a.device == b.device
+                     and torch.equal(a, b))
+                for a, b in zip(_leaves(got), leaves))
+            del got
+            if how == "save":
+                t0 = time.perf_counter()
+                wide, _ = mgr.restore(meta_like(params, torch.float32),
+                                      device=dev)
+                torch.cuda.synchronize()
+                fields["restore_f32_s"] = time.perf_counter() - t0
+                fields["f32_unequal"] = sum(
+                    not (a.dtype == torch.float32
+                         and torch.equal(a, b.float()))
+                    for a, b in zip(_leaves(wide), leaves))
+                del wide
+            torch.cuda.empty_cache()
+    say("ckpt", **fields)
+    for key in ("save_unequal", "save_async_unequal", "f32_unequal"):
+        check(fields[key] == 0, f"[ckpt] {key}={fields[key]}: a restored "
+              "leaf differs from the saved one")
+    del params, leaves
+    torch.cuda.empty_cache()
 
 
 def dist_dp_train(dev, mesh) -> dict:
@@ -3910,6 +4002,11 @@ def dist(dev, errs, laps) -> dict:
         say("dist", case="e", rank=rank, **e)
         check(e["one_rank_unequal"] == 0 and e["tp2_unequal"] == 0,
               f"(e) elastic restore not bit-exact: {e}")
+        e = r["a1"]["elastic_bf16"]
+        say("dist", case="e bf16", rank=rank, **e)
+        check(e["dtypes"] == "bfloat16" and e["one_rank_unequal"] == 0
+              and e["tp2_unequal"] == 0,
+              f"(e) bf16 elastic restore not bit-exact: {e}")
         b, bp, d = r["b"], r["b_parity"], r["d"]
         say("dist", case="b", model="qwen2-1.5b", dp=2, rank=rank, **b)
         check(b["finite"], "(b) non-finite params")
@@ -4435,6 +4532,8 @@ def main() -> int:
     qwen2_parity(dev, quantize=True)
     dense_parity(dev)
     laps.lap("qwen2-1.5b")
+    ckpt(dev)
+    laps.lap("ckpt")
 
     g3 = gemma3_full_width(dev)
     by_path["gemma3-27b bf16 KV"] = g3["bf16"]

@@ -21,10 +21,12 @@ saved as host numpy arrays; `restore` gives each the dtype and device of
 the target's leaf. A `PimWeight`'s `n_bits` / `group` come from the
 target, as in the reference.
 
-bf16 leaves are refused at save with an error: numpy has no bf16 dtype
-without `ml_dtypes`, which the port does not need, and widening them
-silently would change what a restore gives back. The training state
-(f32 masters, f32 m / v, the int32 step) holds none.
+bf16 leaves (the serving params `init_lm` makes) are saved as the
+reference saves them: numpy has no bf16 dtype without `ml_dtypes`, and
+`np.savez` stores the reference's `ml_dtypes` array as raw 2-byte voids
+(`'|V2'`), so the port writes a bf16 leaf's bits the same way, byte for
+byte. `restore` reads them back as bf16 bit for bit, or widened exactly
+into an f32 target.
 """
 
 from __future__ import annotations
@@ -102,32 +104,42 @@ def _to_device(tree, target, device=None):
 
 
 def _leaf(target: torch.Tensor, arrays, path, device=None) -> torch.Tensor:
+    """The leaf at `path`, in `target`'s dtype, on `device` or
+    `target`'s. A 2-byte void array holds bf16 bits: the only 2-byte
+    type `ml_dtypes` adds to numpy is bfloat16 (float16 is numpy's own
+    `'f2'`), and `np.savez` stores such added types as voids."""
     key = SEP.join(path)
     if key not in arrays:
         raise KeyError(f"checkpoint missing leaf {key!r}")
     # `np.asarray`, not `np.ascontiguousarray`, which makes a 0-dim
     # array (the optimizer's step) 1-dim
-    t = torch.from_numpy(np.asarray(arrays[key], order="C"))
+    a = np.asarray(arrays[key], order="C")
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        if not target.dtype.is_floating_point:
+            raise TypeError(
+                f"checkpoint leaf {key!r} holds bfloat16, which does not "
+                f"restore into {target.dtype}")
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
     return t.to(device=target.device if device is None else device,
                 dtype=target.dtype)
 
 
-def _to_numpy(key: str, leaf) -> np.ndarray:
+def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype == torch.bfloat16:
-            raise TypeError(
-                f"checkpoint leaf {key!r} is bfloat16, which numpy cannot "
-                "hold without ml_dtypes; save f32 masters (init_lm(..., "
-                "param_dtype=torch.float32)) or cast the leaf explicitly"
-            )
         # a copy even on the CPU: the snapshot `save_async` writes must
         # not see the in-place updates of the steps that follow
-        return leaf.detach().to("cpu", copy=True).numpy()
+        host = leaf.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:
+            # the reference's bytes: its `ml_dtypes` bf16 saves as '|V2'
+            return host.view(torch.uint16).numpy().view("V2")
+        return host.numpy()
     return np.asarray(leaf)
 
 
 def _flatten(tree) -> Dict[str, np.ndarray]:
-    return {key: _to_numpy(key, leaf) for key, leaf in _items(tree)}
+    return {key: _to_numpy(leaf) for key, leaf in _items(tree)}
 
 
 def _atomic_write_json(path: str, obj) -> None:

@@ -3,7 +3,9 @@
 inside the port, and the two packages against each other: the same
 state saves under the same keys in both, and each package restores the
 other's checkpoint — an AdamW training state and a bit-plane quantized
-tree — value for value. A bf16 leaf is refused at save."""
+tree — value for value. bf16 leaves save in the reference's bytes (raw
+2-byte voids, `'|V2'`) and restore bit for bit in the port, from either
+package's file."""
 
 import dataclasses
 import os
@@ -25,7 +27,7 @@ from repro.quant.bitplane import PimWeight as JPimWeight
 from repro.quant.bitplane import quantize_tree as j_quantize_tree
 from repro_torch.bridge import params_from_jax
 from repro_torch.ckpt import CheckpointManager
-from repro_torch.ckpt.checkpoint import _flatten
+from repro_torch.ckpt.checkpoint import _flatten, _items
 from repro_torch.configs import get_config
 from repro_torch.models import init_lm
 from repro_torch.optim import AdamWConfig, AdamWState, adamw_init, adamw_update
@@ -37,22 +39,27 @@ def _state(x=1.0):
             "step": torch.tensor(7, dtype=torch.int32)}
 
 
-def _zeros(tree):
+def _zeros(tree, dtype=None):
+    """Zeros shaped as `tree`'s leaves, in their dtypes or in `dtype`."""
     if isinstance(tree, dict):
-        return {k: _zeros(v) for k, v in tree.items()}
+        return {k: _zeros(v, dtype) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*[_zeros(v) for v in tree])
+        return type(tree)(*[_zeros(v, dtype) for v in tree])
     if isinstance(tree, PimWeight):
         return PimWeight(torch.zeros_like(tree.planes),
                          torch.zeros_like(tree.scale), tree.n_bits,
                          tree.group)
-    return torch.zeros_like(tree)
+    return torch.zeros_like(tree, dtype=dtype)
+
+
+def _saved(directory, step):
+    with np.load(os.path.join(directory, f"step_{step:08d}",
+                              "arrays.npz")) as z:
+        return {k: z[k] for k in z.files}
 
 
 def _keys(directory, step):
-    with np.load(os.path.join(directory, f"step_{step:08d}",
-                              "arrays.npz")) as z:
-        return sorted(z.files)
+    return sorted(_saved(directory, step))
 
 
 # ---------------------------------------------------------------------------
@@ -136,16 +143,49 @@ def test_ckpt_restores_pim_weights(tmp_path):
 
 
 def test_bf16_leaf_is_refused(tmp_path):
-    mgr = CheckpointManager(str(tmp_path))
-    with pytest.raises(TypeError, match="params\\$w_k.*bfloat16"):
-        mgr.save(1, {"params": {"w_k": torch.ones(2, dtype=torch.bfloat16)}})
-    with pytest.raises(TypeError, match="bfloat16"):
-        mgr.save_async(1, {"w": torch.ones(2, dtype=torch.bfloat16)})
-    assert mgr.latest_step() is None
+    """bf16 leaves are not refused: `save` and `save_async` write each
+    as 2-byte voids, and `restore` gives back every leaf bit for bit —
+    a small tree, a 0-dim leaf, and the port's own serving params."""
+    rng = np.random.default_rng(0)
+    w_k = rng.normal(size=(3, 5)).astype(np.float32)
+    small = {"params": {"w_k": torch.from_numpy(w_k).to(torch.bfloat16)},
+             "scalar": torch.tensor(-1.5, dtype=torch.bfloat16),
+             "step": torch.tensor(7, dtype=torch.int32)}
     serving = init_lm(get_config("qwen2-1.5b", smoke=True),
                       torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(TypeError, match="bfloat16"):
-        mgr.save(1, serving)
+    # the weights in bf16, the norm gains in f32
+    assert {x.dtype for _, x in _items(serving)} == {
+        torch.bfloat16, torch.float32}
+    mgr = CheckpointManager(str(tmp_path))
+    for step, tree in ((1, small), (2, serving)):
+        dtypes = {key: "|V2" if x.dtype == torch.bfloat16
+                  else x.numpy().dtype.str for key, x in _items(tree)}
+        mgr.save(step, tree)
+        mgr.save_async(step + 10, tree)
+        mgr.wait()
+        for s in (step, step + 10):
+            saved = _saved(str(tmp_path), s)
+            assert {k: a.dtype.str for k, a in saved.items()} == dtypes
+            restored, got_step = mgr.restore(_zeros(tree), step=s)
+            assert got_step == s
+            for (key, got), (_, want) in zip(_items(restored),
+                                             _items(tree)):
+                assert got.dtype == want.dtype, key
+                assert got.shape == want.shape, key
+                assert torch.equal(got, want), key
+
+
+def test_bf16_async_snapshot_is_taken_at_call(tmp_path):
+    """The bf16 snapshot `save_async` writes is a copy: an in-place
+    update after the call does not reach the file."""
+    mgr = CheckpointManager(str(tmp_path))
+    w = torch.full((4, 4), 2.5, dtype=torch.bfloat16)
+    mgr.save_async(1, {"w": w})
+    w.fill_(9.0)
+    mgr.wait()
+    restored, _ = mgr.restore({"w": torch.zeros(4, 4, dtype=torch.bfloat16)})
+    assert torch.equal(restored["w"], torch.full((4, 4), 2.5,
+                                                 dtype=torch.bfloat16))
 
 
 # ---------------------------------------------------------------------------
@@ -281,3 +321,100 @@ def test_port_restores_reference_pim_weights(tmp_path):
                                       np.asarray(want.planes))
         np.testing.assert_array_equal(got.scale.numpy(),
                                       np.asarray(want.scale))
+
+
+# ---------------------------------------------------------------------------
+# bf16 across the two packages
+# ---------------------------------------------------------------------------
+
+def _bf16_values():
+    """The same bf16 values for both packages, from a numpy seed: a
+    matrix, a stacked 3-d leaf and a 0-dim leaf, with the bf16 specials
+    (signed zeros, infinities, the smallest subnormal) among them."""
+    rng = np.random.default_rng(26)
+    mat = rng.normal(scale=3.0, size=(6, 10)).astype(np.float32)
+    mat.flat[:5] = [0.0, -0.0, np.inf, -np.inf, 2.0 ** -133]
+    return {"layers": {"wq": rng.normal(size=(2, 8, 4)).astype(np.float32)},
+            "w_out": mat, "scale": np.float32(-1.5)}
+
+
+def _jax_bf16(values):
+    return jax.tree.map(lambda a: jnp.asarray(a, dtype=jnp.bfloat16), values)
+
+
+def _torch_bf16(values):
+    return {k: _torch_bf16(v) if isinstance(v, dict)
+            else torch.from_numpy(np.asarray(v)).to(torch.bfloat16)
+            for k, v in values.items()}
+
+
+@pytest.mark.parametrize("how", ["save", "save_async"])
+def test_bf16_bytes_equal_the_references(tmp_path, how):
+    """Each `arrays.npz` entry the port writes for a bf16 leaf has the
+    dtype (`'|V2'`) and the bytes of the reference's entry for the same
+    values."""
+    values = _bf16_values()
+    JCheckpointManager(str(tmp_path / "ref")).save(1, _jax_bf16(values))
+    mgr = CheckpointManager(str(tmp_path / "port"))
+    getattr(mgr, how)(1, _torch_bf16(values))
+    mgr.wait()
+    ref = _saved(str(tmp_path / "ref"), 1)
+    port = _saved(str(tmp_path / "port"), 1)
+    assert sorted(port) == sorted(ref) == ["layers$wq", "scale", "w_out"]
+    for key, want in ref.items():
+        assert want.dtype.str == "|V2", key
+        assert port[key].dtype.str == want.dtype.str, key
+        assert port[key].shape == want.shape, key
+        assert port[key].tobytes() == want.tobytes(), key
+
+
+def test_port_restores_a_reference_bf16_checkpoint(tmp_path):
+    """Into bf16 targets the reference's bf16 leaves come back bit for
+    bit; into f32 targets as the bf16 values widened, exactly."""
+    values = _bf16_values()
+    jtree = _jax_bf16(values)
+    JCheckpointManager(str(tmp_path)).save(4, jtree)
+    mgr = CheckpointManager(str(tmp_path))
+    want = _torch_bf16(values)
+    bf16, step = mgr.restore(_zeros(want))
+    assert step == 4
+    f32, _ = mgr.restore(_zeros(_torch_bf16(values), torch.float32))
+    ref = dict(_ref_arrays(jtree))
+    for (key, got), (_, w), (_, wide) in zip(_items(bf16),
+                                             _items(want),
+                                             _items(f32)):
+        assert got.dtype == torch.bfloat16, key
+        assert torch.equal(got, w), key
+        np.testing.assert_array_equal(
+            got.view(torch.uint16).numpy(), ref[key].view(np.uint16),
+            err_msg=key)
+        assert wide.dtype == torch.float32, key
+        assert torch.equal(wide, w.float()), key
+        np.testing.assert_array_equal(
+            wide.numpy(), ref[key].astype(np.float32), err_msg=key)
+
+
+def test_bf16_leaf_into_an_integer_target_raises(tmp_path):
+    """bf16 bits are not an integer's: the error names the key."""
+    JCheckpointManager(str(tmp_path)).save(1, _jax_bf16(_bf16_values()))
+    mgr = CheckpointManager(str(tmp_path))
+    target = _zeros(_torch_bf16(_bf16_values()))
+    for dtype in (torch.int32, torch.bool):
+        target["w_out"] = torch.zeros(6, 10, dtype=dtype)
+        with pytest.raises(TypeError, match=r"'w_out'.*bfloat16"):
+            mgr.restore(target)
+
+
+@pytest.mark.parametrize("saved_by", ["reference", "port"])
+def test_reference_cannot_restore_a_bf16_checkpoint(tmp_path, saved_by):
+    """The reference's `restore` casts each '|V2' array with `astype`,
+    which numpy refuses: it fails on its own bf16 file and on the port's
+    alike, so the failure is the reference's and not the bytes'."""
+    values = _bf16_values()
+    if saved_by == "reference":
+        JCheckpointManager(str(tmp_path)).save(1, _jax_bf16(values))
+    else:
+        CheckpointManager(str(tmp_path)).save(1, _torch_bf16(values))
+    with pytest.raises(ValueError, match="cast"):
+        JCheckpointManager(str(tmp_path)).restore(
+            jax.tree.map(jnp.zeros_like, _jax_bf16(values)))

@@ -29,7 +29,7 @@ Tolerances:
   * the Trainer's params equal on every rank, bit for bit, its loss
     within 1e-5 of the one-rank Trainer's, and a second Trainer resumes
     from rank 0's checkpoint;
-  * elastic restore bit-exact on (4, 2) and on one rank.
+  * elastic restore bit-exact on (4, 2) and on one rank, f32 and bf16.
 """
 
 import copy
@@ -359,6 +359,24 @@ def test_elastic_restore_across_meshes(runs):
     mgr = CheckpointManager(str(runs["tmp"] / "elastic"))
     r1, _ = mgr.restore({"w": torch.zeros(8, 8)})
     assert torch.equal(r1["w"], w)
+
+
+def test_elastic_restore_bf16_across_meshes(runs):
+    """A bf16 leaf saved beside it, from blocks on (8,): restored onto
+    (4, 2) through `restore(shardings=)` and onto one rank, bit for
+    bit, and into an f32 target as its values widened."""
+    wb = (runs["w"] / 3).to(torch.bfloat16)
+    for r in runs["r8"]:
+        e = r["elastic"]
+        want = local_block(wb, ("model", "data"),
+                           Mesh((4, 2), ("data", "model"), rank=e["rank"]))
+        assert e["block_bf16"].dtype == torch.bfloat16
+        assert torch.equal(e["block_bf16"], want)
+    mgr = CheckpointManager(str(runs["tmp"] / "elastic"))
+    r1, _ = mgr.restore({"wb": torch.zeros(8, 8, dtype=torch.bfloat16)})
+    assert torch.equal(r1["wb"], wb)
+    r1, _ = mgr.restore({"wb": torch.zeros(8, 8)})
+    assert torch.equal(r1["wb"], wb.float())
 
 
 @pytest.mark.parametrize("n_heads,n_kv,m", [(12, 2, 4), (8, 2, 4), (12, 4, 6),

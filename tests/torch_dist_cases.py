@@ -165,22 +165,30 @@ def trainer_rank(params, arch, data_cfg, ckpt_dir, steps):
 
 
 def elastic_rank(w, ckpt_dir):
-    """Save a leaf held in blocks on (8,), rank 0 writing the whole;
-    restore it onto (4, 2) with the specs swapped."""
+    """Save a leaf held in blocks on (8,), and a bf16 leaf of `w / 3`
+    beside it, rank 0 writing the whole; restore each onto (4, 2) with
+    the specs swapped."""
     from repro_torch.ckpt import CheckpointManager
 
     mesh8 = Mesh((8,), ("data",))
-    block = local_block(w, ("data",), mesh8).clone()
-    whole = gather_tree({"w": block}, {"w": ("data",)}, mesh8)
+    tree = {"w": w, "wb": (w / 3).to(torch.bfloat16)}
+    specs8 = {k: ("data",) for k in tree}
+    blocks = {k: local_block(v, ("data",), mesh8).clone()
+              for k, v in tree.items()}
+    whole = gather_tree(blocks, specs8, mesh8)
     mgr = CheckpointManager(ckpt_dir)
     if mesh8.rank == 0:
         mgr.save(1, whole)
     collectives.barrier(mesh8)
     mesh42 = Mesh((4, 2), ("data", "model"))
-    target = {"w": torch.empty(w.shape, dtype=w.dtype, device="meta")}
-    r4, step = mgr.restore(target, shardings={"w": ("model", "data")},
-                           mesh=mesh42, device="cpu")
-    return {"block": r4["w"], "step": step, "rank": mesh42.rank}
+    out = {"rank": mesh42.rank}
+    for key, name in (("w", "block"), ("wb", "block_bf16")):
+        target = {key: torch.empty(w.shape, dtype=tree[key].dtype,
+                                   device="meta")}
+        r4, step = mgr.restore(target, shardings={key: ("model", "data")},
+                               mesh=mesh42, device="cpu")
+        out[name], out["step"] = r4[key], step
+    return out
 
 
 def world8(tp_cases, dp_args, ckpt_dir, w):
