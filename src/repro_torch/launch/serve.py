@@ -241,6 +241,13 @@ def print_telemetry(telemetry: ServeTelemetry) -> None:
                   f"err_max={st['model_error_max']:g} "
                   f"roofline_frac={st['roofline_fraction']:.2f} "
                   f"bucketing_savings={st['bucketing_savings']:.2f}")
+    spans = telemetry.span_summary()
+    print(f"  spans ({spans['opened']} opened, {spans['dropped']} dropped; "
+          f"ms):")
+    for name, st in spans["by_name"].items():
+        print(f"    {name}: n={st['n']} total={1e3 * st['total_s']:.3f} "
+              f"p50={1e3 * st['p50']:.3f} p90={1e3 * st['p90']:.3f} "
+              f"p99={1e3 * st['p99']:.3f}")
     w = telemetry.compile_watcher()
     if w.total:
         steps = ";".join(f"{k}={v}" for k, v in sorted(w.by_step().items()))

@@ -1,5 +1,5 @@
 """Serving observability: counterpart of `repro.obs` — metrics registry,
-event log, lifecycle tracing and perf attribution, and the
+event log, lifecycle tracing, host spans and perf attribution, and the
 bench-history regression gate (`obs.regress`, a copy of the
 reference's).
 
@@ -29,7 +29,13 @@ from .perf import (
     predict_launch,
     predict_streamed_pages,
 )
-from .tracing import RequestTrace, ServeTelemetry
+from .tracing import (
+    SPAN_CAPACITY,
+    RequestTrace,
+    ServeTelemetry,
+    SpanRecord,
+    SpanRing,
+)
 
 __all__ = [
     "CompileWatcher",
@@ -45,7 +51,10 @@ __all__ = [
     "PerfModel",
     "RUN_END",
     "RequestTrace",
+    "SPAN_CAPACITY",
     "ServeTelemetry",
+    "SpanRecord",
+    "SpanRing",
     "exponential_buckets",
     "mutation_count",
     "plan_signature",

@@ -22,17 +22,26 @@ work, not dispatch. The metrics-off contract lives in the callers: with
 `telemetry=None` the serve path makes no call into this package
 (`metrics.mutation_count()` stays flat).
 
-Clock discipline: all timestamps come from `self.clock` (shared with
-the registry and event log); a `ManualClock` makes every histogram
-bit-deterministic.
+Clock discipline: all lifecycle timestamps come from `self.clock`
+(shared with the registry and event log); a `ManualClock` makes every
+histogram bit-deterministic.
+
+Spans (`self.spans`, a `SpanRing`): the host phases of each serving tick
+(DESIGN.md §13), stamped in integer nanoseconds by `span_clock`, which
+defaults to `time.time_ns`: the Unix-epoch domain `torch.profiler`
+reports host ranges and device activities in, so a span lines up with
+the device trace of the same run. They live in a fixed-size ring and
+stay out of the registry, `summary()` and the event log.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+import time
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..core.tpu_gold import H100_SXM, ChipSpec
 from ..kernels.ops import grouped_streamed_pages
@@ -41,6 +50,12 @@ from .metrics import MetricsRegistry
 from .perf import CompileWatcher, PerfModel
 
 _PCTS = (50.0, 90.0, 99.0)
+
+#: spans a `SpanRing` holds; past it the oldest is overwritten, so a
+#: long-running server's span memory stays flat
+SPAN_CAPACITY = 65_536
+#: the root span of every `ContinuousBatcher.step()`
+TICK_SPAN = "serve/tick"
 
 
 @dataclasses.dataclass
@@ -98,12 +113,121 @@ def _pct_summary(values: Sequence[float]) -> Dict[str, object]:
             "mean": float(arr.mean())}
 
 
+class SpanRecord(NamedTuple):
+    """One closed span."""
+
+    seq: int          # opening order, from 0
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int       # seq of the enclosing span; -1 for a root
+    uid: int          # the request it serves; -1 where no single one
+
+
+class SpanRing:
+    """Host spans in a fixed-size ring, each with a name, a start, an end,
+    its parent and a request uid.
+
+    Spans nest: `begin` opens one inside the innermost open span, `end`
+    closes the innermost. A span takes its sequence number when it opens
+    and its slot (`seq % capacity`) when it closes; a span's slot is
+    overwritten by the span opened `capacity` later, and `dropped`
+    counts the spans lost so (a span held open while `capacity` later
+    ones open, which no tick does, loses its slot to them). A span costs
+    two clock reads and one slot write; nothing here touches a tensor.
+    With `profile`, each span also opens the
+    `torch.profiler.record_function` range of its own name."""
+
+    def __init__(self, capacity: int = SPAN_CAPACITY, clock=None,
+                 profile: bool = False):
+        if capacity < 1:
+            raise ValueError(f"span capacity must be >= 1, got {capacity}")
+        self.capacity = capacity
+        #: integer nanoseconds; `time.time_ns` shares the profiler's domain
+        self.clock = time.time_ns if clock is None else clock
+        self.profile = profile
+        self._slots: List[Optional[tuple]] = [None] * capacity
+        #: open spans, innermost last: (seq, name, start, uid, range)
+        self._open: List[tuple] = []
+        #: spans opened so far: the next span's sequence number
+        self.opened = 0
+
+    def begin(self, name: str, uid: int = -1,
+              start: Optional[int] = None) -> None:
+        """Open `name` inside the innermost open span; `start` backdates
+        it to an earlier reading of `clock`."""
+        rng = None
+        if self.profile:
+            rng = torch.profiler.record_function(name)
+            rng.__enter__()
+        self._open.append((self.opened, name,
+                           self.clock() if start is None else start, uid,
+                           rng))
+        self.opened += 1
+
+    def end(self) -> None:
+        """Close the innermost open span."""
+        seq, name, start, uid, rng = self._open.pop()
+        end = self.clock()
+        if rng is not None:
+            rng.__exit__(None, None, None)
+        parent = self._open[-1][0] if self._open else -1
+        self._slots[seq % self.capacity] = (seq, name, start, end, parent,
+                                            uid)
+
+    def begin_root(self, name: str) -> None:
+        """Open a root span, first discarding any span an exception left
+        open (they are not recorded)."""
+        while self._open:
+            rng = self._open.pop()[4]
+            if rng is not None:
+                rng.__exit__(None, None, None)
+        self.begin(name)
+
+    def end_all(self) -> None:
+        """Close every open span, innermost first."""
+        while self._open:
+            self.end()
+
+    @property
+    def dropped(self) -> int:
+        """Spans overwritten by later ones."""
+        return max(0, self.opened - self.capacity)
+
+    def records(self, since: int = 0) -> List[SpanRecord]:
+        """The closed spans still held whose seq is >= `since`, in seq
+        order."""
+        out = []
+        for seq in range(max(since, self.opened - self.capacity),
+                         self.opened):
+            rec = self._slots[seq % self.capacity]
+            if rec is not None and rec[0] == seq:
+                out.append(SpanRecord(*rec))
+        return out
+
+    def summary(self) -> Dict[str, object]:
+        """Per span name over the spans held: count, total seconds and
+        exact percentiles of the length in seconds."""
+        lengths: Dict[str, List[float]] = {}
+        for rec in self.records():
+            lengths.setdefault(rec.name, []).append(
+                (rec.end_ns - rec.start_ns) * 1e-9)
+        by_name = {}
+        for name, vals in sorted(lengths.items()):
+            st = _pct_summary(vals)
+            st["total_s"] = float(sum(vals))
+            by_name[name] = st
+        return {"opened": self.opened, "dropped": self.dropped,
+                "capacity": self.capacity, "by_name": by_name}
+
+
 class ServeTelemetry:
     def __init__(self, registry: Optional[MetricsRegistry] = None,
                  events: Optional[EventLog] = None, clock=None,
                  events_path: Optional[str] = None,
                  profile: bool = False,
-                 chip: Optional[ChipSpec] = None):
+                 chip: Optional[ChipSpec] = None,
+                 span_clock=None):
         if registry is None:
             registry = MetricsRegistry(clock=clock)
         self.registry = registry
@@ -111,10 +235,12 @@ class ServeTelemetry:
         if events is None:
             events = EventLog(path=events_path, clock=self.clock)
         self.events = events
-        #: wrap the serve steps and each bucket launch in
-        #: `torch.profiler.record_function` ranges — read by the step
-        #: factories (`serve.compiled`)
+        #: open a `torch.profiler.record_function` range with each span
+        #: and around each bucket launch (the latter read by the step
+        #: factories, `serve.compiled`)
         self.profile = profile
+        #: the host phases of each tick, on the device trace's clock
+        self.spans = SpanRing(clock=span_clock, profile=profile)
         #: device spec the roofline predictions are priced against
         self.chip = chip if chip is not None else H100_SXM
         #: predicted-vs-measured launch model (DESIGN.md §14)
@@ -316,6 +442,27 @@ class ServeTelemetry:
             r.gauge("pool_prefix_evicted_pages").set(
                 prefix["evicted_pages"]
             )
+
+    # -- spans -------------------------------------------------------------
+
+    def tick_begin(self) -> None:
+        """Open the tick's root span (`serve/tick`)."""
+        self.spans.begin_root(TICK_SPAN)
+
+    def tick_end(self) -> None:
+        """Close the tick's root span and any span still open in it."""
+        self.spans.end_all()
+
+    @property
+    def span_count(self) -> int:
+        """Spans opened so far: the seq the next span takes."""
+        return self.spans.opened
+
+    def span_records(self, since: int = 0) -> List[SpanRecord]:
+        return self.spans.records(since)
+
+    def span_summary(self) -> Dict[str, object]:
+        return self.spans.summary()
 
     # -- diagnostics -------------------------------------------------------
 

@@ -28,12 +28,13 @@ Telemetry hooks (DESIGN.md §13-§14), both off by default and free then:
     signature is reported to `watcher.on_compile` with that call's host
     time, read through `watcher.clock()` — the port's version of the
     reference's per-compile report.
-  * `annotate=True`: each call runs inside a
-    `torch.profiler.record_function` range named after its step
-    (`serve/paged_prefill`, `serve/paged_decode`, `serve/dense_prefill`,
-    `serve/dense_decode`), and each bucket launch of a paged attention
-    inside `paged_bucket_d{bound}x{count}`
-    (`kernels.paged_common.bucket_scopes`).
+  * `annotate=True`: each bucket launch of a paged attention runs
+    inside a `torch.profiler.record_function` range
+    `paged_bucket_d{bound}x{count}` (`kernels.paged_common.bucket_scopes`).
+    The step itself is named by its caller's span (`serve/paged_prefill`,
+    `serve/paged_decode`, `serve/dense_prefill`, `serve/dense_decode`),
+    which opens the range of its own name under `ServeTelemetry(
+    profile=True)` (DESIGN.md §13).
 """
 
 from __future__ import annotations
@@ -84,15 +85,14 @@ class ServeStep:
     """One serve step of kind `kind`: calls `fn` and logs each new
     (plans, signature) once — the analog of one trace of the reference's
     jitted step — and reports it to `watcher` when one is attached. With
-    `annotate`, each call runs inside the profiler range `scope`."""
+    `annotate`, each bucket launch of the call opens its profiler range."""
 
-    def __init__(self, kind: str, scope: str, fn, watcher=None,
-                 annotate: bool = False):
+    def __init__(self, kind: str, fn, watcher=None, annotate: bool = False):
         self.kind = kind
         self._fn = fn
         self._seen = set()
         self._watcher = watcher
-        self._scope = scope if annotate else None
+        self._annotate = annotate
 
     def __call__(self, *args, perms=None, plans=None):
         key = (plans, _leaf_sig((args, perms)))
@@ -109,9 +109,9 @@ class ServeStep:
         return out
 
     def _run(self, args, perms, plans):
-        if self._scope is None:
+        if not self._annotate:
             return self._fn(*args, perms=perms, plans=plans)
-        with torch.profiler.record_function(self._scope), bucket_scopes():
+        with bucket_scopes():
             return self._fn(*args, perms=perms, plans=plans)
 
     def cache_size(self) -> int:
@@ -135,15 +135,14 @@ def paged_prefill_step(cfg: ModelConfig, impl: str = "auto",
                 impl=impl, bucket_plan=plans, bucket_perm=perms,
                 block_start=st, k_scales=ks, v_scales=vs,
             )
-        return ServeStep("prefill", "serve/paged_prefill", qfn, watcher,
-                         annotate)
+        return ServeStep("prefill", qfn, watcher, annotate)
 
     def fn(p, toks, kp, vp, bt, st, strt, tot, lp, perms=None, plans=None):
         return prefill_paged(
             p, toks, kp, vp, bt, strt, tot, cfg, last_pos=lp, impl=impl,
             bucket_plan=plans, bucket_perm=perms, block_start=st,
         )
-    return ServeStep("prefill", "serve/paged_prefill", fn, watcher, annotate)
+    return ServeStep("prefill", fn, watcher, annotate)
 
 
 def paged_decode_step(cfg: ModelConfig, impl: str = "auto",
@@ -161,15 +160,14 @@ def paged_decode_step(cfg: ModelConfig, impl: str = "auto",
                 bucket_plan=plans, bucket_perm=perms, block_start=st,
                 k_scales=ks, v_scales=vs,
             )
-        return ServeStep("decode", "serve/paged_decode", qfn, watcher,
-                         annotate)
+        return ServeStep("decode", qfn, watcher, annotate)
 
     def fn(p, t, kp, vp, bt, st, pos, perms=None, plans=None):
         return decode_step_paged(
             p, t, kp, vp, bt, pos, cfg, impl=impl,
             bucket_plan=plans, bucket_perm=perms, block_start=st,
         )
-    return ServeStep("decode", "serve/paged_decode", fn, watcher, annotate)
+    return ServeStep("decode", fn, watcher, annotate)
 
 
 def dense_prefill_step(cfg: ModelConfig, cache_len: int, impl: str = "auto",
@@ -179,8 +177,7 @@ def dense_prefill_step(cfg: ModelConfig, cache_len: int, impl: str = "auto",
 
     def fn(p, toks, perms=None, plans=None):
         return prefill(p, toks, cfg, cache_len, impl=impl)
-    return ServeStep("dense_prefill", "serve/dense_prefill", fn, watcher,
-                     annotate)
+    return ServeStep("dense_prefill", fn, watcher, annotate)
 
 
 def dense_decode_step(cfg: ModelConfig, impl: str = "auto", watcher=None,
@@ -190,5 +187,4 @@ def dense_decode_step(cfg: ModelConfig, impl: str = "auto", watcher=None,
 
     def fn(p, t, cache, perms=None, plans=None):
         return decode_step(p, t, cache, cfg, impl=impl)
-    return ServeStep("dense_decode", "serve/dense_decode", fn, watcher,
-                     annotate)
+    return ServeStep("dense_decode", fn, watcher, annotate)

@@ -26,7 +26,10 @@ reference's order: each batch row is submitted and admitted at once,
 every prefill (each chunk, in paged mode) and decode step is accounted,
 each row's first token and finish are traced, and each decode step ends
 a tick (with the pool gauges, in paged mode). Each `generate` call's
-rows take fresh trace uids.
+rows take fresh trace uids. Each step call is also a span of the
+telemetry's (`serve/dense_prefill`, `serve/dense_decode`,
+`serve/paged_prefill`, `serve/paged_decode`; uid -1: the whole batch),
+which names the step in a profiler trace under `profile=True`.
 """
 
 from __future__ import annotations
@@ -148,7 +151,11 @@ class ServeEngine:
         b, t = prompts.shape
         tel = self.telemetry
         uids = self._trace_admit(b, t) if tel is not None else None
+        if tel is not None:
+            tel.spans.begin("serve/dense_prefill")
         logits, cache = self._prefill(self.params, prompts)
+        if tel is not None:
+            tel.spans.end()
         out = []
         done = np.zeros((b,), bool)
         tok = self._sample(logits[:, -1], rng)
@@ -166,8 +173,11 @@ class ServeEngine:
                     tel.on_finish(uids[r])
             if done.all() or i == self.sc.max_new_tokens - 1:
                 break  # the last token needs no follow-up decode
+            if tel is not None:
+                tel.spans.begin("serve/dense_decode")
             logits, cache = self._decode(self.params, tok, cache)
             if tel is not None:
+                tel.spans.end()
                 tel.on_decode([uids[r] for r in np.flatnonzero(~done)])
                 tel.end_tick(0, int((~done).sum()))
             tok = self._sample(logits[:, -1], rng)
@@ -225,11 +235,15 @@ class ServeEngine:
             pools = (pc.k_pages, pc.v_pages) + (
                 (pc.k_scales, pc.v_scales) if pc.quantized else ()
             )
+            args = (pc.device_block_tables(), pc.device_block_starts(),
+                    zeros + start, zeros + end, n - 1)
+            if tel is not None:
+                tel.spans.begin("serve/paged_prefill")
             logits = self._prefill_paged(
-                self.params, toks, *pools,
-                pc.device_block_tables(), pc.device_block_starts(),
-                zeros + start, zeros + end, n - 1, perms=perms, plans=plans,
+                self.params, toks, *pools, *args, perms=perms, plans=plans,
             )[0]
+            if tel is not None:
+                tel.spans.end()
             pc.lengths[:] = end
             if tel is not None:
                 for uid in uids:
@@ -266,11 +280,16 @@ class ServeEngine:
             pools = (pc.k_pages, pc.v_pages) + (
                 (pc.k_scales, pc.v_scales) if pc.quantized else ()
             )
+            bt, st = pc.device_block_tables(), pc.device_block_starts()
+            pos = pc.device_positions()
+            if tel is not None:
+                tel.spans.begin("serve/paged_decode")
             logits = self._decode_paged(
-                self.params, tok, *pools,
-                pc.device_block_tables(), pc.device_block_starts(),
-                pc.device_positions(), perms=perms, plans=plans,
+                self.params, tok, *pools, bt, st, pos,
+                perms=perms, plans=plans,
             )[0]
+            if tel is not None:
+                tel.spans.end()
             for i in range(b):
                 if not done[i]:
                     pc.lengths[i] += 1

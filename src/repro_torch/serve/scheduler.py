@@ -40,8 +40,9 @@ Paged mode only:
 
 `params` may hold PIM bit-plane weights (`ServeEngine.quantize`); they
 flow through unchanged, and every projection then runs on K3/K4 (or
-their plain versions under `kernel_impl="ref"`). Each tick brings its
-argmax to the host once.
+their plain versions under `kernel_impl="ref"`). A tick that decodes
+brings its argmax to the host once, and each request it admits adds one
+more wait: its first token is read before the next admission.
 
 `telemetry=` (an `obs.ServeTelemetry`) receives the reference's hooks at
 the same transitions and in the same order: submit, admit, prefill and
@@ -51,6 +52,19 @@ prefix gauges) and deadlock. The hooks read host state only and add no host sync
 token, finish and end of tick are stamped after the sync the tick
 already makes, so on the card they close on finished work. With
 `telemetry=None` (the default) the drain makes no call into `obs`.
+
+With telemetry, each `step()` also records its host phases as spans
+(`telemetry.spans`, DESIGN.md §13): the root `serve/tick`; per admitted
+request `serve/admit` (the admissibility search that seated it through
+reservation, prefix lookup and attach), `serve/paged_prefill` (each
+prefill step call, chunks included) and `serve/first_token` (the host
+waiting for the prefill's argmax); per decode `serve/decode_prep`
+(page appends, bucket plans, device tables and positions),
+`serve/paged_decode` (the step call), `serve/sync` (the tokens to the
+host) and `serve/retire` (tokens appended, requests finished, pages
+freed, the end-of-tick sample). The dense path records
+`serve/dense_prefill` and `serve/dense_decode` in place of the paged
+steps, and no admit or decode_prep.
 """
 
 from __future__ import annotations
@@ -229,6 +243,7 @@ class ContinuousBatcher:
     # -- prefill -----------------------------------------------------------
 
     def _fill_slots(self):
+        tel = self.telemetry
         for i in range(self.n_slots):
             # a request can complete AT prefill: its pages free at once
             # and the same slot is retried within this tick
@@ -236,10 +251,14 @@ class ContinuousBatcher:
                 if not self.paged:
                     self._prefill_into_dense(i, self.queue.popleft())
                     continue
+                # a search that seats no one stays in the tick's own span
+                t0 = None if tel is None else tel.spans.clock()
                 admitted = self._admit_paged(i)
                 if admitted is None:
                     return
                 req, attach_plan, n_cached = admitted
+                if tel is not None:
+                    tel.spans.begin("serve/admit", req.uid, start=t0)
                 self._prefill_into_paged(i, req, attach_plan, n_cached)
 
     # -- paged admission (reservation + prefix lookup) -----------------------
@@ -299,10 +318,15 @@ class ContinuousBatcher:
         return None
 
     def _prefill_into_dense(self, i: int, req: Request):
-        if self.telemetry is not None:
-            self.telemetry.on_admit(req.uid, i)
+        tel = self.telemetry
+        if tel is not None:
+            tel.on_admit(req.uid, i)
         toks = torch.tensor(req.prompt[None, :], device=self.device)
+        if tel is not None:
+            tel.spans.begin("serve/dense_prefill", req.uid)
         logits, one = self._prefill_dense(self.params, toks)
+        if tel is not None:
+            tel.spans.end()
         _insert_batch(self.cache, one, i)
         t = int(req.prompt.shape[0])
         self.prefill_tokens += t
@@ -315,17 +339,21 @@ class ContinuousBatcher:
     ):
         """Attach the prefix-hit pages, prefill the uncached suffix (its
         first chunk only when it exceeds `prefill_chunk`), then publish
-        the completed blocks back to the index."""
+        the completed blocks back to the index. With telemetry, the
+        `serve/admit` span `_fill_slots` opened closes before the launch."""
         pc = self.pcache
         t = int(req.prompt.shape[0])
-        if self.telemetry is not None:
-            self.telemetry.on_admit(req.uid, i, n_cached)
+        tel = self.telemetry
+        if tel is not None:
+            tel.on_admit(req.uid, i, n_cached)
         if attach_plan is not None:
             pc.attach_chain(i, attach_plan)
         if self.prefix is not None:
             self.prefix.lookups += 1
             self.prefix.hits += bool(n_cached)
             self.prefix.cached_tokens_served += n_cached
+        if tel is not None:
+            tel.spans.end()
         if self.prefill_chunk and t - n_cached > self.prefill_chunk:
             end = n_cached + self.prefill_chunk
             self._launch_prefill_chunk(i, req, n_cached, end)
@@ -357,6 +385,9 @@ class ContinuousBatcher:
             bt, st = bt[:, i: i + 1], st[:, i: i + 1]
         start_t = torch.tensor([start], dtype=torch.int32, device=self.device)
         end_t = torch.tensor([end], dtype=torch.int32, device=self.device)
+        tel = self.telemetry
+        if tel is not None:
+            tel.spans.begin("serve/paged_prefill", req.uid)
         if pc.quantized:
             logits = self._prefill_paged(
                 self.params, toks, pc.k_pages, pc.v_pages,
@@ -368,13 +399,15 @@ class ContinuousBatcher:
                 self.params, toks, pc.k_pages, pc.v_pages, bt, st,
                 start_t, end_t, n - 1, perms=perms, plans=plans,
             )[0]
+        if tel is not None:
+            tel.spans.end()
         pc.lengths[i] = end
         self.prefill_tokens += pad
-        if self.telemetry is not None:
-            self.telemetry.on_prefill(req.uid, pad)
+        if tel is not None:
+            tel.on_prefill(req.uid, pad)
             # one-slot launch (n_rows 1), accounted from the same pool
             # state the plan was built from
-            self.telemetry.account_paged_launch(
+            tel.account_paged_launch(
                 "prefill", plans, 1, pc, eff_lengths=[end], slots=[i],
                 strategy=self.bucket_strategy,
                 kernel_impl=self._kernel_impl,
@@ -411,10 +444,16 @@ class ContinuousBatcher:
         return self.eos_token >= 0 and tok == self.eos_token
 
     def _start_slot(self, i: int, req: Request, logits):
+        tel = self.telemetry
+        if tel is not None:
+            tel.spans.begin("serve/first_token", req.uid)
+        # a host sync: the prefill finishes before the next admission
         nxt = int(torch.argmax(logits[0, -1]).item())
+        if tel is not None:
+            tel.spans.end()
         req.generated.append(nxt)
-        if self.telemetry is not None:
-            self.telemetry.on_first_token(req.uid)
+        if tel is not None:
+            tel.on_first_token(req.uid)
         if req.done or self._hit_eos(nxt):
             # the prefill token completes the request: pages free now
             self.finished[req.uid] = req.generated
@@ -431,6 +470,9 @@ class ContinuousBatcher:
     def step(self) -> int:
         """One tick: advance chunked prefills one chunk each, fill free
         slots, decode once. Returns slots advanced (decode + chunks)."""
+        tel = self.telemetry
+        if tel is not None:
+            tel.tick_begin()
         n_finished = len(self.finished)
         chunked = self._advance_chunked() if self._chunk_pos else 0
         self._fill_slots()
@@ -441,18 +483,29 @@ class ContinuousBatcher:
         if not active:
             if chunked or len(self.finished) > n_finished:
                 self.ticks += 1
-            if self.telemetry is not None:
+            if tel is not None:
                 self._sample_tick()
+                tel.tick_end()
             return chunked
         if self.paged:
             nxt = self._step_paged(active)
         else:
+            if tel is not None:
+                tel.spans.begin("serve/dense_decode")
             logits, self.cache = self._decode(self.params, self.tokens,
                                               self.cache)
+            if tel is not None:
+                tel.spans.end()
             nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        host = nxt.tolist()               # the tick's one host sync
-        if self.telemetry is not None:
-            self.telemetry.on_decode([self.slots[i].uid for i in active])
+        if tel is not None:
+            tel.spans.begin("serve/sync")
+        # the decode's host sync; each request admitted this tick has
+        # already added one, reading its first token (`_start_slot`)
+        host = nxt.tolist()
+        if tel is not None:
+            tel.spans.end()
+            tel.spans.begin("serve/retire")
+            tel.on_decode([self.slots[i].uid for i in active])
         for i in active:
             req = self.slots[i]
             tok = int(host[i])
@@ -463,12 +516,13 @@ class ContinuousBatcher:
                 if self.paged:
                     self.pcache.free_slot(i)
                 self.slots[i] = None
-                if self.telemetry is not None:
-                    self.telemetry.on_finish(req.uid)
+                if tel is not None:
+                    tel.on_finish(req.uid)
         self.tokens = nxt[:, None]
         self.ticks += 1
-        if self.telemetry is not None:
+        if tel is not None:
             self._sample_tick()
+            tel.tick_end()
         return len(active) + chunked
 
     def _sample_tick(self):
@@ -502,6 +556,9 @@ class ContinuousBatcher:
 
     def _step_paged(self, active: List[int]) -> torch.Tensor:
         pc = self.pcache
+        tel = self.telemetry
+        if tel is not None:
+            tel.spans.begin("serve/decode_prep")
         for i in active:
             # the incoming token's page must exist and be exclusively
             # owned (COW) before the device write
@@ -514,8 +571,8 @@ class ContinuousBatcher:
             eff = np.array(eff)
             eff[parked] = 1
         plans, perms = self._bucket_args(eff)
-        if self.telemetry is not None:
-            self.telemetry.account_paged_launch(
+        if tel is not None:
+            tel.account_paged_launch(
                 "decode", plans, self.n_slots, pc, eff_lengths=eff,
                 strategy=self.bucket_strategy,
                 kernel_impl=self._kernel_impl,
@@ -523,6 +580,9 @@ class ContinuousBatcher:
         bt = pc.device_block_tables(scratch_slots=parked)
         st = pc.device_block_starts(scratch_slots=parked)
         pos = pc.device_positions(scratch_slots=parked)
+        if tel is not None:
+            tel.spans.end()
+            tel.spans.begin("serve/paged_decode")
         if pc.quantized:
             logits = self._decode_paged(
                 self.params, self.tokens, pc.k_pages, pc.v_pages,
@@ -534,6 +594,8 @@ class ContinuousBatcher:
                 self.params, self.tokens, pc.k_pages, pc.v_pages,
                 bt, st, pos, perms=perms, plans=plans,
             )[0]
+        if tel is not None:
+            tel.spans.end()
         for i in active:
             pc.lengths[i] += 1
         return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
