@@ -1813,7 +1813,9 @@ class MoeRouting:
 
     The wrapper takes effect only because `transformer._ffn` looks
     `moe_forward` up as a module global at each call; the drains check
-    that it saw the decode calls."""
+    that it saw the decode calls. It reads each call through
+    `serve.graphs.each_run`, so a decode step replayed from its CUDA
+    graphs, which never calls the wrapper, is read all the same."""
 
     def __init__(self):
         from repro_torch.models import transformer
@@ -1823,17 +1825,21 @@ class MoeRouting:
 
     def __enter__(self):
         from repro_torch.models.moe import MOE_CHUNK, expert_capacity
+        from repro_torch.serve.graphs import each_run
 
         def counted(params, x, **kw):
             y, aux = self.inner(params, x, **kw)
             kind = "decode" if x.shape[1] == 1 else "prefill"
-            self.calls[kind].append(torch.stack(
-                [aux["dropped_fraction"], aux["load_balance_loss"]]))
             n = x.shape[0] * x.shape[1]
             cap = expert_capacity(min(kw.get("chunk", MOE_CHUNK), n),
                                   kw["top_k"], params["router"].shape[-1],
                                   kw["capacity_factor"])
-            self.shapes[kind].append((n, cap))
+
+            def read():
+                self.calls[kind].append(torch.stack(
+                    [aux["dropped_fraction"], aux["load_balance_loss"]]))
+                self.shapes[kind].append((n, cap))
+            each_run(read)
             return y, aux
         self.mod.moe_forward = counted
         return self

@@ -27,6 +27,7 @@ and sums `wo`'s row-parallel partial products over ``model``.
 
 from __future__ import annotations
 
+import contextvars
 from typing import Optional, Tuple
 
 import torch
@@ -44,6 +45,12 @@ from ..kernels.paged_prefill import paged_prefill
 from ..quant.bitplane import pim_linear
 from .common import NEG_INF, Params, apply_rope, dense_init
 from .scan import scan
+
+
+#: while a piecewise decode graph is captured (`serve.graphs`), the cut
+#: each `attention_decode_paged` call hands its K1 call to, with the
+#: arguments of `_select_bucket_plan`; None (any other time) runs K1 here
+K1_CUT = contextvars.ContextVar("k1_cut", default=None)
 
 
 def _select_bucket_plan(call, bucket_plans, bucket_perms, plan_class):
@@ -356,7 +363,10 @@ def attention_decode_paged(
     int8 pools: the one touched page per slot is dequantized, the new
     row scattered in, and the page requantized under its new absmax;
     codes and scales are written back in place and the return grows to
-    `(out, k_pages, v_pages, k_scales, v_scales)`."""
+    `(out, k_pages, v_pages, k_scales, v_scales)`.
+
+    While a piecewise decode graph is captured (`serve.graphs`), the K1
+    call goes to the capture's cut (`K1_CUT`) instead."""
     b = x.shape[0]
     bs = k_pages.shape[1]
     q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim,
@@ -399,7 +409,12 @@ def attention_decode_paged(
             k_scales=k_scales, v_scales=v_scales,
         )                                                    # [B, H, hd] f32
 
-    out = _select_bucket_plan(call, bucket_plans, bucket_perms, plan_class)
+    cut = K1_CUT.get()
+    if cut is None:
+        out = _select_bucket_plan(call, bucket_plans, bucket_perms,
+                                  plan_class)
+    else:
+        out = cut(call, bucket_plans, bucket_perms, plan_class)
     out = out.reshape(b, 1, n_heads * head_dim).to(x.dtype)
     out = pim_linear(out, params["wo"], impl)
     if k_scales is None:

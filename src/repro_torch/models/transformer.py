@@ -822,22 +822,10 @@ def init_paged_pool(
     )
 
 
-def _per_layer_paged_views(cfg, block_table, block_start, bucket_plan,
-                           bucket_perm, capacity):
-    """Normalize the layer-major arguments: tables [B, mb] broadcast to
-    every layer (or [L, B, mb] per layer), starts [B] / [L, B] / None,
-    and `bucket_plan` a single plan or a per-group tuple. Returns
-    (bt [L,B,mb], starts [L,B], plans tuple|None, perms tuple|None,
-    cls [L] host ints)."""
-    l = cfg.n_layers
-    if block_table.dim() == 2:
-        block_table = block_table[None].expand((l,) + tuple(block_table.shape))
-    b = block_table.shape[1]
-    if block_start is None:
-        block_start = torch.zeros((l, b), dtype=torch.int32,
-                                  device=block_table.device)
-    elif block_start.dim() == 1:
-        block_start = block_start[None].expand(l, b)
+def paged_plan_views(cfg, bucket_plan, bucket_perm, capacity):
+    """Normalize `bucket_plan`, a single plan or a per-group tuple:
+    (plans tuple|None, perms tuple|None, cls [L] host ints, each layer's
+    plan index)."""
     if bucket_plan is None:
         plans, perms = None, None
     elif is_bucket_plan(bucket_plan):
@@ -847,7 +835,27 @@ def _per_layer_paged_views(cfg, block_table, block_start, bucket_plan,
     if plans is not None and len(plans) > 1:
         cls = layer_group_index(cfg, capacity).tolist()
     else:
-        cls = [0] * l
+        cls = [0] * cfg.n_layers
+    return plans, perms, cls
+
+
+def _per_layer_paged_views(cfg, block_table, block_start, bucket_plan,
+                           bucket_perm, capacity):
+    """Normalize the layer-major arguments: tables [B, mb] broadcast to
+    every layer (or [L, B, mb] per layer), starts [B] / [L, B] / None,
+    and the plans (`paged_plan_views`). Returns (bt [L,B,mb], starts
+    [L,B], plans tuple|None, perms tuple|None, cls [L] host ints)."""
+    l = cfg.n_layers
+    if block_table.dim() == 2:
+        block_table = block_table[None].expand((l,) + tuple(block_table.shape))
+    b = block_table.shape[1]
+    if block_start is None:
+        block_start = torch.zeros((l, b), dtype=torch.int32,
+                                  device=block_table.device)
+    elif block_start.dim() == 1:
+        block_start = block_start[None].expand(l, b)
+    plans, perms, cls = paged_plan_views(cfg, bucket_plan, bucket_perm,
+                                         capacity)
     return block_table, block_start, plans, perms, cls
 
 

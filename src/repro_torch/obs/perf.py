@@ -341,6 +341,14 @@ class CompileWatcher:
             "memory_s": nbytes / self.chip.hbm_bandwidth,
         })
 
+    def on_graph(self, step: str, replayed: bool) -> None:
+        """One call of `step` captured into CUDA graphs or replayed from
+        them (`serve.graphs`): `serve_{step}_graph_captures` /
+        `serve_{step}_graph_replays`, made at the first such call, so a
+        run that graphs nothing (the CPU) registers neither."""
+        kind = "replays" if replayed else "captures"
+        self.registry.counter(f"serve_{step}_graph_{kind}").inc()
+
     @property
     def total(self) -> int:
         return len(self.compiles)

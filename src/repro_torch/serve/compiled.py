@@ -6,7 +6,9 @@
 prefill into the page pools and one-token paged decode; prefill into a
 new dense cache and one-token dense decode); building them here keeps
 the `models` call signatures in one place. PyTorch runs eagerly, so there is nothing to
-compile: each step is a plain callable. What the reference's jit cache
+compile: each step is a plain callable, and on the card's kernel path
+the paged decode step serves its calls from piecewise CUDA graphs
+captured once per signature (`serve.graphs`). What the reference's jit cache
 bounded — one compiled program per distinct (step kind, bucket plans,
 argument shape/dtype signature) — is kept as an observable: every new
 signature a step sees is logged once, and `trace_count()` counts those
@@ -39,6 +41,7 @@ Telemetry hooks (DESIGN.md §13-§14), both off by default and free then:
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Tuple
 
 import torch
@@ -47,6 +50,7 @@ from ..configs.base import ModelConfig
 from ..kernels.paged_common import bucket_scopes
 from ..models import decode_step, decode_step_paged, prefill, prefill_paged
 from ..quant.bitplane import PimWeight
+from .graphs import DecodeGraphs
 
 #: (step kind, plans) appended once per new step signature
 _TRACE_LOG: List[Tuple[str, object]] = []
@@ -85,33 +89,38 @@ class ServeStep:
     """One serve step of kind `kind`: calls `fn` and logs each new
     (plans, signature) once — the analog of one trace of the reference's
     jitted step — and reports it to `watcher` when one is attached. With
-    `annotate`, each bucket launch of the call opens its profiler range."""
+    `annotate`, each bucket launch of the call opens its profiler range.
+    With `graphs` (a `serve.graphs.DecodeGraphs`), calls it applies to
+    run from its CUDA graphs."""
 
-    def __init__(self, kind: str, fn, watcher=None, annotate: bool = False):
+    def __init__(self, kind: str, fn, watcher=None, annotate: bool = False,
+                 graphs=None):
         self.kind = kind
         self._fn = fn
         self._seen = set()
         self._watcher = watcher
         self._annotate = annotate
+        self.graphs = graphs
 
     def __call__(self, *args, perms=None, plans=None):
-        key = (plans, _leaf_sig((args, perms)))
+        sig = _leaf_sig(args)
+        key = (plans, (sig, _leaf_sig(perms)))
         if key in self._seen:
-            return self._run(args, perms, plans)
+            return self._run(sig, args, perms, plans)
         self._seen.add(key)
         _TRACE_LOG.append((self.kind, plans))
         if self._watcher is None:
-            return self._run(args, perms, plans)
+            return self._run(sig, args, perms, plans)
         t0 = self._watcher.clock()
-        out = self._run(args, perms, plans)
+        out = self._run(sig, args, perms, plans)
         self._watcher.on_compile(self.kind, plans,
                                  self._watcher.clock() - t0)
         return out
 
-    def _run(self, args, perms, plans):
-        if not self._annotate:
-            return self._fn(*args, perms=perms, plans=plans)
-        with bucket_scopes():
+    def _run(self, sig, args, perms, plans):
+        with bucket_scopes() if self._annotate else contextlib.nullcontext():
+            if self.graphs is not None and self.graphs.applies(args):
+                return self.graphs(sig, args, perms=perms, plans=plans)
             return self._fn(*args, perms=perms, plans=plans)
 
     def cache_size(self) -> int:
@@ -151,23 +160,25 @@ def paged_decode_step(cfg: ModelConfig, impl: str = "auto",
     """(params, token, k_pages, v_pages, block_tables, block_starts,
     positions, perms=..., plans=...) -> (logits, k_pages, v_pages), pools
     updated in place; the int8 variant takes and returns the scale
-    stacks after the pools."""
+    stacks after the pools. On the card's kernel path the calls run
+    from piecewise CUDA graphs (`serve.graphs`), with the same
+    results."""
 
     if kv_dtype == "int8":
-        def qfn(p, t, kp, vp, ks, vs, bt, st, pos, perms=None, plans=None):
+        def fn(p, t, kp, vp, ks, vs, bt, st, pos, perms=None, plans=None):
             return decode_step_paged(
                 p, t, kp, vp, bt, pos, cfg, impl=impl,
                 bucket_plan=plans, bucket_perm=perms, block_start=st,
                 k_scales=ks, v_scales=vs,
             )
-        return ServeStep("decode", qfn, watcher, annotate)
-
-    def fn(p, t, kp, vp, bt, st, pos, perms=None, plans=None):
-        return decode_step_paged(
-            p, t, kp, vp, bt, pos, cfg, impl=impl,
-            bucket_plan=plans, bucket_perm=perms, block_start=st,
-        )
-    return ServeStep("decode", fn, watcher, annotate)
+    else:
+        def fn(p, t, kp, vp, bt, st, pos, perms=None, plans=None):
+            return decode_step_paged(
+                p, t, kp, vp, bt, pos, cfg, impl=impl,
+                bucket_plan=plans, bucket_perm=perms, block_start=st,
+            )
+    return ServeStep("decode", fn, watcher, annotate,
+                     graphs=DecodeGraphs(cfg, fn, impl, watcher))
 
 
 def dense_prefill_step(cfg: ModelConfig, cache_len: int, impl: str = "auto",

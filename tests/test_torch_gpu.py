@@ -1198,3 +1198,261 @@ def test_counted_work_equal_on_both_routes(cuda_device, quantized):
         assert a["kernel_bytes"] == b["kernel_bytes"]
         assert {k: v["calls"] for k, v in a["kernels"].items()} == \
             {k: v["calls"] for k, v in b["kernels"].items()}
+
+
+# ---------------------------------------------------------------------------
+# the paged decode step from piecewise CUDA graphs (serve/graphs.py)
+# ---------------------------------------------------------------------------
+
+def _graph_prompts(vocab, n=10, seed=4):
+    """Ragged prompts (some longer than a prefill chunk of 8, so their
+    slot is parked while it prefills) and outputs of 2-12 tokens, so
+    slots free and refill through the drain."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, vocab, int(n_p), dtype=np.int32), int(n_new))
+            for n_p, n_new in zip(rng.integers(3, 30, n),
+                                  rng.integers(2, 13, n))]
+
+
+#: where `_moe_read` puts the decode's MoE outputs: the list of the
+#: batcher whose decode step runs
+_MOE_SINK = [None]
+
+
+def _moe_read(inner):
+    """`moe_forward`, each decode call's output read through
+    `serve.graphs.each_run` into the `_MOE_SINK` of the step that runs
+    when the reading is made (a replay's, for a captured call)."""
+    from repro_torch.serve.graphs import each_run
+
+    def counted(params, x, **kw):
+        y, aux = inner(params, x, **kw)
+        if x.shape[1] == 1 and _MOE_SINK[0] is not None:
+            each_run(lambda: _MOE_SINK[0].append(y.clone()))
+        return y, aux
+    return counted
+
+
+def _recording(cb, step, log):
+    """`step`, logging each decode's logits with the rows that decoded
+    and the MoE outputs `_moe_read` read in it."""
+    def call(*args, **kw):
+        moe = _MOE_SINK[0] = []
+        try:
+            out = step(*args, **kw)
+        finally:
+            _MOE_SINK[0] = None
+        rows = [i for i, s in enumerate(cb.slots)
+                if s is not None and i not in cb._chunk_pos]
+        log.append((out[0].clone(), rows, moe))
+        return out
+    return call
+
+
+def _graph_counts(tel):
+    """(captures, replays) of the paged decode graphs, from the
+    telemetry's registry (0 where a counter was never made)."""
+    return tuple(sum(m.value for m in tel.registry.find(
+        f"serve_decode_graph_{kind}")) for kind in ("captures", "replays"))
+
+
+def _pool_tensors(pc, page0=False):
+    """Every pool stack, without scratch page 0 unless `page0`: idle and
+    parked slots all write its first row in one scatter, whose duplicate
+    indices land in no fixed order unless index_put is made to sort them
+    (`torch.use_deterministic_algorithms`), on either route."""
+    stacks = [pc.k_pages, pc.v_pages]
+    if pc.quantized:
+        stacks += [pc.k_scales, pc.v_scales]
+    return [s if page0 else s[:, 1:] for s in stacks]
+
+
+def _graphed_and_eager(dev, cfg, params, prompts, telemetry=None,
+                       replace_pool_at=None, whole=False, **kw):
+    """One drain with the decode step graphed, one with it eager, in
+    lockstep: after each tick, the decoded rows' logits and tokens, their
+    rows of each MoE output `_moe_read` read, and both pools (scales
+    included) are equal bit for bit, each kernel module's `LAUNCHES`
+    grew alike, and at the end the finished requests' tokens are equal.
+    Idle and parked rows read scratch page 0 (`_pool_tensors`), so their
+    rows and page 0 are left out, unless `whole` (for a run whose
+    index_put sorts). Returns the graphed and the eager decode step, the
+    ticks and the decodes."""
+    from repro_torch.serve.graphs import KERNELS
+
+    runs = {}
+    for graphed in (True, False):
+        cb = ContinuousBatcher(cfg, params, n_slots=3, cache_len=64,
+                               paged=True, block_size=4, device=dev,
+                               telemetry=telemetry if graphed else None,
+                               **kw)
+        step = cb._decode_paged
+        if not graphed:
+            step.graphs = None
+        log = []
+        cb._decode_paged = _recording(cb, step, log)
+        for uid, (p, n_new) in enumerate(prompts):
+            cb.submit(Request(uid=uid, prompt=p, max_new_tokens=n_new))
+        runs[graphed] = (cb, step, log)
+    (a, step, log_a), (b, eager, log_b) = runs[True], runs[False]
+    ticks = 0
+    while a.queue or any(s is not None for s in a.slots):
+        if ticks == replace_pool_at:
+            for cb in (a, b):
+                cb.pcache.k_pages = cb.pcache.k_pages.clone()
+        launched = []
+        for cb in (a, b):
+            before = [m.LAUNCHES for m in KERNELS]
+            cb.step()
+            launched.append([m.LAUNCHES - n for m, n in zip(KERNELS, before)])
+        assert launched[0] == launched[1]
+        ticks += 1
+        assert len(log_a) == len(log_b)
+        if log_a:
+            (la, ra, ma), (lb, rb, mb) = log_a[-1], log_b[-1]
+            assert ra == rb
+            if whole:
+                ra = rb = list(range(a.n_slots))
+            assert torch.equal(la[ra], lb[rb])
+            assert torch.equal(a.tokens[ra], b.tokens[rb])
+            assert len(ma) == len(mb) == (cfg.n_layers if cfg.n_experts
+                                          else 0)
+            assert all(torch.equal(x[ra], y[rb]) for x, y in zip(ma, mb))
+        for x, y in zip(_pool_tensors(a.pcache, whole),
+                        _pool_tensors(b.pcache, whole)):
+            assert torch.equal(x, y)
+    assert not (b.queue or any(s is not None for s in b.slots))
+    assert a.finished == b.finished
+    return step, eager, ticks, len(log_a)
+
+
+GRAPH_CASES = {
+    "qwen2-1.5b": dict(prefill_chunk=8),
+    "gemma3-27b": dict(prefill_chunk=8, group_blocks="auto"),
+    "phi3.5-moe-42b-a6.6b": dict(prefill_chunk=8),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("quantize", [False, True], ids=["dense", "pim8"])
+@pytest.mark.parametrize("arch", list(GRAPH_CASES))
+def test_graphed_decode_equals_eager_bit_for_bit(cuda_device, monkeypatch,
+                                                 arch, quantize, kv_dtype):
+    """Over 20+ ticks with slot turnover and parked chunked-prefill slots,
+    on bf16 and int8 pools, with dense and 8-bit bit-plane weights, the
+    decode served from its CUDA graphs gives the eager step's logits,
+    tokens and pools bit for bit: a dense stack, gemma3's two layer
+    groups with a window, and a MoE. One capture serves the drain, the
+    first decode runs eagerly and every decode after the second is a
+    replay. Each kernel launches as often, and a MoE output read through
+    `serve.graphs.each_run` is read at every decode, replayed or not."""
+    from repro_torch.models import transformer
+    from repro_torch.obs import ManualClock, ServeTelemetry
+
+    dev = cuda_device
+    cfg = get_config(arch, smoke=True)
+    monkeypatch.setattr(transformer, "moe_forward",
+                        _moe_read(transformer.moe_forward))
+
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if quantize:
+        params = quantize_tree(params, PimQuantConfig(8, 1, min_features=8))
+    tel = ServeTelemetry(clock=ManualClock())
+    _, _, ticks, decodes = _graphed_and_eager(
+        dev, cfg, params, _graph_prompts(cfg.vocab_size), telemetry=tel,
+        kv_dtype=kv_dtype, **GRAPH_CASES[arch])
+    assert ticks >= 20
+    assert _graph_counts(tel) == (1, decodes - 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("arch", list(GRAPH_CASES))
+def test_graphed_decode_equals_eager_whole_where_index_put_sorts(
+        cuda_device, monkeypatch, arch, kv_dtype):
+    """The rows and the page the bit-for-bit test leaves out differ only
+    by the order in which the page-0 scatter's duplicate indices land:
+    with index_put sorting them (`torch.use_deterministic_algorithms`),
+    the graphed decode gives the eager step's logits and tokens on every
+    row, idle and parked ones included, and both pools with page 0, bit
+    for bit (8-bit bit-plane weights)."""
+    from repro_torch.models import transformer
+
+    dev = cuda_device
+    cfg = get_config(arch, smoke=True)
+    monkeypatch.setattr(transformer, "moe_forward",
+                        _moe_read(transformer.moe_forward))
+    params = quantize_tree(
+        init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev),
+        PimQuantConfig(8, 1, min_features=8))
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _, _, ticks, _ = _graphed_and_eager(
+            dev, cfg, params, _graph_prompts(cfg.vocab_size), whole=True,
+            kv_dtype=kv_dtype, **GRAPH_CASES[arch])
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+    assert ticks >= 20
+
+
+@pytest.mark.gpu
+def test_one_capture_per_signature_and_a_new_one_per_pool(cuda_device):
+    """A drain captures its decode once (the telemetry's counters say
+    so); a pool tensor replaced mid-drain is run eagerly once and then
+    captured anew, never replayed stale. The step signatures logged
+    (`trace_count`) are those of the eager step."""
+    from repro_torch.obs import ManualClock, ServeTelemetry
+    from repro_torch.serve.compiled import trace_count
+
+    dev = cuda_device
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    params = quantize_tree(
+        init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev),
+        PimQuantConfig(8, 1, min_features=8))
+    prompts = _graph_prompts(cfg.vocab_size, n=12, seed=5)
+    tel = ServeTelemetry(clock=ManualClock())
+    before = trace_count("decode")
+    step, eager, _, decodes = _graphed_and_eager(
+        dev, cfg, params, prompts, telemetry=tel, replace_pool_at=12)
+    assert _graph_counts(tel) == (2, decodes - 4)
+    assert (tel.registry.counter("kernel_launches", {"kind": "decode"}).value
+            == decodes)
+    assert step.cache_size() == eager.cache_size()
+    assert trace_count("decode") - before == 2 * step.cache_size()
+
+
+@pytest.mark.gpu
+def test_k1_wrapped_after_capture_sees_every_layer(cuda_device, monkeypatch):
+    """A `paged_attention` set on `models.attention` after the capture (as
+    a profiler range is) is called once per layer of each replayed
+    decode, with the tick's plans."""
+    from repro_torch.models import attention
+    from repro_torch.obs import ManualClock, ServeTelemetry
+
+    dev = cuda_device
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tel = ServeTelemetry(clock=ManualClock())
+    cb = ContinuousBatcher(cfg, params, n_slots=3, cache_len=64, paged=True,
+                           block_size=4, device=dev, telemetry=tel)
+    for uid, (p, _) in enumerate(_graph_prompts(cfg.vocab_size)):
+        cb.submit(Request(uid=uid, prompt=p, max_new_tokens=12))
+    while _graph_counts(tel)[0] == 0:
+        cb.step()
+    orig = attention.paged_attention
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(kw["plan"])
+        return orig(*args, **kw)
+    monkeypatch.setattr(attention, "paged_attention", counted)
+    for _ in range(4):
+        replays = _graph_counts(tel)[1]
+        n = len(calls)
+        cb.step()
+        assert _graph_counts(tel)[1] == replays + 1
+        assert len(calls) - n == cfg.n_layers
+    assert any(plan is not None for plan in calls)

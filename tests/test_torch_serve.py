@@ -444,6 +444,113 @@ def test_step_signatures_stay_bounded(models, trace):
     assert trace_count("prefill") - before[1] == len(widths)
 
 
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_cpu_decode_stays_eager(models, trace, kv_dtype):
+    """On the CPU the paged decode step runs eagerly, as before the
+    card's CUDA graphs: they never apply, each decode's logits and the
+    drain's tokens equal those of the step with no graphs at all, the
+    signatures logged (`trace_count`) are the same, and the telemetry's
+    graph counters read 0 and stay out of its registry, so its summary
+    is still the reference's."""
+    _, _, cfg, tp = models
+    runs = {}
+    for graphs in (True, False):
+        tel = ServeTelemetry()
+        cb = ContinuousBatcher(cfg, tp, n_slots=N_SLOTS,
+                               cache_len=MAX_PROMPT + NEW_TOKENS + 2,
+                               paged=True, block_size=BLOCK, device="cpu",
+                               kv_dtype=kv_dtype, telemetry=tel)
+        step = cb._decode_paged
+        if not graphs:
+            step.graphs = None
+        logits = []
+
+        def call(*args, step=step, logits=logits, **kw):
+            out = step(*args, **kw)
+            logits.append(out[0].clone())
+            return out
+        cb._decode_paged = call
+        before = trace_count("decode")
+        for uid, p in enumerate(trace):
+            cb.submit(Request(uid=uid, prompt=p, max_new_tokens=NEW_TOKENS))
+        res = cb.run_until_drained()
+        runs[graphs] = (res, logits, trace_count("decode") - before, step,
+                        tel)
+    (res, logits, signatures, step, tel) = runs[True]
+    assert res == runs[False][0]
+    assert len(logits) == len(runs[False][1]) > 0
+    assert all(torch.equal(a, b) for a, b in zip(logits, runs[False][1]))
+    assert signatures == runs[False][2] == 1
+    assert not tel.registry.find("serve_decode_graph_captures")
+    assert not tel.registry.find("serve_decode_graph_replays")
+    assert not [k for k in tel.summary()["metrics"] if "graph" in k]
+
+
+def test_k1_cut_sees_each_layer_and_changes_nothing(models):
+    """`models.attention.K1_CUT`, where the piecewise decode graphs cut
+    the step: set, each layer's K1 call of a paged decode step is handed
+    to it once, and a cut that runs the call as `_select_bucket_plan`
+    does leaves logits and pools bit for bit."""
+    from repro_torch.models import attention, decode_step_paged
+
+    _, _, cfg, tp = models
+    pc = PagedKVCache(cfg, n_slots=2, max_len=16, block_size=4,
+                      device="cpu")
+    for slot, n in enumerate((9, 3)):
+        pc.alloc_slot(slot, n)
+        pc.lengths[slot] = n
+    tok = torch.tensor([[5], [7]], dtype=torch.int32)
+    bt, st = pc.device_block_tables(), pc.device_block_starts()
+    pos = pc.device_positions()
+    seen = []
+
+    def cut(call, plans, perms, plan_class):
+        seen.append(plan_class)
+        return attention._select_bucket_plan(call, plans, perms, plan_class)
+
+    def run(k1_cut):
+        kp, vp = pc.k_pages.clone(), pc.v_pages.clone()
+        token = attention.K1_CUT.set(k1_cut)
+        try:
+            logits = decode_step_paged(tp, tok, kp, vp, bt, pos, cfg,
+                                       impl="ref", block_start=st)[0]
+        finally:
+            attention.K1_CUT.reset(token)
+        return logits, kp, vp
+
+    eager, through_cut = run(None), run(cut)
+    assert len(seen) == cfg.n_layers
+    assert all(torch.equal(a, b) for a, b in zip(eager, through_cut))
+
+
+def test_each_run_runs_at_once_outside_a_capture(models):
+    """`serve.graphs.each_run` outside a decode graph's capture (every
+    CPU step) runs its host work at once, in the order handed over: a
+    reading made through it in each eager decode sees every decode."""
+    from repro_torch.serve.graphs import each_run
+
+    seen = []
+    each_run(lambda: seen.append(1))
+    each_run(lambda: seen.append(2))
+    assert seen == [1, 2]
+
+    _, _, cfg, tp = models
+    cb = ContinuousBatcher(cfg, tp, n_slots=N_SLOTS,
+                           cache_len=MAX_PROMPT + NEW_TOKENS + 2,
+                           paged=True, block_size=BLOCK, device="cpu")
+    step, shapes = cb._decode_paged, []
+
+    def call(*args, **kw):
+        out = step(*args, **kw)
+        each_run(lambda: shapes.append(tuple(out[0].shape)))
+        return out
+    cb._decode_paged = call
+    cb.submit(Request(uid=0, prompt=np.arange(5, dtype=np.int32),
+                      max_new_tokens=NEW_TOKENS))
+    cb.run_until_drained()
+    assert shapes == [(N_SLOTS, 1, cfg.vocab_size)] * (NEW_TOKENS - 1)
+
+
 def test_unported_modes_raise(models):
     """The page-pool options without `paged=True` raise the reference's
     `ValueError`s, in both packages; the dense cache itself runs, and
