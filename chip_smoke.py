@@ -216,6 +216,16 @@ Phases, one line each:
                dense `generate` kernels == plain versions), whisper at 2
                + 2 (pim8 kernels == plain), llava at 4 (K1/K2 drain ==
                plain, chunked == single-shot)
+ 18'. mellum   K6 (the grouped bit-plane GEMV of dropless expert stacks)
+               against its plain version (within 1e-5 of the largest
+               |plain|) and K3 on each expert's rows (exactly equal),
+               timed beside its plain version at mellum2-12b-a2.5b's
+               expert shapes ([2304 -> 896], [896 -> 2304], 64 experts,
+               8-bit g = 1) at 1024 and 11,080 pairs; then the whole
+               model (28 layers, 64 experts each, vocab 98,304) packed
+               and drained: K6 launches 3 x 28 per decode step.
+               `python3 chip_smoke.py --mellum` runs the build and this
+               phase alone
  19. train    the training path (`make_train_step`, `Trainer`; no
                serving kernel launches in it): (a) qwen2-1.5b at
                published width and depth (28 L, d 1536, vocab 151936),
@@ -433,11 +443,18 @@ def say_timing(name: str, r: dict) -> None:
 
 def kernel_modules():
     """name -> the wrapper module holding the kernel's LAUNCHES count."""
-    from repro_torch.kernels import (bitplane_gemm, bitplane_gemv, pack,
+    from repro_torch.kernels import (bitplane_gemm, bitplane_gemv,
+                                     bitplane_grouped, pack,
                                      paged_attention, paged_prefill)
     return {"paged_decode": paged_attention, "paged_prefill": paged_prefill,
             "bitplane_gemv": bitplane_gemv, "bitplane_gemm": bitplane_gemm,
-            "bitplane_pack": pack}
+            "bitplane_pack": pack, "bitplane_grouped": bitplane_grouped}
+
+
+#: the kernels every pim8 stack without dropless experts launches (K1-K5);
+#: K6 runs only under dropless routing (phase `mellum`)
+DENSE_KERNELS = ("paged_decode", "paged_prefill", "bitplane_gemv",
+                 "bitplane_gemm", "bitplane_pack")
 
 
 def reset_launches() -> None:
@@ -451,7 +468,7 @@ def read_launches() -> dict:
 
 #: libraries whose products must run on the tensor cores
 TENSOR_CORE_KERNELS = ("paged_decode", "paged_prefill", "bitplane_gemv",
-                       "bitplane_gemm")
+                       "bitplane_gemm", "bitplane_grouped")
 
 
 def tensor_core_counts(libs) -> dict:
@@ -1010,6 +1027,166 @@ def bitplane_timings(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase: mellum2-12b-a2.5b's dropless experts on K6
+# ---------------------------------------------------------------------------
+
+#: mellum2-12b-a2.5b's expert projections: [2304 -> 896] (gate / up) and
+#: [896 -> 2304] (down), 64 experts, 8-bit g = 1 planes
+MELLUM_EXPERT_SHAPES = ((2304, 896), (896, 2304))
+#: a decode tick's 128 slots x top-8, and a 1385-token prompt's x 8
+MELLUM_PAIRS = (1024, 11080)
+
+
+def k6_row(dev, gen, k, m, pairs, e=64) -> tuple:
+    """One K6 launch at [k -> m] over `pairs` bf16 rows routed uniformly
+    at random to `e` experts' random planes: its largest difference from
+    the plain version (held within 1e-5 of the largest |plain|, and 1e-5
+    of each, as the card test holds it), its largest difference from K3
+    on each expert's rows (0: the same tile), and its timing beside the
+    plain version (no library call computes it; the plain version runs
+    every expert over every row, E times the work)."""
+    from repro_torch.kernels import bitplane_gemv, bitplane_grouped, ref
+    from repro_torch.kernels import work as kwork
+
+    planes = torch.randint(0, 256, (e, 8, k // 8, m), generator=gen,
+                           device=dev, dtype=torch.uint8)
+    expert = torch.sort(torch.randint(0, e, (pairs,), generator=gen,
+                                      device=dev)).values
+    counts = torch.bincount(expert, minlength=e)
+    offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int()
+    x = torch.randn((pairs, k), generator=gen, device=dev).bfloat16()
+    x_r = ref.prepare_x_ref(x, 1).contiguous()
+
+    def run():
+        return bitplane_grouped.bitplane_grouped(x_r, planes, offsets,
+                                                 n_bits=8)
+
+    def plain_run():
+        return bitplane_grouped.bitplane_grouped_ref(x_r, planes, offsets)
+    raw = run()
+    plain = plain_run()
+    diff = (raw - plain).abs()
+    plain_err = float(diff.max())
+    top = float(plain.abs().max())
+    check(bool((diff <= 1e-5 * (plain.abs() + top)).all()),
+          f"K6 [{k}->{m}] x {pairs} differs from its plain version by "
+          f"{plain_err} (largest |plain| {top})")
+    del plain, diff
+    offs = offsets.tolist()
+    k3_err = 0.0
+    for i in range(e):
+        a, b = offs[i], offs[i + 1]
+        if a < b:
+            want = bitplane_gemv.bitplane_gemv(
+                ref.prepare_x_ref(x[a:b], 1).contiguous(), planes[i],
+                n_bits=8)
+            k3_err = max(k3_err, float((raw[a:b] - want).abs().max()))
+    flops, nbytes = kwork.k6_work(pairs, k, m, n_experts=e)
+    r = dict(ms=cuda_ms(run), call_ms=call_ms(run),
+             plain_ms=call_ms(plain_run),
+             library_ms=None, library_call_ms=None,
+             **bound(int(nbytes), int(flops), torch.bfloat16),
+             shape=f"mellum2 x[{pairs},{k}] planes[{e},8,{k // 8},{m}] bf16",
+             max_abs_err=plain_err, plain_max_abs=top, k3_max_abs_err=k3_err)
+    say_timing("bitplane_grouped", r)
+    say("k6", shape=repr(r["shape"]), max_abs_err=plain_err,
+        plain_max_abs=top, k3_max_abs_err=k3_err)
+    torch.cuda.empty_cache()
+    return plain_err, k3_err, r
+
+
+def mellum_decode_launches(dev) -> dict:
+    """mellum2-12b-a2.5b whole (28 layers, 64 experts each, the whole
+    vocabulary) on 8-bit planes: a short paged drain with telemetry, each
+    decode step's launches counted: K6 launches 3 per layer, 84 a step,
+    replayed or not; the MoE's device counters give top_k x layers x
+    every row routed (no pair dropped); the decode is captured once and
+    replayed after; the host waits once a decode tick and once an
+    admission, as for any stack."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+    from repro_torch.obs import ServeTelemetry
+    from repro_torch.serve import ContinuousBatcher, Request
+
+    cfg = get_config("mellum2-12b-a2.5b")
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    qparams, frac, q_s = quantize_params(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    tel = ServeTelemetry()
+    cb = ContinuousBatcher(cfg, qparams, n_slots=8, cache_len=1200,
+                           paged=True, block_size=16, device=dev,
+                           telemetry=tel)
+    step, per_step = cb._decode_paged, []
+
+    def counted(*args, **kw):
+        before = read_launches()
+        out = step(*args, **kw)
+        after = read_launches()
+        per_step.append({n: after[n] - before[n] for n in after})
+        return out
+    cb._decode_paged = counted
+    rng = np.random.default_rng(SEED)
+    reset_launches()
+    for uid, n in enumerate((1100, 40, 300)):
+        cb.submit(Request(uid=uid, prompt=rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=8))
+    t0 = time.perf_counter()
+    cb.run_until_drained()
+    torch.cuda.synchronize()
+    k6 = [d["bitplane_grouped"] for d in per_step]
+    check(all(n == 3 * cfg.n_layers for n in k6),
+          f"K6 launches per decode step {k6}, not 3 x {cfg.n_layers}")
+    check(all(d["bitplane_gemv"] == 4 * cfg.n_layers for d in per_step),
+          "K3 launches per decode step: not 4 projections x layers")
+    launches = read_launches()
+    counts = {m.name: m.value for name in (
+        "moe_pairs", "moe_layer_calls", "moe_expert_rows_max",
+        "serve_decode_graph_captures", "serve_decode_graph_replays")
+        for m in tel.registry.find(name)}
+    spans = [r.name for r in tel.span_records()]
+    ticks, admits = spans.count("serve/tick"), spans.count("serve/admit")
+    syncs = spans.count("serve/sync") + spans.count("serve/first_token")
+    routed = len(per_step) * cb.n_slots + cb.prefill_tokens
+    check(counts["moe_pairs"] == cfg.top_k * cfg.n_layers * routed,
+          f"moe_pairs {counts['moe_pairs']} != top_k x layers x {routed}")
+    check(counts.get("serve_decode_graph_captures") == 1 and counts.get(
+        "serve_decode_graph_replays") == len(per_step) - 2,
+        f"decode graphs: {counts}")
+    check(syncs == len(per_step) + admits,
+          f"{syncs} host waits for {len(per_step)} decodes and {admits} "
+          "admissions")
+    say("mellum", model=cfg.name, packed_fraction=frac, init_s=init_s,
+        quantize_s=q_s, drain_s=time.perf_counter() - t0,
+        decode_steps=len(per_step), k6_launches_per_decode_step=k6[0],
+        k6_launches=launches["bitplane_grouped"], rows_routed=routed,
+        ticks=ticks, host_waits=syncs, **counts,
+        peak=torch.cuda.max_memory_allocated())
+    del cb, qparams
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mellum(dev, errs, times) -> dict:
+    """K6 against its plain version and K3, and timed, at the cell's
+    shapes, then the whole model's decode launches; fills `errs` (the
+    largest difference from the plain version) / `times` for K6's row of
+    the kernel table and returns the drain's launches."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    err = k3_err = 0.0
+    for pairs in MELLUM_PAIRS:
+        for k, m in MELLUM_EXPERT_SHAPES:
+            e, e3, r = k6_row(dev, gen, k, m, pairs)
+            err, k3_err = max(err, e), max(k3_err, e3)
+            times.setdefault("bitplane_grouped", r)
+    check(k3_err == 0.0, f"K6 differs from K3 by {k3_err}")
+    errs["bitplane_grouped"] = err
+    return mellum_decode_launches(dev)
+
+
+# ---------------------------------------------------------------------------
 # phases 6-10: the qwen2-1.5b paths
 # ---------------------------------------------------------------------------
 
@@ -1145,7 +1322,7 @@ def serve_quantized(cfg, qparams, frac, seconds, dev):
           "slice)")
     return serve_full_width(
         cfg, qparams, dev, "bf16", weights="pim8", reset=False,
-        required=tuple(kernel_modules()), packed_fraction=frac,
+        required=DENSE_KERNELS, packed_fraction=frac,
         quantize_s=seconds)[0]
 
 
@@ -1769,7 +1946,7 @@ def gemma3_quantized(dev):
     check(stats["requests"] == 8 and all(len(v) == 16
                                          for v in results.values()),
           "gemma3 pim8: a request stopped short")
-    check(all(launches[k] > 0 for k in kernel_modules()),
+    check(all(launches[k] > 0 for k in DENSE_KERNELS),
           f"gemma3 pim8: not every kernel launched: {launches}")
     check(stats["pools_whole"], "gemma3 pim8: a page is still held")
     say("serve", model=cfg.name, kv_dtype="bf16", weights="pim8",
@@ -1971,7 +2148,7 @@ def zoo_quantized(dev, errs) -> dict:
     check(k5 == slices, f"phi3.5 pim8: K5 launches {k5} != {slices}")
     launches, routing = zoo_drain(
         cfg, qparams, dev, "bf16", weights="pim8", reset=False,
-        required=tuple(kernel_modules()), tree_packed_fraction=frac,
+        required=DENSE_KERNELS, tree_packed_fraction=frac,
         quantize_s=seconds, k5_slices=slices)
     del qparams
     torch.cuda.empty_cache()
@@ -2360,7 +2537,7 @@ def recurrent_family(dev, arch, errs) -> dict:
         qtokens, qstats, qlaunches = dense_generate(cfg, qparams, prompts,
                                                     new, t + new, dev)
     qlaunches["bitplane_pack"] = k5
-    check(all(qlaunches[k] > 0 for k in kernel_modules()
+    check(all(qlaunches[k] > 0 for k in DENSE_KERNELS
               if k.startswith("bitplane")),
           f"{arch} pim8: K3/K4/K5 not all launched: {qlaunches}")
     gates = shapes.launches("bitplane_gemv", m=cfg.n_heads)
@@ -4447,6 +4624,8 @@ def main() -> int:
         return train_example_child(sys.argv[2])
     if sys.argv[1:2] == ["--dryrun-child"]:
         return dryrun_child()
+    if sys.argv[1:2] == ["--mellum"]:
+        return mellum_only()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -4555,6 +4734,10 @@ def main() -> int:
     zoo_parity(dev)
     laps.lap("zoo parity")
     by_path.update(families(dev, errs, laps))
+    by_path["mellum2-12b-a2.5b pim8"] = mellum(dev, errs, times)
+    launches["bitplane_grouped"] = by_path["mellum2-12b-a2.5b pim8"][
+        "bitplane_grouped"]
+    laps.lap("mellum2")
     reset_launches()
     train(dev, laps)
     train_launches = read_launches()
@@ -4579,6 +4762,8 @@ def main() -> int:
                           "src/repro/kernels/bitplane_gemm.py:23"),
         "bitplane_pack": (f"{csrc}/bitplane_pack.cu",
                           "src/repro/kernels/pack.py:22"),
+        "bitplane_grouped": (f"{csrc}/bitplane_grouped.cu",
+                             "none: the reference vmaps bitplane_matmul"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -4588,12 +4773,38 @@ def main() -> int:
             launches=launches[name], max_abs_err=errs[name], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            launches_by_path={path: n[name] for path, n in by_path.items()}))
+            launches_by_path={path: n.get(name, 0)
+                              for path, n in by_path.items()}))
     say("done", seconds=time.perf_counter() - started, card=repr(smi))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def mellum_only() -> int:
+    """`python3 chip_smoke.py --mellum`: the build and the mellum2 phase
+    alone."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    libs = _build.build()
+    say("build", seconds=time.perf_counter() - t0,
+        libs=",".join(p.name for p in libs.values()))
+    for name in ("bitplane_gemv", "bitplane_grouped"):
+        for line in _build.log_path(name).read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}", flush=True)
+    sass = tensor_core_counts(libs)
+    say("sass", **{name: n for name, n in sass.items()})
+    errs, times = {}, {}
+    launches = mellum(dev, errs, times)
+    say("done", k6_max_abs_err=errs["bitplane_grouped"],
+        k6_launches=launches["bitplane_grouped"])
     return 0
 
 

@@ -1,8 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Lists the reference's architectures in its order, and the paper's own
+Lists the reference's architectures in its order, the paper's own
 accelerator (`imagine-u55`, an `ImagineConfig`, kept out of `ARCH_IDS`
-as in the reference); each module defines ``config()`` (published
+as in the reference) and the port's own configurations
+(`mellum2-12b-a2.5b`, kept out of `ARCH_IDS`, which is held equal to
+the reference's registry); each module defines ``config()`` (published
 numbers) and ``smoke()`` (same family, tiny dims, CPU-testable) —
 copies of the reference's config modules.
 """
@@ -27,9 +29,14 @@ _MODULES: Dict[str, str] = {
     "zamba2-1.2b": "zamba2_1_2b",
     # the paper's own accelerator config (FPGA simulator side)
     "imagine-u55": "imagine_u55",
+    # the port's own: no counterpart in the reference's registry
+    "mellum2-12b-a2.5b": "mellum2_12b",
 }
 
-ARCH_IDS: List[str] = [k for k in _MODULES if k != "imagine-u55"]
+#: registered ids outside `ARCH_IDS`
+PORT_ONLY = ("imagine-u55", "mellum2-12b-a2.5b")
+
+ARCH_IDS: List[str] = [k for k in _MODULES if k not in PORT_ONLY]
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
@@ -39,5 +46,5 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     return mod.smoke() if smoke else mod.config()
 
 
-__all__ = ["ARCH_IDS", "SHAPES", "ModelConfig", "ShapeConfig", "get_config",
+__all__ = ["ARCH_IDS", "PORT_ONLY", "SHAPES", "ModelConfig", "ShapeConfig", "get_config",
            "shape_applicable"]

@@ -2,15 +2,33 @@
 
 A copy of the reference's `repro.configs.base.ModelConfig` (same fields,
 same defaults, same derived properties), so a config built here equals
-the reference's field by field. One instance per architecture the port
-runs lives in `configs/<id>.py`, with a reduced `smoke()` variant for
-CPU tests.
+the reference's field by field, plus the port's own fields (`PORT_FIELDS`:
+YaRN on the global layers), whose defaults leave every configuration of
+the reference's registry as it computes. One instance per architecture
+the port runs lives in `configs/<id>.py`, with a reduced `smoke()`
+variant for CPU tests.
+
+`capacity_factor <= 0` asks for dropless routing (`models.moe`): every
+token's top-k pairs are computed, none is dropped.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class Yarn:
+    """YaRN rotary scaling of one layer (`models.common.rope_frequencies`
+    reads it where a plain theta would stand)."""
+
+    theta: float
+    factor: float
+    original_context: int
+    beta_fast: float
+    beta_slow: float
+    attention_factor: float
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +89,15 @@ class ModelConfig:
     quant_bits: int = 8
     quant_group: int = 1
 
+    # port-only: YaRN (NTK-by-parts) rotary scaling on the global layers
+    # (`window_schedule` gives them the whole sequence; every layer where
+    # there is no window); 0 = plain RoPE at `rope_theta` everywhere
+    yarn_factor: float = 0.0
+    yarn_original_context: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_attention_factor: float = 1.0
+
     # ----- derived -----------------------------------------------------
 
     @property
@@ -107,6 +134,27 @@ class ModelConfig:
             for i in range(self.n_layers)
         ]
 
+    @property
+    def dropless(self) -> bool:
+        """MoE routing computes every pair (`capacity_factor <= 0`)."""
+        return self.capacity_factor <= 0
+
+    def layer_rope(self, l: int):
+        """Layer `l`'s rotary spec: `rope_theta`, or a `Yarn` on a global
+        layer when `yarn_factor` is set."""
+        if self.yarn_factor <= 0 or not self.is_global(l):
+            return self.rope_theta
+        return Yarn(self.rope_theta, self.yarn_factor,
+                    self.yarn_original_context, self.yarn_beta_fast,
+                    self.yarn_beta_slow, self.yarn_attention_factor)
+
+    def is_global(self, l: int) -> bool:
+        """Layer `l` attends over the whole sequence (`window_schedule`)."""
+        if self.local_global_ratio <= 0 or self.sliding_window <= 0:
+            return True
+        r = self.local_global_ratio
+        return l % (r + 1) == r
+
     def layer_flags(self) -> Dict[str, List[bool]]:
         """Per-layer structure flags for heterogeneous stacks."""
         n = self.n_layers
@@ -129,6 +177,11 @@ class ModelConfig:
             assert 0 < self.top_k <= self.n_experts, self.name
         if self.block_kind == "mamba":
             assert self.ssm_heads > 0 and self.ssm_state > 0, self.name
+
+
+#: `ModelConfig` fields the reference's config does not have
+PORT_FIELDS = ("yarn_factor", "yarn_original_context", "yarn_beta_fast",
+               "yarn_beta_slow", "yarn_attention_factor")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,6 +4,8 @@ paged_attention   K1, paged decode attention (csrc/paged_decode.cu)
 paged_prefill     K2, paged prefill attention (csrc/paged_prefill.cu)
 bitplane_gemv     K3, bit-plane GEMV (csrc/bitplane_gemv.cu)
 bitplane_gemm     K4, bit-plane GEMM (csrc/bitplane_gemm.cu)
+bitplane_grouped  K6, grouped bit-plane GEMV over expert-sorted rows
+                  (csrc/bitplane_grouped.cu)
 pack              K5, bit-plane pack (csrc/bitplane_pack.cu)
 paged_common      int8 page codec, bucketed dispatch scaffold, the
                   wrappers' operand checks
@@ -22,6 +24,7 @@ name. Importing this package needs neither nvcc nor a GPU.
 from . import (
     bitplane_gemm,
     bitplane_gemv,
+    bitplane_grouped,
     ops,
     pack,
     paged_attention,
@@ -30,5 +33,5 @@ from . import (
     ref,
 )
 
-__all__ = ["bitplane_gemm", "bitplane_gemv", "ops", "pack",
+__all__ = ["bitplane_gemm", "bitplane_gemv", "bitplane_grouped", "ops", "pack",
            "paged_attention", "paged_common", "paged_prefill", "ref"]

@@ -25,14 +25,17 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: every kernel the port builds; each is csrc/<name>.cu
 KERNELS = ("paged_decode", "paged_prefill", "bitplane_gemv", "bitplane_gemm",
-           "bitplane_pack")
+           "bitplane_pack", "bitplane_grouped")
 #: the headers each kernel includes (part of its library's hash)
 _HEADERS = {
     "paged_decode": ("paged_common.cuh", "tensor_core.cuh"),
     "paged_prefill": ("paged_common.cuh", "tensor_core.cuh"),
-    "bitplane_gemv": ("bitplane_common.cuh", "tensor_core.cuh"),
+    "bitplane_gemv": ("bitplane_gemv_tile.cuh", "bitplane_common.cuh",
+                      "tensor_core.cuh"),
     "bitplane_gemm": ("bitplane_common.cuh", "tensor_core.cuh"),
     "bitplane_pack": ("bitplane_common.cuh",),
+    "bitplane_grouped": ("bitplane_gemv_tile.cuh", "bitplane_common.cuh",
+                         "tensor_core.cuh"),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

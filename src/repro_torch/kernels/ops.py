@@ -7,8 +7,9 @@ half (`make_bucket_plan`, `plan_streamed_pages`,
 reference's `(plan, perm)` exactly; `bucket_args*` add the
 serving-layer gate and move the permutations onto the launch device.
 
-`quantize_and_pack`, `bitplane_matmul` and `packed_bytes` are the
-bit-plane half (the reference's lines 250-314): K5 packs at load, K3
+`quantize_and_pack`, `bitplane_matmul`, `bitplane_grouped_matmul` (K6,
+a stacked expert weight over expert-sorted rows) and `packed_bytes` are
+the bit-plane half (the reference's lines 250-314): K5 packs at load, K3
 (B <= 512 rows) or K4 (above) computes the raw contraction, and
 `bitplane_matmul` applies the offset and the per-channel scale. It is
 also the dispatch point that reports K3/K4's work (`kernels.work`).
@@ -32,6 +33,7 @@ import torch
 from . import ref, work
 from .bitplane_gemm import bitplane_gemm
 from .bitplane_gemv import bitplane_gemv
+from .bitplane_grouped import bitplane_grouped
 from .pack import pack_bitplanes
 
 Impl = Literal["auto", "cuda", "ref"]
@@ -286,6 +288,38 @@ def bitplane_matmul(
         sum_x = xf.float().sum(dim=-1, keepdim=True)
         y = (raw - off * sum_x) * scale[None, :]
         return y.to(x.dtype).reshape(*lead, m)
+
+
+def bitplane_grouped_matmul(
+    x: torch.Tensor,        # [P, K], rows sorted by expert
+    planes: torch.Tensor,   # [E, n_digits, K*g//8, M] uint8
+    scale: torch.Tensor,    # [E, M] f32
+    offsets: torch.Tensor,  # [E + 1] int32: expert e's rows [o[e], o[e+1])
+    expert: torch.Tensor,   # [P] int: each row's expert
+    *,
+    n_bits: int,
+    group: int = 1,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """y [P, M] = each row of x @ its expert's dequantized planes, in x's
+    dtype. The kernel path is one K6 launch for the raw f32 contraction,
+    then `bitplane_matmul`'s `(raw - 2^(n-1) * sum(x)) * scale` with each
+    row's expert's scale. `ref` runs `bitplane_matmul_ref` through
+    `ref.every_expert_ref` (every expert over every row, E times the
+    work, for the CPU)."""
+    with work.dispatch("bitplane_grouped",
+                       lambda: work.grouped_work(x, planes, n_bits, group)):
+        if resolve_impl(impl, x.device) == "ref":
+            return ref.every_expert_ref(
+                expert, planes.shape[0], lambda e: ref.bitplane_matmul_ref(
+                    x, planes[e], scale[e], n_bits, group))
+        x_r = ref.prepare_x_ref(x, group).contiguous()
+        raw = bitplane_grouped(x_r, planes, offsets, n_bits=n_bits,
+                               group=group)
+        off = float(2 ** (n_bits - 1))
+        sum_x = x.float().sum(dim=-1, keepdim=True)
+        y = (raw - off * sum_x) * scale[expert]
+        return y.to(x.dtype)
 
 
 def packed_bytes(k: int, m: int, n_bits: int, group: int = 1) -> int:

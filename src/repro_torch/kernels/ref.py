@@ -143,6 +143,18 @@ def bitplane_raw_ref(x_r: torch.Tensor, planes: torch.Tensor,
     return x.float() @ offset_form_ref(planes, group).float()
 
 
+def every_expert_ref(expert: torch.Tensor, n_experts: int,
+                     matmul) -> torch.Tensor:
+    """Plain grouped product: `matmul(e)` [P, M] over every row for each
+    expert e, each row keeping its own expert's `expert[p]`. No matmul
+    shape follows the routing and nothing is read on the host, so a
+    row's arithmetic depends on no other row; it is E times the work,
+    for the CPU and for checks."""
+    every = torch.stack([matmul(e) for e in range(n_experts)])
+    return every[expert, torch.arange(expert.shape[0],
+                                      device=expert.device)]
+
+
 def bitplane_matmul_ref(
     x: torch.Tensor,
     planes: torch.Tensor,

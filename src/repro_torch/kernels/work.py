@@ -13,6 +13,9 @@ must do, from the shapes (and, for the attention kernels, the lengths):
            the table and the per-slot vectors, each once
   K3 / K4  FLOPs 2 * B * K * M, the dense product they replace; bytes
            the planes, the scale, x and y, each once
+  K6       K3's FLOPs over the (token, expert) pairs; bytes the planes
+           and scales of the experts that can have rows, x and the f32
+           output (`k6_work`, from `ops.bitplane_grouped_matmul`)
 
 the formulas `chip_smoke.py`'s `bound()` is fed with. The work is the
 same whichever route implements the kernel.
@@ -227,3 +230,91 @@ def bitplane_work(x: torch.Tensor, planes: torch.Tensor,
     nbytes = (_nbytes(planes) + _nbytes(scale) + _nbytes(x)
               + rows * m * x.element_size())
     return 2.0 * rows * k * m, float(nbytes)
+
+
+def grouped_work(x: torch.Tensor, planes: torch.Tensor, n_bits: int,
+                 group: int) -> Tuple[float, float]:
+    """K6: `k6_work` at x's rows (the pairs) and the stack's shapes."""
+    pairs, k = x.shape
+    return k6_work(pairs, k, planes.shape[-1], n_experts=planes.shape[0],
+                   n_bits=n_bits, group=group, x_elt=x.element_size())
+
+
+# ---------------------------------------------------------------------------
+# closed forms on plain ints: K6 and a mixture of experts' model FLOPs
+# (the benchmark keeps a frozen copy, bench/work_moe.py)
+# ---------------------------------------------------------------------------
+
+def k6_work(pairs: int, k: int, m: int, *, n_experts: int, n_bits: int = 8,
+            group: int = 1, x_elt: int = 2) -> Tuple[float, float]:
+    """K6 over `pairs` (token, expert) rows of a [K -> M] expert stack:
+    FLOPs 2 * pairs * K * M; bytes the planes and f32 scales of the
+    `min(E, pairs)` experts that can have rows, the pairs' x and their
+    f32 output, each once."""
+    nd = -(-n_bits // group)
+    per_expert = nd * (k * group // 8) * m + 4 * m
+    nbytes = (min(n_experts, pairs) * per_expert + pairs * k * x_elt
+              + pairs * m * 4)
+    return 2.0 * pairs * k * m, float(nbytes)
+
+
+def _global_layers(model: dict) -> int:
+    """Layers attending over the whole sequence (`window_schedule`)."""
+    n, r = model["n_layers"], model.get("local_global_ratio", 0)
+    if r <= 0 or model.get("sliding_window", 0) <= 0:
+        return n
+    return sum(1 for l in range(n) if l % (r + 1) == r)
+
+
+def moe_active_params(model: dict) -> int:
+    """Matmul parameters one token goes through in one layer: the
+    attention projections, the router and `top_k` routed experts (and a
+    shared expert of `d_ff * n_shared_experts`)."""
+    d, h, kv = model["d_model"], model["n_heads"], model["n_kv_heads"]
+    hd = model.get("head_dim") or d // h
+    f, e = model["d_ff"], model["n_experts"]
+    shared = model.get("n_shared_experts", 0)
+    attn = d * h * hd + 2 * d * kv * hd + h * hd * d
+    return attn + d * e + (model["top_k"] + shared) * 3 * d * f
+
+
+def moe_token_flops(model: dict) -> float:
+    """2 x the active matmul parameters over every layer."""
+    return 2.0 * model["n_layers"] * moe_active_params(model)
+
+
+def moe_visible_pairs(model: dict, lo: int, hi: int) -> int:
+    """(query, key) pairs of query positions [lo, hi) summed over the
+    layers: the whole prefix on global layers, the window on the
+    others."""
+    glob = _global_layers(model)
+    local = model["n_layers"] - glob
+    full = hi * (hi + 1) // 2 - lo * (lo + 1) // 2
+    w = model.get("sliding_window", 0)
+    windowed = 0
+    if local:
+        c = min(hi, w)
+        windowed = (c * (c + 1) // 2 - lo * (lo + 1) // 2 if c > lo else 0)
+        windowed += (hi - max(lo, c)) * w
+    return glob * full + local * windowed
+
+
+def moe_prefill_flops(model: dict, prompt: int) -> float:
+    """A whole prompt: its tokens through the active parameters, its
+    visible pairs at 4 * hd * H each, and one logits row."""
+    hd = model.get("head_dim") or model["d_model"] // model["n_heads"]
+    return (prompt * moe_token_flops(model)
+            + 4.0 * hd * model["n_heads"] * moe_visible_pairs(model, 0,
+                                                                prompt)
+            + 2.0 * model["d_model"] * model["vocab_size"])
+
+
+def moe_decode_flops(model: dict, visible: int) -> float:
+    """One decoded token that sees `visible` keys (its own included) on a
+    global layer, and at most the window on the others; its logits
+    included."""
+    hd = model.get("head_dim") or model["d_model"] // model["n_heads"]
+    return (moe_token_flops(model)
+            + 4.0 * hd * model["n_heads"] * moe_visible_pairs(
+                model, visible - 1, visible)
+            + 2.0 * model["d_model"] * model["vocab_size"])

@@ -9,7 +9,7 @@ biases ``b*``, norm gains ``g``) and layouts (``[fan_in, fan_out]``).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -81,24 +81,52 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5):
 # rotary position embeddings
 # ---------------------------------------------------------------------------
 
-def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+def _yarn_bounds(head_dim: int, yarn) -> Tuple[float, float]:
+    """YaRN's ramp `(low, high)` over the frequency index: `low =
+    floor(d ln(orig / (2 pi beta_fast)) / (2 ln theta))`, `high` the
+    ceiling of the same at `beta_slow`, both clamped into [0, d - 1]."""
+    def dim(beta):
+        return (head_dim * math.log(yarn.original_context
+                                    / (beta * 2 * math.pi))
+                / (2 * math.log(yarn.theta)))
+    low = max(math.floor(dim(yarn.beta_fast)), 0)
+    high = min(math.ceil(dim(yarn.beta_slow)), head_dim - 1)
+    return float(low), float(high if high != low else high + 0.001)
+
+
+def rope_frequencies(head_dim: int, theta, device) -> torch.Tensor:
+    """The inverse frequencies `theta^(-2i/d)`, i in [0, d/2). `theta` a
+    `configs.base.Yarn`: YaRN's blend `extrap * gamma + extrap / factor *
+    (1 - gamma)`, `gamma = 1 - clamp((i - low) / (high - low), 0, 1)`
+    (high-frequency dimensions keep their rate, low ones are
+    interpolated). Device ops only, so a captured decode graph holds
+    them."""
     half = head_dim // 2
-    return 1.0 / (
-        theta ** (torch.arange(0, half, dtype=torch.float32, device=device)
-                  / half)
-    )
+    base = getattr(theta, "theta", theta)
+    i = torch.arange(0, half, dtype=torch.float32, device=device)
+    extrap = 1.0 / (base ** (i / half))
+    if base is theta:
+        return extrap
+    low, high = _yarn_bounds(head_dim, theta)
+    gamma = 1.0 - torch.clamp((i - low) / (high - low), 0.0, 1.0)
+    return extrap * gamma + (extrap / theta.factor) * (1.0 - gamma)
 
 
 def apply_rope(
     x: torch.Tensor,            # [..., T, H, hd]
     positions: torch.Tensor,    # [..., T] int
-    theta: float,
+    theta,                      # float, or a `configs.base.Yarn`
 ) -> torch.Tensor:
+    """Rotary positions (rotate-half form); under YaRN cos and sin are
+    also multiplied by its attention factor."""
     hd = x.shape[-1]
     freqs = rope_frequencies(hd, theta, x.device)               # [hd/2]
     angles = positions[..., None].float() * freqs               # [..., T, hd/2]
     cos = torch.cos(angles)[..., None, :]                       # [..., T, 1, hd/2]
     sin = torch.sin(angles)[..., None, :]
+    mscale = getattr(theta, "attention_factor", None)
+    if mscale is not None:
+        cos, sin = cos * mscale, sin * mscale
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

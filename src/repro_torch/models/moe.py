@@ -1,5 +1,5 @@
 """Mixture-of-Experts layer with capacity-based top-k routing:
-counterpart of `repro.models.moe`.
+counterpart of `repro.models.moe`; and the port's dropless routing.
 
 The routing is the reference's, decision for decision, because a
 different routing changes tokens, not just logits:
@@ -42,10 +42,32 @@ the drops, the loss and the dropped fraction are the one-rank values.
 llama4's shared expert is the tensor-parallel SwiGLU of `models.mlp` on
 this rank's rows; the routed output is added after its all-reduce (added
 before it, it would be summed once per rank).
+
+Dropless routing (`capacity_factor <= 0`, the port's own; DESIGN.md
+§19). The router is `_route`'s (f32 softmax, a stable top-k, the gates
+renormalised), and every token's k (token, expert) pairs are computed:
+none is dropped, so a row's output depends on no other row of the step,
+idle slots and padding included. The pairs are sorted by expert on the
+device (a stable sort: token order inside an expert), each expert's rows
+counted by a fixed-shape scatter into [E] and summed into offsets [E+1];
+a PIM-resident stack then runs gate, up and down as one K6 launch each
+(`ops.bitplane_grouped_matmul`) over the sorted rows, and each token adds
+its k gated outputs in f32, in its top-k order. No shape depends on the
+routing and nothing is read back to the host, so a CUDA graph captures
+the step (`serve.graphs`). A dense stack runs every expert over every
+row and keeps each row's own expert's (plain PyTorch, E times the work:
+for the CPU tests; no served configuration takes it).
+
+With a `MoeWatch` set in `WATCH` (a serving loop with telemetry), each
+dropless call adds its pairs, its busiest expert's rows and 1 to the
+watch's device counters (so a replayed graph adds them too), and an
+eager call runs inside the span `model/moe`.
 """
 
 from __future__ import annotations
 
+import contextvars
+import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
@@ -55,6 +77,7 @@ from ..dist import collectives
 from ..dist.parallel import local_rows
 from ..dist.sharding import row_axes, shard
 from ..kernels import ops as kops
+from ..kernels import ref as kref
 from ..quant.bitplane import PimWeight
 from .common import ACTS, Params, dense_init
 from .mlp import init_swiglu, swiglu
@@ -62,6 +85,20 @@ from .scan import scan
 
 #: token chunk of the dispatch (the reference's)
 MOE_CHUNK = 2048
+
+
+@dataclasses.dataclass
+class MoeWatch:
+    """What a serving loop with telemetry hands the dropless layers:
+    `counts` int64 [3] on the device (pairs computed, the busiest
+    expert's rows summed over calls, calls) and the span ring."""
+
+    counts: torch.Tensor
+    spans: object
+
+
+#: the watch of the step now running, or None
+WATCH = contextvars.ContextVar("moe_watch", default=None)
 
 
 def init_moe(d_model: int, d_ff: int, n_experts: int, n_shared: int,
@@ -165,6 +202,79 @@ def _dispatch_chunk(params: Params, x: torch.Tensor, top_k: int,
     return y.to(x.dtype), f_e * p_e, dropped
 
 
+def _grouped_matmul(xs: torch.Tensor, w, offsets: torch.Tensor,
+                    expert: torch.Tensor, impl: str) -> torch.Tensor:
+    """Expert-sorted rows xs [P, K] through their experts' [E, K, M]
+    stack: one K6 launch for a PIM-resident stack; for a dense one every
+    expert over every row (`kref.every_expert_ref`, E times the work),
+    which only the CPU takes."""
+    if isinstance(w, PimWeight):
+        return kops.bitplane_grouped_matmul(
+            xs, w.planes, w.scale, offsets, expert, n_bits=w.n_bits,
+            group=w.group, impl=impl)
+    if xs.device.type != "cpu":
+        raise ValueError(
+            "dropless routing over a dense expert stack runs every expert "
+            f"over every row ({w.shape[0]}x the work), a CPU path only; "
+            "pack the experts (--quantize) to serve them on "
+            f"{xs.device.type}")
+    return kref.every_expert_ref(
+        expert, w.shape[0], lambda e: xs @ w[e].to(xs.dtype))
+
+
+def _dropless(params: Params, x: torch.Tensor, top_k: int, act: str,
+              impl: str):
+    """Every pair of x [N, D]: (y [N, D], f_e * p_e [E], rows per expert
+    [E] int32)."""
+    n, d = x.shape
+    e = params["router"].shape[-1]
+    gates, idx, probs = _route(x.float() @ params["router"], top_k)
+    pair_expert = idx.reshape(-1)                             # [N * k]
+    order = torch.sort(pair_expert, stable=True).indices
+    expert = pair_expert[order]
+    counts = torch.zeros((e,), dtype=torch.int32, device=x.device)
+    counts.scatter_add_(0, pair_expert, torch.ones_like(pair_expert,
+                                                        dtype=torch.int32))
+    offsets = torch.cat([counts.new_zeros((1,)),
+                         torch.cumsum(counts, 0, dtype=torch.int32)])
+    xs = x[order // top_k]                                    # [P, D]
+    h = ACTS[act](_grouped_matmul(xs, params["we_gate"], offsets, expert,
+                                  impl))
+    h = h * _grouped_matmul(xs, params["we_up"], offsets, expert, impl)
+    out = _grouped_matmul(h.to(x.dtype), params["we_down"], offsets, expert,
+                          impl)
+    pairs = torch.empty_like(out)
+    pairs[order] = out
+    pairs = pairs.reshape(n, top_k, d)
+    y = gates[:, 0, None] * pairs[:, 0].float()
+    for j in range(1, top_k):
+        y = y + gates[:, j, None] * pairs[:, j].float()
+    f_e = counts.float() / max(n, 1)
+    return y.to(x.dtype), f_e * probs.mean(dim=0), counts
+
+
+def _watched(x: torch.Tensor, call):
+    """`call()` (a `_dropless`) inside the `model/moe` span when eager,
+    its counts added to the watch's device counters (the module's
+    notes)."""
+    watch = WATCH.get()
+    if watch is None:
+        return call()
+    span = not (x.is_cuda and torch.cuda.is_current_stream_capturing())
+    if span:
+        watch.spans.begin("model/moe")
+    try:
+        out = call()
+        counts = out[-1]
+        watch.counts.add_(torch.stack([
+            counts.sum(), counts.max(), counts.new_ones(())]).to(
+                watch.counts.dtype))
+    finally:
+        if span:
+            watch.spans.end()
+    return out
+
+
 def expert_capacity(chunk: int, top_k: int, n_experts: int,
                     capacity_factor: float) -> int:
     """Each expert's places in a chunk of `chunk` rows, in Python floats
@@ -183,14 +293,20 @@ def moe_forward(params: Params, x: torch.Tensor, *, top_k: int,
     idle slots and padding rows included, as in the reference, since
     rows of one chunk compete for the experts' places — and, under a
     mesh whose batch axes split the rows, every other rank's rows too.
-    `shared_d_ff`: the shared expert's whole width (tensor-parallel
-    callers give it, as to `swiglu`)."""
+    `capacity_factor <= 0` routes dropless (`_dropless`: no chunks, no
+    places, nothing dropped). `shared_d_ff`: the shared expert's whole
+    width (tensor-parallel callers give it, as to `swiglu`)."""
     rows = row_axes()
     routed = collectives.gather_apart(x, rows, 0) if rows else x
     b, t, d = routed.shape
     e = params["router"].shape[-1]
     n = b * t
     flat = routed.reshape(n, d)
+    if capacity_factor <= 0:
+        y, fp, _ = _watched(x, lambda: _dropless(params, flat, top_k, act,
+                                                 impl))
+        return _finish(params, x, y.reshape(b, t, d), rows, act, impl,
+                       shared_d_ff, e * fp.sum(), fp.new_zeros(()))
     chunk = min(chunk, n)
     if n % chunk:
         pad = chunk - n % chunk
@@ -203,13 +319,14 @@ def moe_forward(params: Params, x: torch.Tensor, *, top_k: int,
                                      top_k, capacity, act, impl)
     _, (y, fps, drs) = scan(step, None, n_chunks,
                             join=(("cat", 0), ("stack", 0), ("stack", 0)))
-    y = y[:n].reshape(b, t, d)
+    return _finish(params, x, y[:n].reshape(b, t, d), rows, act, impl,
+                   shared_d_ff, e * fps.mean(dim=0).sum(), drs.mean())
+
+
+def _finish(params, x, y, rows, act, impl, shared_d_ff, lb_loss, dropped):
+    """This rank's rows of the routed output, plus the shared expert."""
     if rows:
         y = local_rows(y, rows)
     if "shared" in params:
         y = y + swiglu(params["shared"], x, act, impl, d_ff=shared_d_ff)
-    aux = {
-        "load_balance_loss": e * fps.mean(dim=0).sum(),
-        "dropped_fraction": drs.mean(),
-    }
-    return y, aux
+    return y, {"load_balance_loss": lb_loss, "dropped_fraction": dropped}

@@ -364,9 +364,13 @@ def _window_array(cfg: ModelConfig, seq_len: int) -> List[int]:
 # layer loops
 # ---------------------------------------------------------------------------
 
-def _attn_kwargs(cfg: ModelConfig):
+def _attn_kwargs(cfg: ModelConfig, l: Optional[int] = None):
+    """The attention's keyword arguments; with layer `l`, that layer's
+    rotary spec (`ModelConfig.layer_rope`: YaRN on global layers where
+    the config sets it)."""
     return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                head_dim=cfg.hd, rope_theta=cfg.rope_theta)
+                head_dim=cfg.hd,
+                rope_theta=cfg.rope_theta if l is None else cfg.layer_rope(l))
 
 
 def _ssm_kwargs(cfg: ModelConfig):
@@ -519,7 +523,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     if cfg.block_kind == "attn":
         def attn(l, p, h, window):
             return attention_forward(p, h, positions, window=window,
-                                     impl=impl, **_attn_kwargs(cfg))
+                                     impl=impl, **_attn_kwargs(cfg, l))
         x, losses = _layer_loop(params, x, cfg,
                                 _window_array(cfg, x.shape[1]), attn, impl)
     elif cfg.block_kind == "mamba":
@@ -683,7 +687,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         def attn(l, p, h, window):
             return attention_prefill(p, h, positions, cache["k"][l],
                                      cache["v"][l], window=window,
-                                     impl=impl, **_attn_kwargs(cfg))[0]
+                                     impl=impl, **_attn_kwargs(cfg, l))[0]
         x = _layer_loop(params, x, cfg, _window_array(cfg, cache_len),
                         attn, impl)[0]
     elif cfg.block_kind == "mamba":
@@ -734,7 +738,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict,
             return attention_decode(p, h, pos, cache["k"][l], cache["v"][l],
                                     window=window, impl=impl,
                                     rope_pos=rope_pos, mask=masks[window],
-                                    **_attn_kwargs(cfg))[0]
+                                    **_attn_kwargs(cfg, l))[0]
         x = _layer_loop(params, x, cfg, windows, attn, impl)[0]
     elif cfg.block_kind == "mamba":
         mask = decode_mask(pos, s, None, x.device)
@@ -883,7 +887,7 @@ def _run_layers(params, x, cfg, attn_fn, attn_args, k_pages, v_pages,
             bucket_plans=plans, bucket_perms=perms, plan_class=cls[l],
             k_scales=k_scales[l] if quantized else None,
             v_scales=v_scales[l] if quantized else None,
-            **_attn_kwargs(cfg),
+            **_attn_kwargs(cfg, l),
         )[0]
 
     return _layer_loop(params, x, cfg, _window_array(cfg, capacity), attn,

@@ -325,6 +325,19 @@ class ServeTelemetry:
         self._c_decode.inc(len(uids))
         self.events.emit("decode", uids=list(uids))
 
+    def on_moe(self, totals: Sequence[int]) -> None:
+        """The dropless MoE layers' device counters as the tick's sync
+        read them (`models.moe.MoeWatch`: pairs computed, the busiest
+        expert's rows summed over layer calls, layer calls; totals since
+        the batcher started) into `moe_pairs`, `moe_expert_rows_max` and
+        `moe_layer_calls`. The counters exist once a dropless stack has
+        reported (no other configuration's registry changes)."""
+        r = self.registry
+        for name, total in zip(("moe_pairs", "moe_expert_rows_max",
+                                "moe_layer_calls"), totals):
+            c = r.counter(name)
+            c.inc(int(total) - c.value)
+
     def on_finish(self, uid: int) -> None:
         tr = self._trace(uid)
         tr.finish_ts = self.clock()

@@ -60,8 +60,8 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels import (bitplane_gemm, bitplane_gemv, pack, paged_attention,
-                       paged_prefill)
+from ..kernels import (bitplane_gemm, bitplane_gemv, bitplane_grouped, pack,
+                       paged_attention, paged_prefill)
 from ..kernels.ops import resolve_impl
 from ..models import attention
 from ..models.transformer import paged_plan_views
@@ -75,7 +75,7 @@ INPUTS = (1, -3, -2, -1)
 #: the kernel modules whose `LAUNCHES` a replay adds its captured
 #: launches to
 KERNELS = (paged_attention, paged_prefill, bitplane_gemv, bitplane_gemm,
-           pack)
+           pack, bitplane_grouped)
 
 #: the capture in progress (`_Pieces`), for `each_run`
 _CAPTURE = contextvars.ContextVar("decode_graph_capture", default=None)

@@ -64,7 +64,12 @@ waiting for the prefill's argmax); per decode `serve/decode_prep`
 host) and `serve/retire` (tokens appended, requests finished, pages
 freed, the end-of-tick sample). The dense path records
 `serve/dense_prefill` and `serve/dense_decode` in place of the paged
-steps, and no admit or decode_prep.
+steps, and no admit or decode_prep. A dropless mixture of experts
+(`capacity_factor <= 0`) also opens `model/moe` around each eager MoE
+layer call, and counts its pairs, its busiest expert's rows and its
+calls on the device (`models.moe.MoeWatch`: a replayed decode graph
+counts too); the tick's decode sync brings them to `telemetry.on_moe`
+(the copy rides the sync the tick already makes).
 """
 
 from __future__ import annotations
@@ -80,6 +85,7 @@ from ..configs.base import ModelConfig
 from ..kernels.ops import bucket_args_grouped, resolve_bucket_strategy
 from ..models import init_cache
 from ..models.common import resolve_device
+from ..models.moe import WATCH, MoeWatch
 from .compiled import (
     dense_decode_step,
     dense_prefill_step,
@@ -230,6 +236,18 @@ class ContinuousBatcher:
         #: slot -> next un-prefilled prompt position of an in-flight
         #: chunked prefill; such a slot is parked out of the decode batch
         self._chunk_pos: Dict[int, int] = {}
+        #: the dropless MoE layers' device counters and their host copy
+        #: (telemetry attached only)
+        self._moe: Optional[MoeWatch] = None
+        dropless = bool(cfg.n_experts) and cfg.dropless
+        if self.telemetry is not None:
+            if dropless:
+                self._moe = MoeWatch(torch.zeros((3,), dtype=torch.int64,
+                                                 device=self.device),
+                                     self.telemetry.spans)
+                self._moe_host = torch.zeros(
+                    (3,), dtype=torch.int64,
+                    pin_memory=self.device.type == "cuda")
 
     def submit(self, req: Request):
         """Queue `req`; its prompt is kept as host int32 token ids."""
@@ -470,6 +488,15 @@ class ContinuousBatcher:
     def step(self) -> int:
         """One tick: advance chunked prefills one chunk each, fill free
         slots, decode once. Returns slots advanced (decode + chunks)."""
+        if self._moe is None:
+            return self._tick()
+        token = WATCH.set(self._moe)
+        try:
+            return self._tick()
+        finally:
+            WATCH.reset(token)
+
+    def _tick(self) -> int:
         tel = self.telemetry
         if tel is not None:
             tel.tick_begin()
@@ -499,11 +526,15 @@ class ContinuousBatcher:
             nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         if tel is not None:
             tel.spans.begin("serve/sync")
+        if self._moe is not None:
+            self._moe_host.copy_(self._moe.counts, non_blocking=True)
         # the decode's host sync; each request admitted this tick has
         # already added one, reading its first token (`_start_slot`)
         host = nxt.tolist()
         if tel is not None:
             tel.spans.end()
+            if self._moe is not None:
+                tel.on_moe(self._moe_host.tolist())
             tel.spans.begin("serve/retire")
             tel.on_decode([self.slots[i].uid for i in active])
         for i in active:

@@ -52,6 +52,7 @@ from repro_torch.core.gemv_engine import ImagineGemv
 from repro_torch.kernels import (
     bitplane_gemm,
     bitplane_gemv,
+    bitplane_grouped,
     ops,
     pack,
     paged_attention,
@@ -1330,13 +1331,21 @@ GRAPH_CASES = {
     "qwen2-1.5b": dict(prefill_chunk=8),
     "gemma3-27b": dict(prefill_chunk=8, group_blocks="auto"),
     "phi3.5-moe-42b-a6.6b": dict(prefill_chunk=8),
+    # dropless top-4 of 8 experts (K6 on pim8), windowed and YaRN layers
+    "mellum2-12b-a2.5b": dict(prefill_chunk=8, group_blocks="auto"),
 }
+
+
+#: (arch, quantize) of the bit-for-bit graph test: a dense dropless
+#: expert stack is refused on the card (`models.moe._grouped_matmul`)
+GRAPH_WEIGHTS = [pytest.param(arch, q, id=f"{arch}-{'pim8' if q else 'dense'}")
+                 for arch in GRAPH_CASES for q in (False, True)
+                 if q or get_config(arch, smoke=True).capacity_factor > 0]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
-@pytest.mark.parametrize("quantize", [False, True], ids=["dense", "pim8"])
-@pytest.mark.parametrize("arch", list(GRAPH_CASES))
+@pytest.mark.parametrize("arch,quantize", GRAPH_WEIGHTS)
 def test_graphed_decode_equals_eager_bit_for_bit(cuda_device, monkeypatch,
                                                  arch, quantize, kv_dtype):
     """Over 20+ ticks with slot turnover and parked chunked-prefill slots,
@@ -1399,6 +1408,20 @@ def test_graphed_decode_equals_eager_whole_where_index_put_sorts(
 
 
 @pytest.mark.gpu
+def test_dense_dropless_stack_refused_on_the_card(cuda_device):
+    """A dense expert stack under dropless routing would run every expert
+    over every row on the card; the MoE refuses it and names the cure."""
+    from repro_torch.models import forward
+
+    dev = cuda_device
+    cfg = get_config("mellum2-12b-a2.5b", smoke=True)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.zeros((1, 4), dtype=torch.long, device=dev)
+    with pytest.raises(ValueError, match="--quantize"):
+        forward(params, tokens, cfg)
+
+
+@pytest.mark.gpu
 def test_one_capture_per_signature_and_a_new_one_per_pool(cuda_device):
     """A drain captures its decode once (the telemetry's counters say
     so); a pool tensor replaced mid-drain is run eagerly once and then
@@ -1456,3 +1479,51 @@ def test_k1_wrapped_after_capture_sees_every_layer(cuda_device, monkeypatch):
         assert _graph_counts(tel)[1] == replays + 1
         assert len(calls) - n == cfg.n_layers
     assert any(plan is not None for plan in calls)
+
+
+# ---------------------------------------------------------------------------
+# K6: the grouped bit-plane GEMV of dropless expert stacks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pairs", [1024, 11080])
+@pytest.mark.parametrize("k,m", [(2304, 896), (896, 2304)])
+def test_k6_equals_k3_row_for_row(cuda_device, k, m, pairs):
+    """At mellum2-12b-a2.5b's expert shapes ([2304 -> 896] gate / up,
+    [896 -> 2304] down; 8-bit g = 1 planes of all 64 experts) and at a
+    decode tick's 128 x 8 pairs and a 1385-token prompt's x 8, one K6
+    launch gives each expert's rows exactly what K3 gives them on that
+    expert's planes, with the routing's ragged counts (an empty expert
+    among them); and `ops.bitplane_grouped_matmul` each row its own
+    expert's `bitplane_matmul`, to within bf16 rounding (the row sums of
+    x that the offset takes are reduced over another number of rows)."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(k + pairs)
+    e = 64
+    planes = torch.randint(0, 256, (e, 8, k // 8, m), generator=gen,
+                           device=dev, dtype=torch.uint8)
+    scale = torch.rand((e, m), generator=gen, device=dev) * 1e-2
+    expert = torch.randint(0, e - 1, (pairs,), generator=gen, device=dev)
+    expert = torch.sort(expert).values            # expert e - 1 gets none
+    counts = torch.bincount(expert, minlength=e)
+    offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int()
+    x = torch.randn((pairs, k), generator=gen, device=dev).bfloat16()
+    x_r = ref.prepare_x_ref(x, 1).contiguous()
+    n = bitplane_grouped.LAUNCHES
+    raw = bitplane_grouped.bitplane_grouped(x_r, planes, offsets, n_bits=8)
+    y = ops.bitplane_grouped_matmul(x, planes, scale, offsets, expert,
+                                    n_bits=8)
+    assert bitplane_grouped.LAUNCHES == n + 2
+    offs = offsets.tolist()
+    for i in range(e):
+        a, b = offs[i], offs[i + 1]
+        if a == b:
+            continue
+        want = bitplane_gemv.bitplane_gemv(
+            ref.prepare_x_ref(x[a:b], 1).contiguous(), planes[i], n_bits=8)
+        assert torch.equal(raw[a:b], want), i
+        torch.testing.assert_close(y[a:b], ops.bitplane_matmul(
+            x[a:b], planes[i], scale[i], n_bits=8))
+    plain = bitplane_grouped.bitplane_grouped_ref(x_r, planes, offsets)
+    torch.testing.assert_close(raw, plain, rtol=1e-5,
+                               atol=1e-5 * float(plain.abs().max()))

@@ -52,6 +52,7 @@ from repro.serve import PagedKVCache as JCache
 from repro.serve import Request as JRequest
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
+from repro_torch.configs.base import PORT_FIELDS, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_prefill import paged_prefill
@@ -88,8 +89,12 @@ def models():
 
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_equals_reference(smoke):
-    assert dataclasses.asdict(get_config(ARCH, smoke=smoke)) == \
+    """The reference's fields exact; the port-only ones (YaRN) at their
+    defaults."""
+    got = dataclasses.asdict(get_config(ARCH, smoke=smoke))
+    assert {k: v for k, v in got.items() if k not in PORT_FIELDS} == \
         dataclasses.asdict(j_get_config(ARCH, smoke=smoke))
+    assert all(got[k] == getattr(ModelConfig, k) for k in PORT_FIELDS)
 
 
 @pytest.mark.parametrize("smoke,capacity", [(True, 40), (True, 8),

@@ -38,6 +38,7 @@ from repro.quant.bitplane import PimQuantConfig as JQuantConfig
 from repro.quant.bitplane import quantize_tree as j_quantize_tree
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs.base import PORT_FIELDS, ModelConfig
 from repro_torch.models import (
     count_params,
     decode_step,
@@ -90,12 +91,15 @@ def _close(t, j, tol):
 @pytest.mark.parametrize("arch", ZOO)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_equals_reference(arch, smoke):
-    """Every field of `config()` and `smoke()` equal to the reference's
-    (exact)."""
+    """Every field of `config()` and `smoke()` that the reference's config
+    has equal to the reference's (exact), and the port-only fields
+    (YaRN) at their defaults, which leave the arithmetic as it was."""
     assert arch in ARCH_IDS
-    got = dataclasses.asdict(get_config(arch, smoke=smoke))
+    cfg = get_config(arch, smoke=smoke)
     want = dataclasses.asdict(j_get_config(arch, smoke=smoke))
-    assert got == want
+    got = dataclasses.asdict(cfg)
+    assert {k: v for k, v in got.items() if k not in PORT_FIELDS} == want
+    assert all(got[k] == getattr(ModelConfig, k) for k in PORT_FIELDS)
 
 
 @pytest.mark.parametrize("arch", ZOO)
@@ -186,8 +190,10 @@ def test_families_registered_with_the_reference_tree(arch):
     `init_layer`'s tree of shapes and dtypes."""
     assert arch in ARCH_IDS
     for smoke in (False, True):
-        assert (dataclasses.asdict(get_config(arch, smoke=smoke))
+        got = dataclasses.asdict(get_config(arch, smoke=smoke))
+        assert ({k: v for k, v in got.items() if k not in PORT_FIELDS}
                 == dataclasses.asdict(j_get_config(arch, smoke=smoke)))
+        assert all(got[k] == getattr(ModelConfig, k) for k in PORT_FIELDS)
     cfg = get_config(arch, smoke=True)
     jcfg = j_get_config(arch, smoke=True)
     tp = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
