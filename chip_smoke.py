@@ -54,8 +54,12 @@ Phases, one line each:
                [1536->256], [1536->1536], [1536->8960], [8960->1536]
                (K8 = 192 and 1120) and a ragged [200->101], and in 8-bit
                g = 1 on gemma3's five projections (K8 = 672, 512, 2688;
-               M up to 21504) at B {8, 512, 1024}; B in
-               {1, 8, 512} must launch K3 and {513, 1024} K4. K5 planes
+               M up to 21504) at B {8, 512, 1024} and granite-20b's four
+               (K8 = 768, 3072; M 128 to 24576) at B {128, 187}; B in
+               {1, 8, 128, 187, 512} must launch K3 and {513, 1024} K4,
+               and each K3 launch above 24 rows count as one on its wide
+               tile (`python3 chip_smoke.py --bitplane` runs the build,
+               this phase and the bit-plane timings alone). K5 planes
                byte-identical to ref.pack_ref, K3/K4 raw within
                1e-5 * max|raw| (exact products, another summation order),
                `bitplane_matmul` within the reference's own tolerance of
@@ -72,7 +76,10 @@ Phases, one line each:
                q [8, 32, 128] over a windowed and a global walk, K2 at
                q [1, 512, 32, 128] from start 1024 with the window, K3
                at [8, 5376] -> 21504 and [8, 21504] -> 5376, K4 at
-               [768, 5376] -> 21504; then K1 at granite-20b's q
+               [768, 5376] -> 21504; K3 at granite-20b's four
+               projections at 128 rows on its wide and its narrow tile,
+               at 187 rows, f32 x at 32 and 128 rows on each tile, and
+               K4 at 128 rows; then K1 at granite-20b's q
                [8, 48, 128] (KV 1), K2 at its [1, 512, 48, 128] from
                start 256, the same two at llava's 56 heads over 8 KV
                heads, K3 at zamba2's [8, 2048] -> 8352 and xlstm's
@@ -460,6 +467,12 @@ DENSE_KERNELS = ("paged_decode", "paged_prefill", "bitplane_gemv",
 def reset_launches() -> None:
     for mod in kernel_modules().values():
         mod.LAUNCHES = 0
+    kernel_modules()["bitplane_gemv"].LAUNCHES_WIDE = 0
+
+
+def wide_launches() -> int:
+    """K3 launches on its wide tile (of `LAUNCHES`, replays included)."""
+    return kernel_modules()["bitplane_gemv"].LAUNCHES_WIDE
 
 
 def read_launches() -> dict:
@@ -869,6 +882,12 @@ GEMV_ROWS, GEMM_ROWS = (1, 8, 512), (513, 1024)
 G3_BITPLANE_MATRICES = ((5376, 2048), (5376, 4096), (4096, 5376),
                         (5376, 21504), (21504, 5376))
 G3_BITPLANE_ROWS = (8, 512, 1024)
+#: granite-20b's projections (q / o, k / v, up, down at 8 bits, g = 1) at
+#: a decode tick's 128 rows and a 187-row prompt (padded to 256 in K3's
+#: wide tile), where K3 takes its wide tile
+GR_BITPLANE_MATRICES = ((6144, 6144), (6144, 128), (6144, 24576),
+                        (24576, 6144))
+GR_BITPLANE_ROWS = (128, 187)
 
 
 def bitplane_checks(dev):
@@ -878,7 +897,8 @@ def bitplane_checks(dev):
     must show B <= 512 on K3 and B > 512 on K4. qwen2-1.5b's shapes in
     four formats; its four projections again at the dense pim8 prefill's
     8 x 2048 rows in the format that phase runs (8-bit g = 1); then
-    gemma3-27b's in 8-bit g = 1."""
+    gemma3-27b's and granite-20b's in 8-bit g = 1. Every K3 launch above
+    24 rows must count as a wide-tile launch, and no other."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     abs_err = {"bitplane_gemv": 0.0, "bitplane_gemm": 0.0,
                "bitplane_pack": 0.0}
@@ -888,7 +908,9 @@ def bitplane_checks(dev):
             ("qwen2-1.5b", ((8, 1),), BITPLANE_MATRICES[:4],
              (8 * Q2_DENSE_T,)),
             ("gemma3-27b", ((8, 1),), G3_BITPLANE_MATRICES,
-             G3_BITPLANE_ROWS)):
+             G3_BITPLANE_ROWS),
+            ("granite-20b", ((8, 1),), GR_BITPLANE_MATRICES,
+             GR_BITPLANE_ROWS)):
         for n_bits, group in formats:
             rel_err = dict.fromkeys(("bitplane_gemv", "bitplane_gemm",
                                      "matmul_bf16", "matmul_f32"), 0.0)
@@ -910,7 +932,7 @@ def check_bitplane_matrix(dev, gen, n_bits, group, k, m, rows, abs_err,
     """One [k -> m] weight: K5 against the plain pack, then K3 or K4 (by
     row count) and `bitplane_matmul` for bf16 and f32 x of each of
     `rows` rows; the worst errors go into `abs_err` / `rel_err`."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import bitplane_gemv, ops, ref
 
     tag = f"({n_bits},{group}) [{k}->{m}]"
     w = torch.randn((k, m), generator=gen, device=dev)
@@ -935,7 +957,7 @@ def check_bitplane_matrix(dev, gen, n_bits, group, k, m, rows, abs_err,
                                          group=group)
             y = ops.bitplane_matmul(x, planes, scale, n_bits=n_bits,
                                     group=group, impl="cuda")
-            launched = read_launches()
+            launched, wide = read_launches(), wide_launches()
             plain = x.float() @ u
             y_ref = ref.bitplane_matmul_ref(x, planes, scale, n_bits,
                                             group).float()
@@ -943,6 +965,10 @@ def check_bitplane_matrix(dev, gen, n_bits, group, k, m, rows, abs_err,
             check(launched[name] == 2 and sum(launched.values()) == 2,
                   f"{tag} B={b}: expected 2 launches of {name}, got "
                   f"{launched}")
+            want = launched[name] if (name == "bitplane_gemv"
+                                      and bitplane_gemv.wide_tile(b)) else 0
+            check(wide == want, f"{tag} B={b}: {wide} wide-tile launches, "
+                                f"expected {want}")
             check(bool(torch.isfinite(raw).all())
                   and bool(torch.isfinite(y).all()),
                   f"{tag} B={b}: non-finite output")
@@ -960,30 +986,42 @@ def check_bitplane_matrix(dev, gen, n_bits, group, k, m, rows, abs_err,
             rel_err[key] = max(rel_err[key], yerr)
 
 
-def bitplane_row(dev, gen, name, b, k, m, model="qwen2-1.5b") -> dict:
-    """One K3 or K4 timing, 8-bit g = 1, bf16 x of `b` rows against a
+def bitplane_row(dev, gen, name, b, k, m, model="qwen2-1.5b",
+                 dt=torch.bfloat16, narrow=False) -> dict:
+    """One K3 or K4 timing, 8-bit g = 1, x of `b` rows in `dt` against a
     [k -> m] weight; the library yardstick is one `x @ W` with W
-    dequantized dense in x's dtype beforehand (the port never calls
-    it)."""
+    dequantized dense in x's dtype beforehand (the port never calls it).
+    `narrow` times K3 on its narrow tile at rows the tile rule gives the
+    wide one (the old tile, for the comparison; the same bits). The
+    bound's operations are the bf16 tensor cores' (f32 x: three bf16
+    terms), whatever x's dtype."""
+    from unittest import mock
+
     from repro_torch.kernels import bitplane_gemm, bitplane_gemv, ops, ref
 
     fn = {"bitplane_gemv": bitplane_gemv.bitplane_gemv,
           "bitplane_gemm": bitplane_gemm.bitplane_gemm}[name]
-    dt = torch.bfloat16
     w = torch.randn((k, m), generator=gen, device=dev)
     planes, scale = ops.quantize_and_pack(w, 8, 1, "cuda")
     del w
     x = torch.randn((b, k), generator=gen, device=dev).to(dt)
     x_r = ref.prepare_x_ref(x, 1).contiguous()
     w_dense = ref.dequantize_ref(planes, scale, 8, 1).to(dt)
-    r = dict(
-        **time_kernel(
-            lambda: fn(x_r, planes, n_bits=8, group=1),
-            lambda: ref.bitplane_raw_ref(x_r, planes, 1),
-            lambda: x @ w_dense),
-        **bound(planes.numel() + x_r.numel() * x_r.element_size()
-                + b * m * 4, 2 * b * k * m, dt),
-        shape=f"{model} x[{b},{k}] planes[8,{k // 8},{m}] bf16")
+    terms = 1 if dt == torch.bfloat16 else 3
+    tile = (" narrow tile" if narrow else " wide tile"
+            if name == "bitplane_gemv" and bitplane_gemv.wide_tile(b) else "")
+    with mock.patch.object(bitplane_gemv, "wide_tile",
+                           (lambda _: False) if narrow
+                           else bitplane_gemv.wide_tile):
+        r = dict(
+            **time_kernel(
+                lambda: fn(x_r, planes, n_bits=8, group=1),
+                lambda: ref.bitplane_raw_ref(x_r, planes, 1),
+                lambda: x @ w_dense),
+            **bound(planes.numel() + x_r.numel() * x_r.element_size()
+                    + b * m * 4, 2 * b * k * m * terms, torch.bfloat16),
+            shape=f"{model} x[{b},{k}] planes[8,{k // 8},{m}] "
+                  f"{'bf16' if dt == torch.bfloat16 else 'f32'}{tile}")
     say_timing(name, r)
     return r
 
@@ -996,7 +1034,12 @@ def bitplane_timings(dev):
     and on [1536->256] (wk/wv) and [1536->1536] (wq/wo); K5 packing one
     [1536, 8960] slice; then K3 and K4 at gemma3-27b's widest shapes:
     K3 [5376->21504] (w_gate/w_up) and [21504->5376] (w_down) at B = 8,
-    K4 [5376->21504] at B = 768. K5 has no library call."""
+    K4 [5376->21504] at B = 768; then at granite-20b's four projections
+    ([6144->6144] q / o, [6144->128] k / v, [6144->24576] up,
+    [24576->6144] down): K3 at a decode tick's 128 rows on its wide tile
+    and on its narrow one, at a 187-row prompt, f32 x at 32 and 128 rows
+    on each tile, and K4 at 128 rows (a yardstick; no path sends it 128
+    rows). K5 has no library call."""
     from repro_torch.kernels import pack, ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
@@ -1023,6 +1066,18 @@ def bitplane_timings(dev):
                           ("bitplane_gemv", 8, 21504, 5376),
                           ("bitplane_gemm", 768, 5376, 21504)):
         bitplane_row(dev, gen, name, b, k, m, model="gemma3-27b")
+    for k, m in GR_BITPLANE_MATRICES:
+        for name, b, dt, narrow in (
+                ("bitplane_gemv", 128, torch.bfloat16, False),
+                ("bitplane_gemv", 128, torch.bfloat16, True),
+                ("bitplane_gemv", 187, torch.bfloat16, False),
+                ("bitplane_gemv", 32, torch.float32, False),
+                ("bitplane_gemv", 32, torch.float32, True),
+                ("bitplane_gemv", 128, torch.float32, False),
+                ("bitplane_gemv", 128, torch.float32, True),
+                ("bitplane_gemm", 128, torch.bfloat16, False)):
+            bitplane_row(dev, gen, name, b, k, m, model="granite-20b",
+                         dt=dt, narrow=narrow)
     return out
 
 
@@ -1260,6 +1315,7 @@ def drain(cfg, params, prompts, new_tokens, n_slots, cache_len, dev,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         metric_mutations=mutations,
         **{f"launches_{k}": v for k, v in launches.items() if v},
+        launches_bitplane_gemv_wide=wide_launches(),
     )
     return results, stats, launches
 
@@ -4626,6 +4682,8 @@ def main() -> int:
         return dryrun_child()
     if sys.argv[1:2] == ["--mellum"]:
         return mellum_only()
+    if sys.argv[1:2] == ["--bitplane"]:
+        return bitplane_only()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -4805,6 +4863,27 @@ def mellum_only() -> int:
     launches = mellum(dev, errs, times)
     say("done", k6_max_abs_err=errs["bitplane_grouped"],
         k6_launches=launches["bitplane_grouped"])
+    return 0
+
+
+def bitplane_only() -> int:
+    """`python3 chip_smoke.py --bitplane`: the build, the bit-plane checks
+    and the bit-plane timings alone."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    libs = _build.build()
+    say("build", seconds=time.perf_counter() - t0,
+        libs=",".join(p.name for p in libs.values()))
+    for line in _build.log_path("bitplane_gemv").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas bitplane_gemv: {line.strip()}", flush=True)
+    errs = bitplane_checks(dev)
+    bitplane_timings(dev)
+    say("done", **errs)
     return 0
 
 

@@ -18,12 +18,16 @@ The reference kernel needs K8 and M to be multiples of its TPU blocks
 (128 and 256), so it refuses qwen2-1.5b's K8 = 192 and 1120; this one
 takes any K8, M and B and masks the edges itself.
 
-The kernel tiles the output in 32 columns of M by up to 64 rows of B
-and walks K in chunks of 64 unpacked rows; `gemv_splits` cuts K into
-ranges of whole chunks so that even a narrow or short projection puts
-enough blocks on the card. Each range writes an f32 partial into
+The kernel walks K in chunks of 64 unpacked rows; `gemv_splits` cuts K
+into ranges of whole chunks so that even a narrow or short projection
+puts enough blocks on the card. Each range writes an f32 partial into
 scratch and a second pass adds them in order. The split depends on K8,
-M and g only, never on B, so a row's result does not depend on how many
+M and g only, never on B. A launch takes one of two tiles
+(`wide_tile`, a function of B alone): the narrow one, 32 columns of M by
+up to 64 rows of B a block on mma.sync, for up to 24 rows; the wide
+one, 64 columns by 128 rows a block on wgmma, above (a decode of 128
+slots fetches and decodes each plane chunk once per column tile). Both
+give a row the same bits, so a row's result does not depend on how many
 rows share its launch.
 """
 
@@ -39,19 +43,41 @@ from .paged_common import DTYPE_CODES, Q_DTYPES, launch_kernel, ptr
 #: kernel launches made by this process (the main-path evidence
 #: `chip_smoke.py` reads); only the CUDA launch below increments it
 LAUNCHES = 0
+#: those of them that took the wide tile (`wide_tile`); a decode graph's
+#: replay adds its captured wide launches here as it does to `LAUNCHES`
+#: (serve/graphs.py)
+LAUNCHES_WIDE = 0
 
-#: the kernel's output tile along M and the unpacked K rows of one chunk
-#: (csrc/bitplane_gemv.cu kGemvTileM, kGemvChunkK)
+#: the narrow tile's columns of M and the unpacked K rows of one chunk
+#: (csrc/bitplane_gemv_tile.cuh kGemvTileM, kGemvChunkK)
 TILE_M = 32
 CHUNK_K = 64
+#: the wide tile's rows a block (kWideTB)
+WIDE_TILE_B = 128
+#: the most rows a launch gives the narrow tile
+NARROW_MAX_B = 24
 #: blocks a launch of up to 64 rows aims for: four of the kernel's small
 #: (2-warp) blocks on each of the H100's 132 SMs, so that enough plane
 #: loads are in flight to stream at the memory's rate
 TARGET_BLOCKS = 4 * 132
 
-#: x_r, planes, out, partial; x dtype, B, K8, M, n_digits, group,
-#: splits; stream
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+#: x_r, planes, out, partial, xt; xt's elements; x dtype, B, K8, M,
+#: n_digits, group, splits, wide; stream
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+             + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+
+def wide_tile(b: int) -> bool:
+    """Whether a launch of B rows takes the wide tile (128 rows x 64
+    columns a block, on wgmma) rather than the narrow one (up to 64 x 32,
+    on mma.sync): above `NARROW_MAX_B` rows. The narrow tile's time grows
+    with B and the wide one's hardly does; on an H100 they cross between
+    24 and 32 rows on granite-20b's projections (PERF.md, the kernel
+    table). A function of B alone; both tiles give every row the same
+    bits. The known cost: on a narrow projection (granite's k / v,
+    [6144 -> 128]) the wide tile is slightly slower at 128 rows, and f32
+    x at 32 rows."""
+    return b > NARROW_MAX_B
 
 
 def gemv_splits(k8: int, m: int, group: int) -> int:
@@ -99,10 +125,20 @@ def check_raw_operands(name: str, x_r: torch.Tensor, planes: torch.Tensor,
              f"{name}: x_r and planes must be contiguous")
 
 
+def wide_x_elements(dtype: torch.dtype, b: int, k8: int, group: int) -> int:
+    """bf16 elements of the wide tile's x scratch (csrc/bitplane_gemv.cu,
+    `xt`): per bf16 term of x (3 for f32 x), its ceil(K8 / 8g) chunks of
+    64 k for B rows rounded up to 128. The launch passes the size it
+    allocated, and the C side refuses one below its own reckoning."""
+    terms = 1 if dtype == torch.bfloat16 else 3
+    chunks = -(-k8 // (CHUNK_K * group // 8))
+    return terms * chunks * -(-b // WIDE_TILE_B) * WIDE_TILE_B * CHUNK_K
+
+
 def bitplane_gemv(x_r: torch.Tensor, planes: torch.Tensor, *, n_bits: int,
                   group: int = 1) -> torch.Tensor:
     """One K3 launch: raw f32 [B, M] = x @ U."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_WIDE
     check_raw_operands("bitplane_gemv", x_r, planes, n_bits, group)
     if x_r.device.type == "cpu":
         return ref.bitplane_raw_ref(x_r, planes, group)
@@ -112,12 +148,17 @@ def bitplane_gemv(x_r: torch.Tensor, planes: torch.Tensor, *, n_bits: int,
     if not (b and m):
         return out
     splits = gemv_splits(k8, m, group)
+    wide = wide_tile(b)
     partial = (torch.empty((splits, b, m), dtype=torch.float32,
                            device=x_r.device) if splits > 1 else None)
+    xt = (torch.empty(wide_x_elements(x_r.dtype, b, k8, group),
+                      dtype=torch.bfloat16, device=x_r.device)
+          if wide else None)
     launch_kernel("bitplane_gemv", "bitplane_gemv_launch", _ARGTYPES, (
-        ptr(x_r), ptr(planes), ptr(out), ptr(partial),
-        DTYPE_CODES[x_r.dtype], b, k8, m, ref.n_digits(n_bits, group), group,
-        splits,
+        ptr(x_r), ptr(planes), ptr(out), ptr(partial), ptr(xt),
+        0 if xt is None else xt.numel(), DTYPE_CODES[x_r.dtype], b, k8, m, ref.n_digits(n_bits, group), group,
+        splits, int(wide),
     ), x_r.device)
     LAUNCHES += 1
+    LAUNCHES_WIDE += wide
     return out

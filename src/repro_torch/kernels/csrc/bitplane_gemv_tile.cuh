@@ -1,12 +1,27 @@
-// The tile of K3 (bitplane_gemv.cu) as a device function, shared with K6
-// (bitplane_grouped.cu): one CTA of 2 warps multiplies 32 columns of the
-// digit planes by up to 64 rows of x over one range of K, staging plane
-// rows and x rows through a cp.async ring, decoding U from the planes into
-// shared memory once per chunk, and multiplying with mma.sync (design and
-// numerics in bitplane_gemv.cu's header). A row's result depends only on
-// its own x, the planes, and the K split: never on the other rows of the
-// tile, on B, or on where the row sits in x. K6 relies on that to equal K3
-// bit for bit on each expert.
+// The two tiles of K3 (bitplane_gemv.cu) as device functions; K6
+// (bitplane_grouped.cu) uses the first. Both decode U from the planes
+// into shared memory once per chunk for all the rows of the tile (design
+// and numerics in bitplane_gemv.cu's header).
+//   * gemv_tile, the narrow tile: one CTA of 2 warps, 32 columns of the
+//     digit planes by up to 64 rows of x, operands by cp.async, products
+//     on mma.sync. K3 launches it for up to 24 rows
+//     (kernels/bitplane_gemv.py:wide_tile), K6 for every expert.
+//   * gemv_tile_wide, the wide tile: one CTA of one warpgroup (4 warps),
+//     64 columns by up to 128 rows, x by bulk copies, products on wgmma.
+//     K3 launches it above 24 rows, so at a decode's 128 rows each plane
+//     chunk is fetched and decoded once per column tile, not once per 64
+//     rows, and each x chunk feeds 64 columns, not 32.
+// The two give the same bits. A row's result depends only on its own x,
+// the planes, and the K split: never on the other rows of the tile, on
+// B, on where the row sits in x, or on the tile. Both walk a K range in
+// the same chunks, k ordered (r, q) inside a chunk; every output element
+// takes, per chunk, the same chain of k16 steps from a zero accumulator
+// (4 k-steps in order, each its bf16 terms in order) with the same 16
+// products in each step, and adds that chain's result to its f32 sum
+// with an ordinary add, chunk after chunk. A wgmma k16 step and an
+// mma.sync one give an element the same bits on the card (the K3 card
+// tests hold the tiles against each other). K6 relies on this to equal
+// K3 bit for bit on each expert.
 #pragma once
 
 #include "bitplane_common.cuh"
@@ -279,6 +294,203 @@ __device__ __forceinline__ void gemv_tile(
           dst[static_cast<size_t>(b0 + b) * M + m] = acc[nt][e];
       }
     }
+  }
+}
+
+// The wide tile: one warpgroup, 64 columns x 128 rows, its products on
+// wgmma and its operands brought in by bulk copies. Shared memory: a ring
+// of kWideStages chunks, each the plane rows (as gemv_tile stages them,
+// 64 columns wide) and the chunk's x as NX bf16 term tiles [128 rows][64
+// k]; then two U buffers [64 k][64 m]; then one mbarrier per stage. x
+// tiles and U are laid out as wgmma reads them: 8 x 8 core matrices of
+// 16-byte rows, x's 1 KB apart along the rows and 128 bytes along k (so a
+// tile is one contiguous copy of the wrapper's layout), U's 144 bytes
+// apart along m (a warp's decode stores meet no bank twice) and 1152
+// along k.
+constexpr int kWideThreads = 128;
+constexpr int kWideTM = 64;
+constexpr int kWideTB = 128;
+constexpr int kWideStages = 4;
+constexpr int kWidePlaneBytes = 8 * 8 * kWideTM;  // 8/g planes x 8g rows
+constexpr int kWideXBytes = kWideTB * kGemvChunkK * 2;  // one term tile
+constexpr int kWideUM = 144;                      // U: 8 columns apart
+constexpr int kWideUK = (kWideTM / 8) * kWideUM;  // U: 8 k apart
+constexpr int kWideUBytes = (kGemvChunkK / 8) * kWideUK;
+
+// Shared memory of a wide-tile CTA whose x has NX bf16 terms: 98 KB at
+// bf16 x (2 CTAs an SM), 226 KB at f32.
+template <int NX>
+constexpr size_t wide_smem() {
+  return kWideStages * (kWidePlaneBytes + NX * kWideXBytes) +
+         2 * kWideUBytes + kWideStages * 8;
+}
+
+// One CTA of the wide tile: the 64 columns from m0 of rows [b0, b0 +
+// rows) against the planes, over K range `split` (of `chunks_per_split`
+// chunks), written into out + split * B * M as gemv_tile writes it
+// without SERIAL. x comes as xt [NX][C][Bp/8][8][8][8] bf16 (Bp = B
+// rounded up to 128 rows, zero past B; C = ceil(K8 / 8g) chunks, zero
+// past K8): element (t, c, b / 8, kg, b % 8, ke) is term t of x at row b
+// and chunk k = 8 kg + ke in (r, q) order, so chunk c of a CTA's rows is
+// NX blocks of 16 KB, each one bulk copy. The terms: 1 for bf16 x; hi,
+// mid and lo for f32, as tc::split_pair makes them. The plane rows come
+// by cp.async, 16 bytes a copy. Step i: wgmma multiplies chunk i (4
+// k-steps, each its NX terms in order, into a zeroed accumulator), and
+// while the tensor cores run, the warpgroup starts the copies of chunk
+// i + 3 and decodes chunk i + 1 into the other U buffer; then it adds the
+// chunk's sum to acc.
+template <int G, int NX>
+__device__ __forceinline__ void gemv_tile_wide(
+    const __nv_bfloat16* __restrict__ xt, const uint8_t* __restrict__ planes,
+    float* __restrict__ out, int B, int K8, int M, int nd,
+    int chunks_per_split, bool p_vec, int m0, int b0, int rows, int split) {
+  constexpr int DPB = 8 / G;   // digit rows per packed row
+  constexpr int QC = 8 * G;    // packed rows per chunk
+  constexpr int CK = kGemvChunkK, TM = kWideTM, T = kWideThreads;
+  constexpr int S = kWideStages;
+  constexpr int kStage = kWidePlaneBytes + NX * kWideXBytes;
+  extern __shared__ __align__(128) unsigned char wsmem[];
+  auto p_slot = [&](int i) { return wsmem + (i % S) * kStage; };
+  auto x_slot = [&](int i) { return p_slot(i) + kWidePlaneBytes; };
+  auto u_buf = [&](int i) {
+    return wsmem + S * kStage + (i & 1) * kWideUBytes;
+  };
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(wsmem + S * kStage + 2 * kWideUBytes);
+
+  const int n_chunks = (K8 + QC - 1) / QC;
+  const int bp = (B + kWideTB - 1) / kWideTB * kWideTB;
+  const int c_begin = split * chunks_per_split;
+  const int n =
+      max(0, min(n_chunks, c_begin + chunks_per_split) - c_begin);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / 4, tig = lane % 4;
+
+  // Thread 0 arms chunk i's barrier and starts the bulk copies of its x
+  // tiles.
+  auto issue = [&](int i) {
+    if (i >= n) return;
+    uint64_t* bar = &full[i % S];
+    tc::mbar_expect_tx(bar, NX * kWideXBytes);
+    for (int term = 0; term < NX; ++term)
+      tc::bulk_copy(x_slot(i) + term * kWideXBytes,
+                    xt + ((static_cast<size_t>(term) * n_chunks + c_begin +
+                           i) * bp + b0) * CK,
+                    kWideXBytes, bar);
+  };
+  // The warpgroup stages chunk i's planes as gemv_tile does,
+  // p_s[(j * QC + ql) * TM + cc] = planes[j, q0 + ql, m0 + cc], zero past
+  // every edge; one cp.async group (maybe empty).
+  auto stage_planes = [&](int i) {
+    if (i < n) {
+      const int q0 = (c_begin + i) * QC;
+      uint8_t* p_s = p_slot(i);
+      if (p_vec) {
+        for (int idx = threadIdx.x; idx < nd * QC * (TM / 16); idx += T) {
+          const int p = idx % (TM / 16), ql = (idx / (TM / 16)) % QC;
+          const int j = idx / (QC * (TM / 16));
+          const int q = q0 + ql, m = m0 + p * 16;
+          const bool ok = q < K8 && m < M;
+          tc::cp_async16(
+              p_s + (j * QC + ql) * TM + p * 16,
+              ok ? planes + (static_cast<size_t>(j) * K8 + q) * M + m : planes,
+              ok ? 16 : 0);
+        }
+      } else {
+        for (int idx = threadIdx.x; idx < nd * QC * TM; idx += T) {
+          const int cc = idx % TM, ql = (idx / TM) % QC, j = idx / (TM * QC);
+          const int q = q0 + ql, m = m0 + cc;
+          p_s[(j * QC + ql) * TM + cc] =
+              (q < K8 && m < M)
+                  ? planes[(static_cast<size_t>(j) * K8 + q) * M + m]
+                  : 0;
+        }
+      }
+    }
+    tc::cp_async_commit();
+  };
+
+  // Decode chunk i into U: a task is one packed row ql x 4 columns, as in
+  // gemv_tile; U[k][m] for k = r * QC + ql lands in its core matrix row.
+  auto decode = [&](int i) {
+    const uint8_t* p_s = p_slot(i);
+    unsigned char* u_s = u_buf(i);
+#pragma unroll
+    for (int t = 0; t < G; ++t) {
+      const int task = threadIdx.x + t * T;
+      const int ql = task / (TM / 4), mg = task % (TM / 4);
+      uint32_t w[DPB];
+#pragma unroll
+      for (int j = 0; j < DPB; ++j)
+        w[j] = j < nd ? *reinterpret_cast<const uint32_t*>(
+                            p_s + (j * QC + ql) * TM + mg * 4)
+                      : 0u;
+      transpose_digit_words<G>(w);
+#pragma unroll
+      for (int r = 0; r < DPB; ++r) {
+        const int k = r * QC + ql;
+        uint2 v;
+        v.x = bytes_to_bf16x2(w[r], 0);
+        v.y = bytes_to_bf16x2(w[r], 2);
+        *reinterpret_cast<uint2*>(u_s + (k / 8) * kWideUK +
+                                  (mg / 2) * kWideUM + (k % 8) * 16 +
+                                  (mg % 2) * 8) = v;
+      }
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) tc::mbar_init(&full[s], 1);
+    tc::mbar_init_fence();
+  }
+  __syncthreads();
+
+  float acc[64], t[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+
+  for (int s = 0; s < S - 1; ++s) {
+    if (threadIdx.x == 0) issue(s);
+    stage_planes(s);
+  }
+  tc::cp_async_wait<S - 2>();
+  __syncthreads();
+  if (n > 0) decode(0);
+  for (int i = 0; i < n; ++i) {
+    tc::mbar_wait(&full[i % S], (i / S) & 1);
+    tc::cp_async_wait<S - 3>();
+    tc::fence_proxy_async();
+    __syncthreads();  // chunk i's x and U are in place for wgmma; chunk
+                      // i + 1's planes landed; step i - 1 is done
+#pragma unroll
+    for (int e = 0; e < 64; ++e) t[e] = 0.0f;
+    tc::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < CK / 16; ++ks)
+#pragma unroll
+      for (int term = 0; term < NX; ++term)
+        tc::wgmma_m64n128k16(
+            t, tc::smem_desc(u_buf(i) + ks * 2 * kWideUK, kWideUK, kWideUM),
+            tc::smem_desc(x_slot(i) + term * kWideXBytes + ks * 256, 128,
+                          1024));
+    tc::wgmma_commit();
+    if (threadIdx.x == 0) issue(i + S - 1);  // into chunk i - 1's slot
+    stage_planes(i + S - 1);
+    if (i + 1 < n) decode(i + 1);
+    tc::wgmma_wait<0>();
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] += t[e];
+  }
+  tc::cp_async_wait<0>();
+
+  // D fragment: rows = columns m, columns = rows b
+  float* dst = out + static_cast<size_t>(split) * B * M;
+#pragma unroll
+  for (int e = 0; e < 64; ++e) {
+    const int m = m0 + 16 * warp + grp + 8 * ((e & 3) >> 1);
+    const int b = 8 * (e >> 2) + 2 * tig + (e & 1);
+    if (m < M && b < rows)
+      dst[static_cast<size_t>(b0 + b) * M + m] = acc[e];
   }
 }
 

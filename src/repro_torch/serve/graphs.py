@@ -43,8 +43,8 @@ dispatches.
 What the host saw. A replay launches the pieces' kernels without
 passing their Python launchers, so the capture notes what the launchers
 did on the host and each replay does it again: every kernel module's
-`LAUNCHES` grows by the launches captured (K1's are eager and count
-themselves), and the host work handed to `each_run` during the capture
+`LAUNCHES` (and K3's `LAUNCHES_WIDE`) grows by the launches captured
+(K1's are eager and count themselves), and the host work handed to `each_run` during the capture
 (a harness's reading of a step's tensors) runs after every replay. The
 kernels' counts therefore add up per step, replayed or not.
 
@@ -76,6 +76,10 @@ INPUTS = (1, -3, -2, -1)
 #: launches to
 KERNELS = (paged_attention, paged_prefill, bitplane_gemv, bitplane_gemm,
            pack, bitplane_grouped)
+#: (module, counter) of every host launch count a replay adds to: each
+#: module's `LAUNCHES`, then K3's launches on its wide tile
+COUNTERS = tuple((m, "LAUNCHES") for m in KERNELS) + (
+    (bitplane_gemv, "LAUNCHES_WIDE"),)
 
 #: the capture in progress (`_Pieces`), for `each_run`
 _CAPTURE = contextvars.ContextVar("decode_graph_capture", default=None)
@@ -112,7 +116,7 @@ def _pointers(leaf, out: List[int]) -> List[int]:
 class _Pieces:
     """One capture: `graphs[l]` runs up to layer l's K1 call, `k1[l]` is
     that call and the tensor its output stays in; `graphs[L]` is the
-    rest of the step. `launches` holds, per module of `KERNELS`, the
+    rest of the step. `launches` holds, per counter of `COUNTERS`, the
     launches captured in the pieces; `effects` the host work handed to
     `each_run`."""
 
@@ -120,13 +124,13 @@ class _Pieces:
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: List[torch.cuda.CUDAGraph] = []
         self.k1: List[tuple] = []
-        self.launches = [0] * len(KERNELS)
+        self.launches = [0] * len(COUNTERS)
         self.effects: List[Callable[[], None]] = []
         self._open: Optional[torch.cuda.CUDAGraph] = None
         self._at: List[int] = []
 
     def begin(self) -> None:
-        self._at = [m.LAUNCHES for m in KERNELS]
+        self._at = [getattr(m, c) for m, c in COUNTERS]
         self._open = torch.cuda.CUDAGraph()
         self._open.capture_begin(pool=self.pool)
 
@@ -134,8 +138,8 @@ class _Pieces:
         """Close the open piece and run it."""
         graph, self._open = self._open, None
         graph.capture_end()
-        self.launches = [n + m.LAUNCHES - a for n, m, a
-                         in zip(self.launches, KERNELS, self._at)]
+        self.launches = [n + getattr(m, c) - a for n, (m, c), a
+                         in zip(self.launches, COUNTERS, self._at)]
         self.graphs.append(graph)
         graph.replay()
 
@@ -158,8 +162,8 @@ class _Pieces:
         """After a run of the step: the captured launches counted again
         (a replay), and the host work of `each_run`."""
         if replayed:
-            for m, n in zip(KERNELS, self.launches):
-                m.LAUNCHES += n
+            for (m, c), n in zip(COUNTERS, self.launches):
+                setattr(m, c, getattr(m, c) + n)
         for fn in self.effects:
             fn()
 

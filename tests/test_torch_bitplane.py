@@ -242,6 +242,38 @@ def test_gemv_splits_fill_the_card_on_the_main_path(k, m, group):
     assert -(-m // bitplane_gemv.TILE_M) * s >= 132, (k, m, group, s)
 
 
+@pytest.mark.parametrize("b,wide", [(1, False), (16, False), (24, False),
+                                    (25, True), (64, True), (65, True),
+                                    (128, True), (512, True)])
+def test_wide_tile_is_a_function_of_rows(b, wide):
+    """K3's tile rule: the narrow tile up to `NARROW_MAX_B` = 24 rows,
+    the wide one above, whatever the weight."""
+    assert bitplane_gemv.NARROW_MAX_B == 24
+    assert bitplane_gemv.wide_tile(b) is wide
+
+
+@pytest.mark.parametrize("k,m,splits", [
+    (6144, 6144, 3), (6144, 128, 96), (6144, 24576, 1), (24576, 6144, 3),
+    (2304, 4096, 5), (2304, 512, 18), (4096, 2304, 8),
+])
+def test_gemv_splits_on_the_cells_shapes(k, m, splits):
+    """K3's K ranges on granite-20b's projections (q / o, k / v, up,
+    down) and mellum2-12b-a2.5b's attention (q, k / v, o) at 8-bit g = 1:
+    pinned, so the wide tile walks the ranges the narrow tile walked."""
+    assert bitplane_gemv.gemv_splits(k // 8, m, 1) == splits
+
+
+@pytest.mark.parametrize("dtype,b,k8,group,want", [
+    (torch.bfloat16, 128, 768, 1, 96 * 128 * 64),
+    (torch.bfloat16, 129, 768, 1, 96 * 256 * 64),
+    (torch.float32, 187, 25, 2, 3 * 2 * 256 * 64),
+])
+def test_wide_x_elements(dtype, b, k8, group, want):
+    """The wide tile's x scratch: each bf16 term (3 for f32) of every
+    chunk of 64 k for the rows rounded up to 128."""
+    assert bitplane_gemv.wide_x_elements(dtype, b, k8, group) == want
+
+
 def test_cuda_impl_raises_on_cpu_tensors():
     tw, _ = _weights(10, 64, 32)
     planes, scale = ops.quantize_and_pack(tw, 8, 1, "ref")

@@ -13,10 +13,11 @@ and in where hd^-0.5 is applied); the bucketed launch and the single
 launch are compared bit for bit. Bit-plane kernels: K5 planes equal the
 plain pack byte for byte; K3/K4 raw contractions within 1e-5 of
 max|raw| of the plain one (products of x with integer weights are exact
-in f32, only the summation order differs). The telemetry test holds
-the perf model's streamed-byte prediction exactly (error 0) against the
-bucketed launches the card runs, and its tokens equal to a drain
-without telemetry. Serving tests (paged and dense) hold the greedy f32
+in f32, only the summation order differs), and K3's rows bit for bit
+across B, its wide tile (wgmma) against its narrow one (mma.sync). The
+telemetry test holds the perf model's streamed-byte prediction exactly
+(error 0) against the bucketed launches the card runs, and its tokens
+equal to a drain without telemetry. Serving tests (paged and dense) hold the greedy f32
 tokens with the kernels equal to those with the plain versions.
 The IMAGine simulator (plain torch ops, no kernel of its own) gives on
 the card the register file and y it gives on the CPU, bit for bit.
@@ -528,7 +529,8 @@ def test_bitplane_gemv_main_path_shapes(cuda_device, k, m, dtype):
     """K3 on qwen2-1.5b's four projection shapes: within 1e-5 of max|raw|
     of the plain contraction at 512 rows, and the rows of an 8-row launch
     equal the same rows of a 1-row and a 512-row launch bit for bit (the
-    K split does not move with B, rows never mix)."""
+    K split does not move with B, rows never mix, and the wide tile that
+    takes 100 and 512 rows gives the narrow tile's bits)."""
     dev = cuda_device
     gen = torch.Generator(device=dev).manual_seed(9)
     w = torch.randn((k, m), generator=gen, device=dev)
@@ -548,6 +550,38 @@ def test_bitplane_gemv_main_path_shapes(cuda_device, k, m, dtype):
     assert torch.equal(raws[512][:100], raws[100])
     assert torch.equal(raws[512][:8], raws[8])
     assert torch.equal(raws[8][:1], raws[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,m", [(6144, 6144), (6144, 128), (6144, 24576),
+                                 (24576, 6144)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bitplane_gemv_wide_tile_equals_narrow(cuda_device, k, m, dtype):
+    """K3 on granite-20b's projection shapes ([6144 -> 6144] q and o,
+    [6144 -> 128] k and v, [6144 -> 24576] up, [24576 -> 6144] down):
+    every row of a launch of B rows, B in {187, 128, 65, 64, 25, 24, 16,
+    1}, equals the same row of every other launch bit for bit, so the
+    wide tile (B > 24) gives the narrow tile's bits; and within 1e-5 of
+    max|raw| of the plain contraction. `LAUNCHES_WIDE` counts the
+    launches above 24 rows and only those."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(k + m)
+    planes = torch.randint(0, 256, (8, k // 8, m), generator=gen,
+                           device=dev, dtype=torch.uint8)
+    x = torch.randn((187, k), generator=gen, device=dev).to(dtype)
+    raws = {}
+    for b in (187, 128, 65, 64, 25, 24, 16, 1):
+        x_r = ref.prepare_x_ref(x[:b], 1).contiguous()
+        before = (bitplane_gemv.LAUNCHES, bitplane_gemv.LAUNCHES_WIDE)
+        raws[b] = bitplane_gemv.bitplane_gemv(x_r, planes, n_bits=8)
+        assert (bitplane_gemv.LAUNCHES, bitplane_gemv.LAUNCHES_WIDE) == (
+            before[0] + 1, before[1] + (b > 24))
+    plain = x.float() @ ref.offset_form_ref(planes, 1).float()
+    torch.cuda.synchronize()
+    err = float((raws[187] - plain).abs().max() / plain.abs().max())
+    assert err <= 1e-5, (k, m, dtype, err)
+    for b, raw in raws.items():
+        assert torch.equal(raw, raws[187][:b]), b
 
 
 @pytest.mark.gpu
@@ -1269,21 +1303,22 @@ def _pool_tensors(pc, page0=False):
 
 
 def _graphed_and_eager(dev, cfg, params, prompts, telemetry=None,
-                       replace_pool_at=None, whole=False, **kw):
+                       replace_pool_at=None, whole=False, n_slots=3, **kw):
     """One drain with the decode step graphed, one with it eager, in
     lockstep: after each tick, the decoded rows' logits and tokens, their
     rows of each MoE output `_moe_read` read, and both pools (scales
     included) are equal bit for bit, each kernel module's `LAUNCHES`
-    grew alike, and at the end the finished requests' tokens are equal.
-    Idle and parked rows read scratch page 0 (`_pool_tensors`), so their
-    rows and page 0 are left out, unless `whole` (for a run whose
-    index_put sorts). Returns the graphed and the eager decode step, the
-    ticks and the decodes."""
-    from repro_torch.serve.graphs import KERNELS
+    and K3's `LAUNCHES_WIDE` (`serve.graphs.COUNTERS`) grew alike, and
+    at the end the finished requests' tokens are equal. Idle and parked
+    rows read scratch page 0 (`_pool_tensors`), so their rows and page 0
+    are left out, unless `whole` (for a run whose index_put sorts).
+    `n_slots` sets the decode's rows. Returns the graphed and the eager
+    decode step, the ticks and the decodes."""
+    from repro_torch.serve.graphs import COUNTERS
 
     runs = {}
     for graphed in (True, False):
-        cb = ContinuousBatcher(cfg, params, n_slots=3, cache_len=64,
+        cb = ContinuousBatcher(cfg, params, n_slots=n_slots, cache_len=64,
                                paged=True, block_size=4, device=dev,
                                telemetry=telemetry if graphed else None,
                                **kw)
@@ -1303,9 +1338,10 @@ def _graphed_and_eager(dev, cfg, params, prompts, telemetry=None,
                 cb.pcache.k_pages = cb.pcache.k_pages.clone()
         launched = []
         for cb in (a, b):
-            before = [m.LAUNCHES for m in KERNELS]
+            before = [getattr(m, c) for m, c in COUNTERS]
             cb.step()
-            launched.append([m.LAUNCHES - n for m, n in zip(KERNELS, before)])
+            launched.append([getattr(m, c) - n
+                             for (m, c), n in zip(COUNTERS, before)])
         assert launched[0] == launched[1]
         ticks += 1
         assert len(log_a) == len(log_b)
@@ -1445,6 +1481,32 @@ def test_one_capture_per_signature_and_a_new_one_per_pool(cuda_device):
             == decodes)
     assert step.cache_size() == eager.cache_size()
     assert trace_count("decode") - before == 2 * step.cache_size()
+
+
+@pytest.mark.gpu
+def test_replays_count_k3_wide_launches(cuda_device):
+    """A decode of 32 slots runs K3 on its wide tile (above 24 rows), from
+    the decode graphs: each replay adds the wide launches its capture saw
+    to `bitplane_gemv.LAUNCHES_WIDE`, so the graphed drain counts them as
+    the eager one does, tick by tick (`_graphed_and_eager`), and they are
+    counted at every decode."""
+    from repro_torch.kernels import bitplane_gemv
+    from repro_torch.obs import ManualClock, ServeTelemetry
+
+    dev = cuda_device
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    params = quantize_tree(
+        init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev),
+        PimQuantConfig(8, 1, min_features=8))
+    tel = ServeTelemetry(clock=ManualClock())
+    before = bitplane_gemv.LAUNCHES_WIDE
+    _, _, _, decodes = _graphed_and_eager(
+        dev, cfg, params, _graph_prompts(cfg.vocab_size), telemetry=tel,
+        n_slots=32, prefill_chunk=8)
+    assert bitplane_gemv.wide_tile(32)
+    assert _graph_counts(tel) == (1, decodes - 2)
+    wide = bitplane_gemv.LAUNCHES_WIDE - before
+    assert wide >= 2 * decodes, (wide, decodes)
 
 
 @pytest.mark.gpu
